@@ -6,7 +6,7 @@
 Phases, each printing one JSON line:
 
   device     the card's name and power limit (nvidia-smi)
-  build      nvcc of every csrc/*.cu kernel source, all started together
+  build      nvcc of the kernel source csrc/segscan.cu
   kernels    each K1 instance (ops/segscan.py), held against its plain
              torch version on the card, then timed beside it, beside one
              scatter_reduce call (a yardstick the port never calls) and
@@ -19,8 +19,10 @@ Phases, each printing one JSON line:
   serve      the main path at full width: a seeded BUDDY checkpoint
              (Config defaults, synth-ws-200000) is rebuilt with
              scorer_from_checkpoint on the card and answers four requests;
-             the K1 launch counts are read around that run, and the
-             sketches are recomputed with the plain merge and compared
+             the K1 launch counts are read around that run.  Then the
+             served state of the train and test splits (the two message
+             graphs the rebuild runs K1 on) is recomputed with the plain
+             merge: sketches bit-equal, SIGN features within the add bound
   profile    the same rebuild and one 262144-link request again under
              torch.profiler: host stage times, device busy time and share,
              the top kernels
@@ -28,7 +30,6 @@ Phases, each printing one JSON line:
 then the per-kernel summary line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises: the run exits
 non-zero and prints no last line.  Without a CUDA device it exits 2 at once.
-``--out FILE`` also writes every phase's record to FILE as JSON.
 """
 
 from __future__ import annotations
@@ -76,15 +77,14 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def phase_build() -> dict:
     from subgraph_sketching_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
-    libs = cuda_build.build_all()
+    cuda_build.load("segscan")
     seconds = time.perf_counter() - t0
-    for path in libs.values():
-        log = path[:-3] + ".log"
-        if os.path.exists(log):
-            with open(log) as f:
-                sys.stderr.write(f.read())
+    path = cuda_build.library_path("segscan")
+    if os.path.exists(path[:-3] + ".log"):   # absent when the build was reused
+        with open(path[:-3] + ".log") as f:
+            sys.stderr.write(f.read())
     return {"phase": "build", "seconds": seconds,
-            "libraries": {k: os.path.relpath(v) for k, v in libs.items()}}
+            "library": os.path.relpath(path)}
 
 
 # (instance name, op, dtype name, width) for every K1 instance
@@ -94,25 +94,25 @@ INSTANCES = [("segscan_min_i32", "min", "int32", 128),
              ("segscan_add_f32", "add", "float32", 128)]
 
 
-def main_path_plans(cfg) -> dict:
-    """The plans the serve phase's K1 launches run on, built the way the
-    port builds them: the train message graph's sketch plan (min/max) and
-    its gcn-normalised SIGN plan with self-loops and staged weights (add)."""
+def graph_plans(g, cfg) -> dict:
+    """The plans the serve phase's K1 launches run on for one message graph
+    ``g``, built the way the port builds them: the sketch plan (min/max)
+    and the gcn-normalised SIGN plan with self-loops and staged weights
+    (add)."""
     import numpy as np
     import torch
 
-    from subgraph_sketching_tpu_torch.graph.datasets import get_data
     from subgraph_sketching_tpu_torch.ops.graph_ops import gcn_norm
     from subgraph_sketching_tpu_torch.ops.segment_scan import make_auto_plan
 
-    splits, _, _ = get_data(cfg)
-    g = splits["train"].graph
     n = g.num_nodes
     sketch_plan = make_auto_plan(g.edge_index, n,
                                  max_slots=cfg.max_gather_slots,
                                  device="cuda")
     ei = torch.from_numpy(g.edge_index.astype(np.int64)).to("cuda")
-    nei, nw = gcn_norm(ei, None, n)
+    ew = (None if g.edge_weight is None
+          else torch.from_numpy(np.asarray(g.edge_weight)).to("cuda"))
+    nei, nw = gcn_norm(ei, ew, n)
     sign_plan = make_auto_plan(nei.cpu().numpy(), n,
                                max_slots=cfg.max_gather_slots, device="cuda")
     return {"graph": g, "min": (sketch_plan, None), "max": (sketch_plan, None),
@@ -134,6 +134,20 @@ def bench_hub_plans(seed: int = 0) -> dict:
     plan = SortedSegmentPlan(np.stack([src, dst]), n, device="cuda")
     w = plan.stage_edge_data(rng.random(e + hub_in, dtype=np.float32))
     return {"min": (plan, None), "max": (plan, None), "add": (plan, w)}
+
+
+ADD_TOLERANCE = "|err| <= 1e-4 * sum|v| + 1e-6"
+
+
+def check_add(got, want, v, x, ptr, what: str) -> None:
+    """float32 sums in another order (the kernel in sequence, the plain
+    version with atomics): |err| <= 1e-4 * sum |v| + 1e-6 per element."""
+    from subgraph_sketching_tpu_torch.ops import segscan
+    scale = segscan.segment_combine_plain(v.abs(), x, "add", ptr)
+    err = (got - want).abs()
+    if bool((err > 1e-4 * scale + 1e-6).any()):
+        raise AssertionError(f"{what}: kernel and plain version disagree, "
+                             f"max |err| {float(err.max())}")
 
 
 def phase_kernels(shape: str, plans: dict, seed: int = 0) -> list:
@@ -158,33 +172,27 @@ def phase_kernels(shape: str, plans: dict, seed: int = 0) -> list:
             x = torch.randint(lo, hi, (n, width), generator=g, device="cuda",
                               dtype=dtype)
         v = plan.reduce_subruns(x, op, w_slots).contiguous()
-        got = segscan.segment_combine(v, x, op, plan.sub_ptr, plan.sub_dst)
-        want = segscan.segment_combine_plain(v, x, op, plan.sub_dst)
+        got = segscan.segment_combine(v, x, op, plan.sub_ptr)
+        want = segscan.segment_combine_plain(v, x, op, plan.sub_ptr)
         torch.cuda.synchronize()
         max_err = float((got.double() - want.double()).abs().max())
         if op == "add":
-            # float32 sums in another order (the kernel in sequence, the
-            # plain version with atomics): |err| <= 1e-4 * sum |terms|
-            scale = segscan.segment_combine_plain(v.abs(), x, op,
-                                                  plan.sub_dst)
-            if bool(((got - want).abs() > 1e-4 * scale + 1e-6).any()):
-                raise AssertionError(f"{name} ({shape}): kernel and plain "
-                                     f"version disagree, max |err| {max_err}")
-            tolerance = "|err| <= 1e-4 * sum|v| + 1e-6"
+            check_add(got, want, v, x, plan.sub_ptr, f"{name} ({shape})")
+            tolerance = ADD_TOLERANCE
         else:
             if not torch.equal(got, want):
                 raise AssertionError(f"{name} ({shape}): kernel is not "
                                      f"bit-equal to the plain version")
             tolerance = "bit-equal"
         kernel_ms = cuda_ms(lambda: segscan.segment_combine(
-            v, x, op, plan.sub_ptr, plan.sub_dst))
+            v, x, op, plan.sub_ptr))
         plain_ms = cuda_ms(lambda: segscan.segment_combine_plain(
-            v, x, op, plan.sub_dst))
+            v, x, op, plan.sub_ptr))
         # yardstick: one scatter_reduce computing the same function (x as
         # the initial value folds the node's own row in for min/max)
         red = {"min": "amin", "max": "amax", "add": "sum"}[op]
         base = x if op != "add" else torch.zeros_like(x)
-        idx = plan.sub_dst[:, None].expand(-1, width)
+        idx = segscan.segment_ids(plan.sub_ptr)[:, None].expand(-1, width)
         lib_v, lib_base, widened = v, base, False
         try:
             base.scatter_reduce(0, idx, v, red, include_self=True)
@@ -268,11 +276,47 @@ def phase_reference(seed: int = 1) -> dict:
             "tolerance": "sketches bit-equal, cards 1e-5, scores 1e-4"}
 
 
-def phase_serve(cfg, plans: dict, seed: int = 2) -> dict:
+def check_against_plain(cfg, scorer, plans: dict, what: str) -> None:
+    """The served state of one message graph again, with the plain merge on
+    the card: every propagated sketch hop bit-equal, and the SIGN features
+    (one propagation at sign_k=0) within the add bound."""
+    import numpy as np
+    import torch
+
+    from subgraph_sketching_tpu_torch.ops import segscan
+    from subgraph_sketching_tpu_torch.sketch.elph import initialise_sketches
+
+    plan = plans["min"][0]
+    rows = initialise_sketches(plan.num_segments, scorer.sketch_params,
+                               "cuda")
+    first = 0 if cfg.hops_only_sketches else 1   # stack row of hop 1
+    for hop in range(1, cfg.max_hash_hops + 1):
+        rows = tuple(
+            segscan.segment_combine_plain(plan.reduce_subruns(r, op), r, op,
+                                          plan.sub_ptr)
+            for r, op in zip(rows, ("min", "max")))
+        i = hop - 1 + first
+        if not (torch.equal(rows[0], scorer.sk.minhash[i])
+                and torch.equal(rows[1], scorer.sk.hll[i])):
+            raise AssertionError(f"{what}, hop {hop}: kernel-path sketches "
+                                 f"differ from the plain merge")
+    if cfg.sign_k != 0:
+        raise NotImplementedError("the SIGN check covers sign_k=0 only")
+    sign_plan, w = plans["add"]
+    x0 = torch.from_numpy(np.asarray(plans["graph"].x,
+                                     dtype=np.float32)).to("cuda")
+    v = sign_plan.reduce_subruns(x0, "add", w).contiguous()
+    want = segscan.segment_combine_plain(v, x0, "add", sign_plan.sub_ptr)
+    check_add(scorer.x, want, v, x0, sign_plan.sub_ptr,
+              f"{what}, SIGN features")
+
+
+def phase_serve(cfg, splits, train_plans: dict, seed: int = 2) -> dict:
     """The main path at full width: rebuild a seeded checkpoint on the card
-    with scorer_from_checkpoint, answer four requests, read the K1 launch
-    counts around that run, and recompute the served sketches hop by hop
-    with the plain merge."""
+    with scorer_from_checkpoint, answer four requests, and read the K1
+    launch counts around that run.  Then hold the served state of both
+    message graphs K1 ran on (train, and test, which adds the validation
+    edges) against the plain merge."""
     import numpy as np
     import torch
 
@@ -281,7 +325,6 @@ def phase_serve(cfg, plans: dict, seed: int = 2) -> dict:
     from subgraph_sketching_tpu_torch.serving import (
         save_buddy_checkpoint, scorer_from_checkpoint,
     )
-    from subgraph_sketching_tpu_torch.sketch.elph import initialise_sketches
 
     ckpt = os.path.join(BUILD_DIR, "smoke_serve_checkpoint")
     save_buddy_checkpoint(ckpt, cfg, seeded_buddy(cfg, 128, seed))
@@ -294,7 +337,6 @@ def phase_serve(cfg, plans: dict, seed: int = 2) -> dict:
     scorer = scorer_from_checkpoint(ckpt, device="cuda")
     torch.cuda.synchronize()
     preprocess_s = time.perf_counter() - t0
-    shutil.rmtree(ckpt)
 
     rng = np.random.default_rng(seed)
     scorer.warmup()
@@ -311,6 +353,7 @@ def phase_serve(cfg, plans: dict, seed: int = 2) -> dict:
         requests.append({"links": size, "ms": dt * 1e3,
                          "links_per_s": size / dt})
     launches = dict(segscan.launches)
+    peak_memory = torch.cuda.max_memory_allocated()
 
     need = {"segscan_min_i32": cfg.max_hash_hops,
             "segscan_max_i8": cfg.max_hash_hops, "segscan_add_f32": 1}
@@ -319,28 +362,24 @@ def phase_serve(cfg, plans: dict, seed: int = 2) -> dict:
         raise AssertionError(f"the main path did not run through K1: "
                              f"{launches}")
 
-    # the served (train) sketches again, hop by hop with the plain merge
-    plan = plans["min"][0]
-    rows = initialise_sketches(plan.num_segments, scorer.sketch_params,
-                               "cuda")
-    for hop in range(1, cfg.max_hash_hops + 1):
-        rows = tuple(
-            segscan.segment_combine_plain(plan.reduce_subruns(r, op), r, op,
-                                          plan.sub_dst)
-            for r, op in zip(rows, ("min", "max")))
-        if not (torch.equal(rows[0], scorer.sk.minhash[hop])
-                and torch.equal(rows[1], scorer.sk.hll[hop])):
-            raise AssertionError(f"hop {hop}: kernel-path sketches differ "
-                                 f"from the plain merge")
+    # the test split's message graph is the other one the rebuild ran K1
+    # on; the scorer for it comes from the same entry point
+    test_scorer = scorer_from_checkpoint(ckpt, split="test", device="cuda")
+    shutil.rmtree(ckpt)
+    check_against_plain(cfg, scorer, train_plans, "train")
+    del scorer
+    check_against_plain(cfg, test_scorer,
+                        graph_plans(splits["test"].graph, cfg), "test")
     return {"phase": "serve", "dataset": cfg.dataset_name,
-            "nodes": scorer.num_nodes,
-            "train_message_edges": int(plans["graph"].num_edges),
+            "nodes": test_scorer.num_nodes,
+            "train_message_edges": int(train_plans["graph"].num_edges),
+            "test_message_edges": int(splits["test"].graph.num_edges),
             "hidden_channels": cfg.hidden_channels,
             "minhash_num_perm": cfg.minhash_num_perm, "hll_p": cfg.hll_p,
             "max_hash_hops": cfg.max_hash_hops, "sign_k": cfg.sign_k,
             "preprocess_s": preprocess_s, "k1_launches": launches,
-            "sketches_equal_plain_merge": True, "requests": requests,
-            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+            "state_equals_plain_merge": ["train", "test"],
+            "requests": requests, "peak_memory_bytes": peak_memory}
 
 
 def _device_time(prof) -> tuple:
@@ -405,59 +444,42 @@ def phase_profile(cfg, seed: int = 3) -> dict:
     return {"phase": "profile", "rebuild": rebuild, "request": request}
 
 
-def main(argv=None) -> int:
-    import argparse
-
+def main() -> int:
     import torch
-    parser = argparse.ArgumentParser(description="smoke run of the port "
-                                     "on one CUDA card")
-    parser.add_argument("--out", default=None,
-                        help="also write every phase's record to this JSON "
-                             "file")
-    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     # the port itself: fails here when run outside a checkout of the repo
     import subgraph_sketching_tpu_torch  # noqa: F401
     from subgraph_sketching_tpu_torch.config import Config
+    from subgraph_sketching_tpu_torch.graph.datasets import get_data
 
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
-    records = [{"phase": "device", "name": kind, "nvidia_smi": smi,
-                "torch": torch.__version__, "cuda": torch.version.cuda}]
-    emit(records[-1])
-    records.append(phase_build())
-    emit(records[-1])
+    emit({"phase": "device", "name": kind, "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+    emit(phase_build())
     cfg = Config(dataset_name="synth-ws-200000")   # full-width defaults
-    plans = main_path_plans(cfg)
+    splits, _, _ = get_data(cfg)
+    plans = graph_plans(splits["train"].graph, cfg)
     main_records = phase_kernels("main_path", plans)
     hub_records = phase_kernels("bench_hub", bench_hub_plans())
     for r in main_records + hub_records:
         emit(r)
-    records += main_records + hub_records
-    records.append(phase_reference())
-    emit(records[-1])
-    records.append(phase_serve(cfg, plans))
-    emit(records[-1])
-    serve_launches = records[-1]["k1_launches"]
-    records.append(phase_profile(cfg))
-    emit(records[-1])
+    emit(phase_reference())
+    serve = phase_serve(cfg, splits, plans)
+    emit(serve)
+    emit(phase_profile(cfg))
     # the instances the main path launched (int32 max is checked and timed
     # above, but serving does not run it)
-    summary = {"kernels": [{
+    launches = serve["k1_launches"]
+    emit({"kernels": [{
         "name": r["name"], "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": serve_launches[r["name"]],
+        "replaces": REPLACES, "launches": launches[r["name"]],
         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
-        for r in main_records if serve_launches[r["name"]] > 0]}
-    records.append(summary)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(records, f, indent=1)
-    emit(summary)
+        for r in main_records if launches[r["name"]] > 0]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

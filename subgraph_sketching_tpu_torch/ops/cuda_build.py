@@ -1,21 +1,20 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface and loaded with ctypes.  The build
-runs at first use, from the sources in this package only, into ``_build/``
+``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface and loaded with ctypes.  The build runs
+at first use, from the sources in this package only, into ``_build/``
 beside it; the library's file name carries a hash of its source and flags,
-so an edited source is rebuilt and a current one is reused.
+so an edited source is rebuilt and a current one is reused.  nvcc's output
+(``-Xptxas -v``: registers and spills) is kept beside it as ``.log``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import glob
 import hashlib
 import os
 import shutil
 import subprocess
-import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -24,7 +23,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: dict = {}
-_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -38,57 +36,28 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def sources() -> list:
-    """Names of every kernel source (``csrc/<name>.cu``)."""
-    return sorted(os.path.splitext(os.path.basename(p))[0]
-                  for p in glob.glob(os.path.join(CSRC, "*.cu")))
-
-
 def library_path(name: str) -> str:
     with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}_{digest.hexdigest()[:12]}.so")
 
 
-def _start_build(name: str):
-    """Start nvcc for ``name`` unless its library is current; returns
-    (process or None, output path, log path)."""
-    out = library_path(name)
-    log = out[:-3] + ".log"
-    if os.path.exists(out):
-        return None, out, log
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
-    with open(log, "w") as logf:
-        proc = subprocess.Popen(cmd, stdout=logf, stderr=subprocess.STDOUT)
-    return proc, out, log
-
-
-def _finish_build(name: str, proc, out: str, log: str) -> str:
-    if proc is None:
-        return out
-    rc = proc.wait()
-    tmp = f"{out}.{os.getpid()}.tmp"
-    if rc != 0:
-        with open(log) as f:
-            raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
-                               f"(rc {rc}):\n{f.read()}")
-    os.replace(tmp, out)   # atomic: a concurrent build never sees a partial
-    return out
-
-
-def build_all() -> dict:
-    """Build every kernel source, one nvcc process each, all started
-    together; returns {name: library path}."""
-    started = {n: _start_build(n) for n in sources()}
-    return {n: _finish_build(n, *started[n]) for n in started}
-
-
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built if needed."""
-    with _LOCK:
-        if name not in _LIBS:
-            path = _finish_build(name, *_start_build(name))
-            _LIBS[name] = ctypes.CDLL(path)
-        return _LIBS[name]
+    if name not in _LIBS:
+        out = library_path(name)
+        if not os.path.exists(out):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{out}.{os.getpid()}.tmp"
+            res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                                  os.path.join(CSRC, f"{name}.cu")],
+                                 capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
+                                   f"(rc {res.returncode}):\n{res.stdout}"
+                                   f"{res.stderr}")
+            with open(out[:-3] + ".log", "w") as f:
+                f.write(res.stdout + res.stderr)
+            os.replace(tmp, out)   # atomic: no process loads a partial file
+        _LIBS[name] = ctypes.CDLL(out)
+    return _LIBS[name]

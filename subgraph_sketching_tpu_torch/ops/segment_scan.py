@@ -39,7 +39,8 @@ class SortedSegmentPlan:
     ``_slot_edge`` ([S*L] original edge per slot, sentinel E),
     ``_sub_dst_np`` ([S] destination per sub-run) and ``sub_starts``
     ([N+1], the per-node sub-run pointer K1 reads).  Device copies of the
-    tables the reduce reads live on ``device``.
+    tables the reduce reads (``gather_idx``, ``sub_ptr``) live on
+    ``device``.
     """
 
     def __init__(self, edge_index: np.ndarray, num_nodes: int,
@@ -79,7 +80,6 @@ class SortedSegmentPlan:
         self._sub_dst_np = sub_dst
         dev = self.device
         self.gather_idx = torch.from_numpy(gather_idx).to(dev)
-        self.sub_dst = torch.from_numpy(sub_dst.astype(np.int64)).to(dev)
         self.sub_ptr = torch.from_numpy(sub_starts).to(dev)
 
     def stage_edge_data(self, edge_data) -> torch.Tensor:
@@ -111,7 +111,7 @@ class SortedSegmentPlan:
         """Step 3 of :meth:`reduce`: segment-op the [S, W] sub-run results
         per destination and (for min/max) fold in the node's own row."""
         return segment_combine(v.contiguous(), x.contiguous(), op,
-                               self.sub_ptr, self.sub_dst)
+                               self.sub_ptr)
 
     def reduce(self, x: torch.Tensor, op: str,
                edge_data_slots: Optional[torch.Tensor] = None

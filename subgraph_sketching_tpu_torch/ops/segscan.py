@@ -59,16 +59,23 @@ def identity(op: str, dtype: torch.dtype):
     return _IDENTITY[(op, dtype)]
 
 
+def segment_ids(ptr: torch.Tensor) -> torch.Tensor:
+    """[S] int64 destination of each sub-run, from the [N + 1] pointer."""
+    n = ptr.shape[0] - 1
+    return torch.repeat_interleave(torch.arange(n, device=ptr.device),
+                                   ptr.diff())
+
+
 def segment_combine_plain(v: torch.Tensor, x: torch.Tensor, op: str,
-                          sub_dst: torch.Tensor) -> torch.Tensor:
+                          ptr: torch.Tensor) -> torch.Tensor:
     """The same function as the kernel in plain torch: a segment
-    amin/amax/sum of ``v`` over ``sub_dst`` ([S] int64, non-decreasing)
+    amin/amax/sum of ``v`` over the sub-runs' destinations (from ``ptr``)
     with ``scatter_reduce``, then the closed-neighbourhood fold-in of ``x``
     for min/max."""
     n, w = x.shape
     init = torch.full((n, w), identity(op, v.dtype), dtype=v.dtype,
                       device=v.device)
-    agg = init.scatter_reduce(0, sub_dst[:, None].expand(-1, w), v,
+    agg = init.scatter_reduce(0, segment_ids(ptr)[:, None].expand(-1, w), v,
                               _REDUCE[op], include_self=True)
     if op == "min":
         return torch.minimum(x, agg)
@@ -116,12 +123,12 @@ def _kernel(fn_name: str):
 
 
 def segment_combine(v: torch.Tensor, x: torch.Tensor, op: str,
-                    ptr: torch.Tensor, sub_dst: torch.Tensor) -> torch.Tensor:
+                    ptr: torch.Tensor) -> torch.Tensor:
     """K1.  ``v`` [S, W] sub-run results, ``x`` [N, W] node rows (read for
-    min/max only), ``ptr`` [N + 1] int64 sub-run pointer, ``sub_dst`` [S]
-    int64 (read by the plain version only).  Returns [N, W]."""
+    min/max only), ``ptr`` [N + 1] int64 sub-run pointer.  Returns
+    [N, W]."""
     if v.device.type == "cpu":
-        return segment_combine_plain(v, x, op, sub_dst)
+        return segment_combine_plain(v, x, op, ptr)
     if v.device.type != "cuda":
         raise ValueError(f"segment_combine: unsupported device {v.device}")
     _check_cuda_args(v, x, ptr, op)

@@ -56,8 +56,8 @@ def test_kernel_matches_plain(cuda, op, dtype, width):
                               .astype(np.float32)) if op == "add" else None)
     v = plan.reduce_subruns(x, op, w).contiguous()
     before = segscan.launches[segscan._ENTRY[(op, dtype)][0]]
-    got = segscan.segment_combine(v, x, op, plan.sub_ptr, plan.sub_dst)
-    want = segscan.segment_combine_plain(v, x, op, plan.sub_dst)
+    got = segscan.segment_combine(v, x, op, plan.sub_ptr)
+    want = segscan.segment_combine_plain(v, x, op, plan.sub_ptr)
     torch.cuda.synchronize()
     assert segscan.launches[segscan._ENTRY[(op, dtype)][0]] == before + 1
     if op == "add":
@@ -75,12 +75,11 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     x = torch.zeros((n, 8), dtype=torch.int16, device=cuda)
     v = torch.zeros((plan.num_subruns, 8), dtype=torch.int16, device=cuda)
     with pytest.raises(ValueError, match="no kernel"):
-        segscan.segment_combine(v, x, "max", plan.sub_ptr, plan.sub_dst)
+        segscan.segment_combine(v, x, "max", plan.sub_ptr)
     x = torch.zeros((n, 16), dtype=torch.int32, device=cuda)
     v = plan.reduce_subruns(x, "min")
     with pytest.raises(ValueError, match="contiguous"):
-        segscan.segment_combine(v[:, ::2], x[:, ::2], "min", plan.sub_ptr,
-                                plan.sub_dst)
+        segscan.segment_combine(v[:, ::2], x[:, ::2], "min", plan.sub_ptr)
 
 
 def test_scorer_on_card_matches_cpu(cuda, tmp_path):

@@ -72,7 +72,8 @@ def test_plan_tables_equal_jax(n, deg, sub_len, hub):
     counts = np.bincount(tp._sub_dst_np, minlength=n)
     np.testing.assert_array_equal(np.diff(tp.sub_starts), counts)
     np.testing.assert_array_equal(tp.sub_ptr.numpy(), tp.sub_starts)
-    np.testing.assert_array_equal(tp.sub_dst.numpy(), tp._sub_dst_np)
+    np.testing.assert_array_equal(segscan.segment_ids(tp.sub_ptr).numpy(),
+                                  tp._sub_dst_np)
 
 
 @pytest.mark.parametrize("n,deg,sub_len,hub", SHAPES)
@@ -97,7 +98,7 @@ def test_minmax_merge_bit_equal_to_pallas(n, deg, sub_len, hub, kind):
         tv, tx = torch.from_numpy(to_biased(v)), torch.from_numpy(to_biased(x))
     else:
         tv, tx = torch.from_numpy(v), torch.from_numpy(x)
-    got = segscan.segment_combine(tv, tx, op, tp.sub_ptr, tp.sub_dst)
+    got = segscan.segment_combine(tv, tx, op, tp.sub_ptr)
     got = from_biased(got) if kind == "min_u32" else got.numpy()
     np.testing.assert_array_equal(got, want)
 
@@ -114,7 +115,7 @@ def test_add_merge_matches_pallas(n, deg, sub_len, hub):
         jnp.asarray(v), jnp.asarray(x), "add", rid2d, last_idx, empty,
         jp._seg_depth, interpret=True))
     got = segscan.segment_combine(torch.from_numpy(v), torch.from_numpy(x),
-                                  "add", tp.sub_ptr, tp.sub_dst).numpy()
+                                  "add", tp.sub_ptr).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     assert np.all(got[:10] == 0.0)  # empty segments -> 0
     # the whole plan reduce, weights staged by the port's own plan
