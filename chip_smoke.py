@@ -6,7 +6,9 @@
 Phases, each printing one JSON line:
 
   device     the card's name and power limit (nvidia-smi)
-  build      nvcc of the kernel source csrc/segscan.cu
+  build      nvcc of every kernel source (csrc/segscan.cu, gather_reduce.cu,
+             block_prop.cu, dma_gather.cu), one nvcc each, all at once;
+             each one's seconds
   kernels    each K1 instance (ops/segscan.py), held against its plain
              torch version on the card, then timed beside it, beside one
              scatter_reduce call (a yardstick the port never calls) and
@@ -23,6 +25,25 @@ Phases, each printing one JSON line:
              served state of the train and test splits (the two message
              graphs the rebuild runs K1 on) is recomputed with the plain
              merge: sketches bit-equal, SIGN features within the add bound
+  hop_routes the sketch hop by its four routes at full width (MinHash
+             biased int32 W=128, HLL int8 W=256, 2 hops from
+             initialise_sketches): the plan (K1), the plain scatter route
+             (sketch/elph.py), K3 (studies/gather_reduce.py) and K2
+             (studies/sketch_prop.py).  ``served``: the train message
+             graph the serve phase rebuilt, every hop of every route
+             bit-equal to the served scorer's sketch stack, with the K2
+             and K3 launch counts read around that run; ``bench_hub``:
+             the kernels phase's hub graph, every hop bit-equal to the
+             scatter route.  One line per hop, sketch and route (ms,
+             bound, gathered bytes), then one per K2/K3 instance (kernel
+             against its plain version, its time beside the plain version,
+             the scatter route and its bound)
+  k4         the gather-rate study (studies/dma_gather_rate.py) at its
+             shape, 200000 rows of 128 int32 and 2^20 indices: every
+             block's min bit-equal to the plain version, then the study's
+             own measure() with the launch count read around it; rows/s
+             of the kernel and of rows[idx].min(0), and the bound (the
+             distinct rows touched, read once, plus the indices)
   profile    the same rebuild and one 262144-link request again under
              torch.profiler: host stage times, device busy time and share,
              the top kernels
@@ -43,8 +64,14 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 VECTOR_OPS_PER_S = 67e12       # float32 outside the tensor cores, same sheet
-KERNEL_SOURCE = "subgraph_sketching_tpu_torch/csrc/segscan.cu"
-REPLACES = "subgraph_sketching_tpu/ops/pallas_segscan.py:103"
+CSRC = "subgraph_sketching_tpu_torch/csrc"
+KERNEL_LIBS = ("segscan", "gather_reduce", "block_prop", "dma_gather")
+# library name -> the TPU kernel it replaces (file:line of the pallas_call's
+# function)
+REPLACES = {"segscan": "subgraph_sketching_tpu/ops/pallas_segscan.py:103",
+            "gather_reduce": "studies/pallas_gather_reduce.py:95",
+            "block_prop": "studies/pallas_sketch_prop.py:134",
+            "dma_gather": "studies/pallas_dma_gather_rate.py:72"}
 REQUEST_SIZES = (1024, 8192, 65536, 262144)
 
 
@@ -77,14 +104,16 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def phase_build() -> dict:
     from subgraph_sketching_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
-    cuda_build.load("segscan")
-    seconds = time.perf_counter() - t0
-    path = cuda_build.library_path("segscan")
-    if os.path.exists(path[:-3] + ".log"):   # absent when the build was reused
-        with open(path[:-3] + ".log") as f:
-            sys.stderr.write(f.read())
-    return {"phase": "build", "seconds": seconds,
-            "library": os.path.relpath(path)}
+    seconds = cuda_build.load_all(KERNEL_LIBS)
+    wall = time.perf_counter() - t0
+    for name in KERNEL_LIBS:
+        log = cuda_build.library_path(name)[:-3] + ".log"
+        if os.path.exists(log):   # absent when the build was reused
+            with open(log) as f:
+                sys.stderr.write(f.read())
+    return {"phase": "build", "seconds": seconds, "wall_s": wall,
+            "libraries": {name: os.path.relpath(cuda_build.library_path(name))
+                          for name in KERNEL_LIBS}}
 
 
 # (instance name, op, dtype name, width) for every K1 instance
@@ -121,7 +150,7 @@ def graph_plans(g, cfg) -> dict:
 
 def bench_hub_plans(seed: int = 0) -> dict:
     """The JAX bench.py plan shape (200k nodes, 3.2M uniform random edges)
-    plus one hub of 50k in-edges."""
+    plus one hub of 50k in-edges (node 7)."""
     import numpy as np
 
     from subgraph_sketching_tpu_torch.ops.segment_scan import SortedSegmentPlan
@@ -131,9 +160,11 @@ def bench_hub_plans(seed: int = 0) -> dict:
     src = rng.integers(0, n, e + hub_in, dtype=np.int32)
     dst = np.concatenate([rng.integers(0, n, e, dtype=np.int32),
                           np.full(hub_in, 7, np.int32)])
-    plan = SortedSegmentPlan(np.stack([src, dst]), n, device="cuda")
+    edge_index = np.stack([src, dst])
+    plan = SortedSegmentPlan(edge_index, n, device="cuda")
     w = plan.stage_edge_data(rng.random(e + hub_in, dtype=np.float32))
-    return {"min": (plan, None), "max": (plan, None), "add": (plan, w)}
+    return {"edge_index": edge_index, "min": (plan, None),
+            "max": (plan, None), "add": (plan, w)}
 
 
 ADD_TOLERANCE = "|err| <= 1e-4 * sum|v| + 1e-6"
@@ -316,7 +347,8 @@ def phase_serve(cfg, splits, train_plans: dict, seed: int = 2) -> dict:
     with scorer_from_checkpoint, answer four requests, and read the K1
     launch counts around that run.  Then hold the served state of both
     message graphs K1 ran on (train, and test, which adds the validation
-    edges) against the plain merge."""
+    edges) against the plain merge.  Returns the train scorer's (sketch
+    stack, sketch params) and the record."""
     import numpy as np
     import torch
 
@@ -367,10 +399,11 @@ def phase_serve(cfg, splits, train_plans: dict, seed: int = 2) -> dict:
     test_scorer = scorer_from_checkpoint(ckpt, split="test", device="cuda")
     shutil.rmtree(ckpt)
     check_against_plain(cfg, scorer, train_plans, "train")
+    served = (scorer.sk, scorer.sketch_params)   # for the hop_routes phase
     del scorer
     check_against_plain(cfg, test_scorer,
                         graph_plans(splits["test"].graph, cfg), "test")
-    return {"phase": "serve", "dataset": cfg.dataset_name,
+    return served, {"phase": "serve", "dataset": cfg.dataset_name,
             "nodes": test_scorer.num_nodes,
             "train_message_edges": int(train_plans["graph"].num_edges),
             "test_message_edges": int(splits["test"].graph.num_edges),
@@ -380,6 +413,211 @@ def phase_serve(cfg, splits, train_plans: dict, seed: int = 2) -> dict:
             "preprocess_s": preprocess_s, "k1_launches": launches,
             "state_equals_plain_merge": ["train", "test"],
             "requests": requests, "peak_memory_bytes": peak_memory}
+
+
+def _bound(nbytes: int, combines: int) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    HBM rate and the combines over the float32 vector rate."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = combines / VECTOR_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "combines": combines,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+class HopRoutes:
+    """The four routes of one sketch hop over one graph on the card, each
+    a function of the [n, W] rows for min (biased int32 MinHash) and max
+    (int8 HLL), with the bytes of the edge tables it reads."""
+
+    def __init__(self, edge_index, n: int, plan):
+        import numpy as np
+        import torch
+
+        from subgraph_sketching_tpu_torch.sketch import elph
+        from subgraph_sketching_tpu_torch.studies import gather_reduce as gr
+        from subgraph_sketching_tpu_torch.studies import sketch_prop as sp
+
+        t0 = time.perf_counter()
+        self.n, self.e = n, edge_index.shape[1]
+        src = torch.from_numpy(edge_index[0].astype(np.int32)).to("cuda")
+        dst = torch.from_numpy(edge_index[1].astype(np.int64)).to("cuda")
+        self.csr = tuple(torch.from_numpy(a).to("cuda")
+                         for a in gr.prepare_csr_edges(edge_index, n))
+        self.block = sp.BlockPropPlan(edge_index, n, device="cuda")
+        torch.cuda.synchronize()
+        self.layout_s = time.perf_counter() - t0
+        csr, block = self.csr, self.block
+        self.fns = {
+            "plan": {op: (lambda x, op=op: plan.reduce(x, op))
+                     for op in ("min", "max")},
+            "scatter": {"min": lambda x: elph.propagate_minhash(x, src, dst, n),
+                        "max": lambda x: elph.propagate_hll(x, src, dst, n)},
+            "K3": {"min": lambda x: gr.propagate_min(x, *csr),
+                   "max": lambda x: gr.propagate_max(x, *csr)},
+            "K2": {"min": block.propagate_minhash,
+                   "max": block.propagate_hll},
+        }
+        # K3's kernel reads the real edges' src and the pointer only
+        self.edge_bytes = {
+            "plan": _nbytes(plan.gather_idx, plan.sub_ptr),
+            "scatter": _nbytes(src, dst),
+            "K3": 4 * self.e + _nbytes(csr[2]),
+            "K2": _nbytes(block.src, block.dstl, block.blk_ptr),
+        }
+
+    def bound(self, route: str, x) -> dict:
+        """Rows read once, the route's edge tables read once, out written
+        once; one combine per element for each edge and self-loop."""
+        w, b = x.shape[1], x.element_size()
+        rec = _bound(2 * self.n * w * b + self.edge_bytes[route],
+                     (self.e + self.n) * w)
+        rec["gathered_bytes"] = self.e * w * b   # what no reuse would read
+        return rec
+
+
+SKETCHES = (("minhash", "min"), ("hll", "max"))
+
+
+def phase_hop_routes(shape: str, edge_index, n: int, plan, params,
+                     served=None, hops: int = 2) -> list:
+    """Every route of the sketch hop, ``hops`` hops from
+    initialise_sketches.  With ``served`` (the serve phase's sketch stack
+    and whether it holds hop 0) every hop is held bit-equal to it, else to
+    the scatter route.  The K2 and K3 launch counts are set to 0 just
+    before that drive and read just after.  Returns the records."""
+    import torch
+
+    from subgraph_sketching_tpu_torch.sketch.elph import initialise_sketches
+    from subgraph_sketching_tpu_torch.studies import gather_reduce as gr
+    from subgraph_sketching_tpu_torch.studies import sketch_prop as sp
+
+    r = HopRoutes(edge_index, n, plan)
+    hop0 = initialise_sketches(n, params, "cuda")
+    if served is not None:
+        sk, first = served
+        want = [hop0] + [(sk.minhash[h - 1 + first], sk.hll[h - 1 + first])
+                         for h in range(1, hops + 1)]
+        against = "served sketches"
+    else:
+        want = [hop0]
+        for _ in range(hops):
+            want.append(tuple(r.fns["scatter"][op](x)
+                              for x, (_, op) in zip(want[-1], SKETCHES)))
+        against = "scatter route"
+
+    # the path: every route runs every hop from hop 0, each hop checked
+    for counts in (gr.launches, sp.launches):
+        for k in counts:
+            counts[k] = 0
+    for route, fns in r.fns.items():
+        rows = hop0
+        for hop in range(1, hops + 1):
+            rows = tuple(fns[op](x) for x, (_, op) in zip(rows, SKETCHES))
+            for got, ref, (sketch, _) in zip(rows, want[hop], SKETCHES):
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"{shape}: {route} route, hop {hop},"
+                                         f" {sketch} differs from the "
+                                         f"{against}")
+    torch.cuda.synchronize()
+    launches = {**gr.launches, **sp.launches}
+    if any(v != hops for v in launches.values()):
+        raise AssertionError(f"{shape}: the K2/K3 routes did not launch "
+                             f"their kernels once a hop: {launches}")
+
+    records = [{"phase": "hop_routes", "shape": shape, "nodes": n,
+                "edges": r.e, "layout_s": r.layout_s, "equal_to": against,
+                "launches": launches}]
+    route_ms = {}
+    for hop in range(1, hops + 1):
+        for i, (sketch, op) in enumerate(SKETCHES):
+            x = want[hop - 1][i]
+            for route, fns in r.fns.items():
+                ms = cuda_ms(lambda: fns[op](x))
+                route_ms[(hop, sketch, route)] = ms
+                records.append({"phase": "hop_routes", "shape": shape,
+                                "hop": hop, "sketch": sketch, "route": route,
+                                "W": x.shape[1], "dtype": str(x.dtype),
+                                "cuda_ms": ms, **r.bound(route, x)})
+
+    # each K2/K3 instance on hop 1's input: against its plain version, then
+    # timed beside it, the scatter route (its library yardstick) and its
+    # bound
+    s, d, ptr = r.csr
+    b = r.block
+    for i, (sketch, op) in enumerate(SKETCHES):
+        x = want[0][i]
+        is_min = op == "min"
+        rows = gr.append_identity_row(x, is_min=is_min)
+        instances = {
+            gr._ENTRY[(op, x.dtype)][0]: (
+                lambda: gr.gather_reduce(rows, s, d, ptr, is_min=is_min),
+                lambda: gr.gather_reduce_plain(rows, s, d, is_min=is_min),
+                "K3"),
+            sp._ENTRY[(op, x.dtype)][0]: (
+                lambda: sp.block_prop(x, b.src, b.dstl, b.blk_ptr,
+                                      is_min=is_min),
+                lambda: sp.block_prop_plain(x, b.src, b.dstl, b.blk_ptr,
+                                            is_min=is_min),
+                "K2"),
+        }
+        for name, (kernel, plain, route) in instances.items():
+            got, ref = kernel(), plain()
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                raise AssertionError(f"{shape}: {name} is not bit-equal to "
+                                     f"its plain version")
+            records.append({
+                "phase": "hop_routes", "shape": shape, "name": name,
+                "route": route, "max_abs_err":
+                    float((got.double() - ref.double()).abs().max()),
+                "tolerance": "bit-equal", "kernel_ms": cuda_ms(kernel),
+                "plain_ms": cuda_ms(plain),
+                "library_ms": route_ms[(1, sketch, "scatter")],
+                "launches": launches[name], **r.bound(route, x)})
+            del got, ref
+    return records
+
+
+def phase_k4(seed: int = 0) -> dict:
+    """K4 at its study shape: every block's min against the plain version;
+    the study's own measure() with the launch count read around it; the
+    plain version's time; the bound from the distinct rows touched."""
+    import torch
+
+    from subgraph_sketching_tpu_torch.studies import dma_gather_rate as dg
+
+    num_rows, num_indices = 200_000, 1 << 20
+    rows, idx = dg.study_inputs(num_rows, num_indices, seed, "cuda")
+    nb = num_indices // dg.BLOCK
+    got = dg.block_mins(rows, idx, nb)
+    want = dg.block_mins_plain(rows, idx, nb)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("dma_gather: block mins are not bit-equal to "
+                             "the plain version")
+    dg.launches["dma_gather"] = 0
+    study = dg.measure(num_rows, num_indices, seed, device="cuda")
+    launches = dg.launches["dma_gather"]
+    if launches < 1:
+        raise AssertionError("the gather-rate study did not launch K4")
+    # the plain version of the study's function gathers the last block
+    # only; the plain version of every block's min is timed beside it
+    plain_ms = cuda_ms(lambda: dg.dma_gather_plain(rows, idx, nb))
+    plain_all_ms = cuda_ms(lambda: dg.block_mins_plain(rows, idx, nb))
+    distinct = int(torch.unique(idx[:nb * dg.BLOCK]).numel())
+    w = rows.shape[1]
+    return {"phase": "k4", "name": "dma_gather", **study,
+            "launches": launches, "plain_ms": plain_ms,
+            "plain_all_blocks_ms": plain_all_ms,
+            "max_abs_err": float((got.double() - want.double()).abs().max()),
+            "tolerance": "bit-equal", "distinct_rows": distinct,
+            **_bound(distinct * w * 4 + nb * dg.BLOCK * 4 + w * 4,
+                     nb * dg.BLOCK * w)}
 
 
 def _device_time(prof) -> tuple:
@@ -462,24 +700,46 @@ def main() -> int:
     cfg = Config(dataset_name="synth-ws-200000")   # full-width defaults
     splits, _, _ = get_data(cfg)
     plans = graph_plans(splits["train"].graph, cfg)
+    hub = bench_hub_plans()
     main_records = phase_kernels("main_path", plans)
-    hub_records = phase_kernels("bench_hub", bench_hub_plans())
+    hub_records = phase_kernels("bench_hub", hub)
     for r in main_records + hub_records:
         emit(r)
     emit(phase_reference())
-    serve = phase_serve(cfg, splits, plans)
+    (sk, params), serve = phase_serve(cfg, splits, plans)
     emit(serve)
+    g = splits["train"].graph
+    served = phase_hop_routes(
+        "served", g.edge_index, g.num_nodes, plans["min"][0], params,
+        served=(sk, 0 if cfg.hops_only_sketches else 1),
+        hops=cfg.max_hash_hops)
+    del sk
+    for r in served + phase_hop_routes(
+            "bench_hub", hub["edge_index"], hub["min"][0].num_segments,
+            hub["min"][0], params, hops=cfg.max_hash_hops):
+        emit(r)
+    k4 = phase_k4()
+    emit(k4)
     emit(phase_profile(cfg))
-    # the instances the main path launched (int32 max is checked and timed
-    # above, but serving does not run it)
-    launches = serve["k1_launches"]
-    emit({"kernels": [{
-        "name": r["name"], "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": launches[r["name"]],
-        "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
-        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
-        for r in main_records if launches[r["name"]] > 0]})
+
+    def line(r, lib, ms_key="kernel_ms"):
+        return {"name": r["name"], "route": "cuda",
+                "source": f"{CSRC}/{lib}.cu", "replaces": REPLACES[lib],
+                "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+                "ms": r[ms_key], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"]}
+
+    # K1: the instances the main path launched (int32 max is checked and
+    # timed above, but serving does not run it); K2 and K3 on the served
+    # graph, launched by the hop_routes drive; K4 by its study
+    k1 = serve["k1_launches"]
+    emit({"kernels": [
+        line({**r, "launches": k1[r["name"]]}, "segscan")
+        for r in main_records if k1[r["name"]] > 0] + [
+        line(r, {"K3": "gather_reduce", "K2": "block_prop"}[r["route"]])
+        for r in served if "name" in r] + [
+        line({**k4, "library_ms": k4["torch_gather_min_ms"]}, "dma_gather")]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

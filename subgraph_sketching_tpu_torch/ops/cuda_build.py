@@ -6,15 +6,23 @@ at first use, from the sources in this package only, into ``_build/``
 beside it; the library's file name carries a hash of its source and flags,
 so an edited source is rebuilt and a current one is reused.  nvcc's output
 (``-Xptxas -v``: registers and spills) is kept beside it as ``.log``.
+``load_all`` starts one nvcc per source, all at once.
+
+The wrappers (``ops/segscan.py``, ``studies/*.py``) share the glue below:
+``entry`` declares a C entry point's argument types, ``check_tensors``
+refuses what no kernel takes, and ``launch`` calls an entry point on the
+current stream and raises on the cudaError it returns.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -42,22 +50,79 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}_{digest.hexdigest()[:12]}.so")
 
 
+def load_all(names) -> dict:
+    """Build every missing ``csrc/<name>.cu`` of ``names`` with one nvcc
+    each, all running together, then load them.  Returns {name: seconds
+    from the start of the builds to the end of that one's nvcc} (0.0 for a
+    library that was already built)."""
+    t0 = time.perf_counter()
+    running = {}
+    for name in names:
+        out = library_path(name)
+        if name in _LIBS or os.path.exists(out):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, out)
+    seconds = {name: 0.0 for name in names}
+    failed = []
+    for name, (proc, tmp, out) in running.items():
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for csrc/{name}.cu "
+                          f"(rc {proc.returncode}):\n{log}")
+            continue
+        with open(out[:-3] + ".log", "w") as f:
+            f.write(log)
+        os.replace(tmp, out)   # atomic: no process loads a partial file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for name in names:
+        if name not in _LIBS:
+            _LIBS[name] = ctypes.CDLL(library_path(name))
+    return seconds
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built if needed."""
     if name not in _LIBS:
-        out = library_path(name)
-        if not os.path.exists(out):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{out}.{os.getpid()}.tmp"
-            res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                                  os.path.join(CSRC, f"{name}.cu")],
-                                 capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
-                                   f"(rc {res.returncode}):\n{res.stdout}"
-                                   f"{res.stderr}")
-            with open(out[:-3] + ".log", "w") as f:
-                f.write(res.stdout + res.stderr)
-            os.replace(tmp, out)   # atomic: no process loads a partial file
-        _LIBS[name] = ctypes.CDLL(out)
+        load_all([name])
     return _LIBS[name]
+
+
+@functools.lru_cache(maxsize=None)
+def entry(name: str, fn_name: str, argtypes: tuple):
+    """The C entry point ``fn_name`` of ``csrc/<name>.cu`` (built at first
+    use) with its argument types declared; it returns a cudaError_t."""
+    fn = getattr(load(name), fn_name)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_tensors(what: str, **tensors) -> None:
+    """Raise unless every tensor lies on the first one's CUDA device, is
+    contiguous and starts on a 4-byte boundary (the kernels read 32-bit
+    words)."""
+    device = next(iter(tensors.values())).device
+    for name, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{what}: {name} is on {t.device}, not {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} is not contiguous")
+        if t.data_ptr() % 4:
+            raise ValueError(f"{what}: {name} is not 4-byte aligned")
+
+
+def launch(fn, what: str, device, *args) -> None:
+    """Call the C entry point ``fn`` on ``device``'s current stream (passed
+    last) and raise if it reports a CUDA error."""
+    import torch
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{what}: kernel failed to launch: cudaError {rc}")

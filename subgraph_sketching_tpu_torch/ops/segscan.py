@@ -23,9 +23,10 @@ take.  Nothing falls back from the card.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
+
+from subgraph_sketching_tpu_torch.ops import cuda_build
 
 # (op, dtype) -> (C entry point, elements per 32-bit word)
 _ENTRY = {
@@ -34,6 +35,7 @@ _ENTRY = {
     ("max", torch.int8): ("segscan_max_i8", 4),
     ("add", torch.float32): ("segscan_add_f32", 1),
 }
+_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int64,) * 2 + (ctypes.c_void_p,)
 
 # kernel launches per instance, counted where segment_combine launches
 # (the plain version never counts)
@@ -96,30 +98,11 @@ def _check_cuda_args(v, x, ptr, op):
     if ptr.dtype != torch.int64 or ptr.dim() != 1 \
             or ptr.shape[0] != x.shape[0] + 1:
         raise ValueError("segment_combine: ptr must be int64 [N + 1]")
-    for name, t in (("v", v), ("x", x), ("ptr", ptr)):
-        if t.device != x.device:
-            raise ValueError(f"segment_combine: {name} is on {t.device}, "
-                             f"x on {x.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"segment_combine: {name} is not contiguous")
-        if t.data_ptr() % 4:
-            raise ValueError(f"segment_combine: {name} is not 4-byte aligned")
+    cuda_build.check_tensors("segment_combine", x=x, v=v, ptr=ptr)
     per_word = _ENTRY[(op, v.dtype)][1]
     if v.shape[1] % per_word:
         raise ValueError(f"segment_combine: int8 rows need a width that is "
                          f"a multiple of 4, got {v.shape[1]}")
-
-
-@functools.lru_cache(maxsize=None)
-def _kernel(fn_name: str):
-    """The C entry point ``fn_name`` of csrc/segscan.cu (built at first
-    use), with its argument types declared."""
-    from subgraph_sketching_tpu_torch.ops import cuda_build
-    fn = getattr(cuda_build.load("segscan"), fn_name)
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def segment_combine(v: torch.Tensor, x: torch.Tensor, op: str,
@@ -133,14 +116,10 @@ def segment_combine(v: torch.Tensor, x: torch.Tensor, op: str,
         raise ValueError(f"segment_combine: unsupported device {v.device}")
     _check_cuda_args(v, x, ptr, op)
     fn_name, per_word = _ENTRY[(op, v.dtype)]
-    fn = _kernel(fn_name)
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(v.data_ptr(), x.data_ptr(), ptr.data_ptr(), out.data_ptr(),
-                x.shape[0], x.shape[1] // per_word, stream)
-    if rc != 0:
-        raise RuntimeError(f"segscan kernel {fn_name} failed to launch: "
-                           f"cudaError {rc}")
+    cuda_build.launch(cuda_build.entry("segscan", fn_name, _ARGTYPES),
+                      fn_name, x.device, v.data_ptr(), x.data_ptr(),
+                      ptr.data_ptr(), out.data_ptr(), x.shape[0],
+                      x.shape[1] // per_word)
     launches[fn_name] += 1
     return out

@@ -8,7 +8,9 @@ through the padded-tree plan, whose merge is K1:
   * k-hop propagation = segment-min (minhash) / segment-max (HLL) over the
     in-edges with the node's own row folded in (the reference adds explicit
     self-loops, src/hashing.py:148; min/max are idempotent, so the fold-in
-    is equivalent).
+    is equivalent).  ``propagate_minhash`` / ``propagate_hll`` compute one
+    such hop by the scatter route (a row gather and a scatter_reduce), the
+    definition every other route of the hop is held against.
   * subgraph features for a batch of links = lookups of per-hop sketch rows
     + the hop-pair inclusion-exclusion ladder (src/hashing.py:258-323).
 """
@@ -21,11 +23,32 @@ import numpy as np
 import torch
 
 from subgraph_sketching_tpu_torch.device import resolve_device
+from subgraph_sketching_tpu_torch.ops.segment import segment_max, segment_min
 from subgraph_sketching_tpu_torch.sketch.hll import hll_count, hll_init
 from subgraph_sketching_tpu_torch.sketch.minhash import (
     jaccard, minhash_init, to_biased,
 )
 from subgraph_sketching_tpu_torch.sketch.params import SketchParams, Sketches
+
+
+def propagate_minhash(mh: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+                      num_nodes: int, mask: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """One hop of MinHash propagation by the scatter route:
+    out[v] = min(mh[v], min_{(u,v)} mh[u]) on biased int32 lanes (the bias
+    preserves uint32 order).  ``src``/``dst`` are [E] index tensors on
+    ``mh``'s device, ``mask`` [E] bool selects real edges."""
+    agg = segment_min(mh.index_select(0, src), dst, num_nodes, mask=mask)
+    return torch.minimum(mh, agg)
+
+
+def propagate_hll(hll: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+                  num_nodes: int, mask: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """One hop of HLL propagation by the scatter route:
+    out[v] = max(hll[v], max_{(u,v)} hll[u]) on int8 registers."""
+    agg = segment_max(hll.index_select(0, src), dst, num_nodes, mask=mask)
+    return torch.maximum(hll, agg)
 
 
 def initialise_sketches(num_nodes: int, params: SketchParams, device="cuda"
