@@ -10,17 +10,21 @@ Phases, each printing one JSON line:
              block_prop.cu, dma_gather.cu), one nvcc each, all at once;
              each one's seconds
   kernels    each K1 instance (ops/segscan.py), held against its plain
-             torch version on the card, then timed beside it, beside one
-             scatter_reduce call (a yardstick the port never calls) and
-             beside its bound (HBM bytes or combines, whichever takes
-             longer on the data sheet); at two shapes: ``main_path`` (the
-             plans the serve phase runs K1 on) and ``bench_hub`` (200k
-             nodes, 3.2M random edges and one 50k-in-edge hub)
+             torch version on the card and against itself across two
+             calls, then timed beside it, beside one scatter_reduce call
+             (a yardstick the port never calls) and beside its bound (HBM
+             bytes or combines, whichever takes longer on the data
+             sheet); at three shapes: ``main_path`` (the plans the serve
+             phase runs K1 on), ``ba_large`` (the same plans on the
+             synth-ba-large train graph: 20k nodes, BA m=10, a power-law
+             degree profile) and ``bench_hub`` (200k nodes, 3.2M random
+             edges and one 50k-in-edge hub)
   reference  a small BUDDY scorer on the card against the same scorer on
              the CPU (plain versions): sketches bit-equal, scores allclose
   serve      the main path at full width: a seeded BUDDY checkpoint
              (Config defaults, synth-ws-200000) is rebuilt with
-             scorer_from_checkpoint on the card and answers four requests;
+             scorer_from_checkpoint on the card and answers four requests,
+             each sent twice (the size's first call, then a repeat);
              the K1 launch counts are read around that run.  Then the
              served state of the train and test splits (the two message
              graphs the rebuild runs K1 on) is recomputed with the plain
@@ -36,8 +40,9 @@ Phases, each printing one JSON line:
              the kernels phase's hub graph, every hop bit-equal to the
              scatter route.  One line per hop, sketch and route (ms,
              bound, gathered bytes), then one per K2/K3 instance (kernel
-             against its plain version, its time beside the plain version,
-             the scatter route and its bound)
+             against its plain version and against itself across two
+             calls, its time beside the plain version, the scatter route
+             and its bound)
   k4         the gather-rate study (studies/dma_gather_rate.py) at its
              shape, 200000 rows of 128 int32 and 2^20 indices: every
              block's min bit-equal to the plain version, then the study's
@@ -48,7 +53,9 @@ Phases, each printing one JSON line:
              torch.profiler: host stage times, device busy time and share,
              the top kernels
 
-then the per-kernel summary line, the nvidia-smi line, and as the last
+then the per-kernel summary line (each K1 and K3 entry also carries its
+``bench_hub`` time, bound and yardstick: ``hub_ms``, ``hub_bound_ms``,
+``hub_library_ms``), the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises: the run exits
 non-zero and prints no last line.  Without a CUDA device it exits 2 at once.
 """
@@ -204,8 +211,11 @@ def phase_kernels(shape: str, plans: dict, seed: int = 0) -> list:
                               dtype=dtype)
         v = plan.reduce_subruns(x, op, w_slots).contiguous()
         got = segscan.segment_combine(v, x, op, plan.sub_ptr)
+        again = segscan.segment_combine(v, x, op, plan.sub_ptr)
         want = segscan.segment_combine_plain(v, x, op, plan.sub_ptr)
         torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name} ({shape}): two calls differ")
         max_err = float((got.double() - want.double()).abs().max())
         if op == "add":
             check_add(got, want, v, x, plan.sub_ptr, f"{name} ({shape})")
@@ -375,15 +385,18 @@ def phase_serve(cfg, splits, train_plans: dict, seed: int = 2) -> dict:
     requests = []
     for size in REQUEST_SIZES:
         links = rng.integers(0, scorer.num_nodes, (size, 2))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        scores = scorer.score(links)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        if scores.shape != (size,) or not np.isfinite(scores).all():
-            raise AssertionError(f"request of {size} links: bad scores")
-        requests.append({"links": size, "ms": dt * 1e3,
-                         "links_per_s": size / dt})
+        ms = []   # the size's first request, then the same request again
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scores = scorer.score(links)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if scores.shape != (size,) or not np.isfinite(scores).all():
+                raise AssertionError(f"request of {size} links: bad scores")
+        requests.append({"links": size, "ms": ms[0],
+                         "links_per_s": size / ms[0] * 1e3,
+                         "repeat_ms": ms[1]})
     launches = dict(segscan.launches)
     peak_memory = torch.cuda.max_memory_allocated()
 
@@ -566,11 +579,13 @@ def phase_hop_routes(shape: str, edge_index, n: int, plan, params,
                 "K2"),
         }
         for name, (kernel, plain, route) in instances.items():
-            got, ref = kernel(), plain()
+            got, again, ref = kernel(), kernel(), plain()
             torch.cuda.synchronize()
             if not torch.equal(got, ref):
                 raise AssertionError(f"{shape}: {name} is not bit-equal to "
                                      f"its plain version")
+            if not torch.equal(got, again):
+                raise AssertionError(f"{shape}: {name}: two calls differ")
             records.append({
                 "phase": "hop_routes", "shape": shape, "name": name,
                 "route": route, "max_abs_err":
@@ -702,8 +717,12 @@ def main() -> int:
     plans = graph_plans(splits["train"].graph, cfg)
     hub = bench_hub_plans()
     main_records = phase_kernels("main_path", plans)
+    ba_splits, _, _ = get_data(Config(dataset_name="synth-ba-large"))
+    ba_records = phase_kernels("ba_large",
+                               graph_plans(ba_splits["train"].graph, cfg))
+    del ba_splits
     hub_records = phase_kernels("bench_hub", hub)
-    for r in main_records + hub_records:
+    for r in main_records + ba_records + hub_records:
         emit(r)
     emit(phase_reference())
     (sk, params), serve = phase_serve(cfg, splits, plans)
@@ -714,21 +733,30 @@ def main() -> int:
         served=(sk, 0 if cfg.hops_only_sketches else 1),
         hops=cfg.max_hash_hops)
     del sk
-    for r in served + phase_hop_routes(
-            "bench_hub", hub["edge_index"], hub["min"][0].num_segments,
-            hub["min"][0], params, hops=cfg.max_hash_hops):
+    hub_routes = phase_hop_routes(
+        "bench_hub", hub["edge_index"], hub["min"][0].num_segments,
+        hub["min"][0], params, hops=cfg.max_hash_hops)
+    for r in served + hub_routes:
         emit(r)
     k4 = phase_k4()
     emit(k4)
     emit(phase_profile(cfg))
 
+    # each K1 and K3 instance's bench_hub record, by name
+    at_hub = {r["name"]: r for r in hub_records + hub_routes if "name" in r}
+
     def line(r, lib, ms_key="kernel_ms"):
-        return {"name": r["name"], "route": "cuda",
-                "source": f"{CSRC}/{lib}.cu", "replaces": REPLACES[lib],
-                "launches": r["launches"], "max_abs_err": r["max_abs_err"],
-                "ms": r[ms_key], "plain_ms": r["plain_ms"],
-                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                "library_ms": r["library_ms"]}
+        rec = {"name": r["name"], "route": "cuda",
+               "source": f"{CSRC}/{lib}.cu", "replaces": REPLACES[lib],
+               "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+               "ms": r[ms_key], "plain_ms": r["plain_ms"],
+               "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+               "library_ms": r["library_ms"]}
+        if lib in ("segscan", "gather_reduce"):
+            h = at_hub[r["name"]]
+            rec.update(hub_ms=h["kernel_ms"], hub_bound_ms=h["bound_ms"],
+                       hub_library_ms=h["library_ms"])
+        return rec
 
     # K1: the instances the main path launched (int32 max is checked and
     # timed above, but serving does not run it); K2 and K3 on the served

@@ -5,127 +5,165 @@
 // glue segment_aggregates / sorted_segment_combine).  That kernel runs a
 // forward segmented scan over the [S, W] sub-run results in one sequential
 // grid sweep with a VMEM carry, writes an [S, W] totals array and gathers
-// each run's last slot.  The sequential grid and the carry are TPU
-// artifacts: the plan already knows each destination's sub-run range
-// (ptr = sub_starts, [N + 1]), so here every destination row is reduced on
-// its own, with no carry and no totals array:
+// each run's last slot.  Here the plan's sub-run pointer (ptr = sub_starts,
+// [N + 1]) gives each destination's range, and
 //
 //   min / max:  out[n, :] = op(x[n, :], op_{s in [ptr[n], ptr[n+1])} v[s, :])
 //   add:        out[n, :] =              sum_{s in [ptr[n], ptr[n+1])} v[s, :]
 //
 // (an empty range leaves x[n] for min/max and 0 for add).
 //
-// Bound: HBM bytes.  It reads v once (S*W*b), x once (N*W*b, min/max only)
-// and the pointer (N+1 int64), and writes out once (N*W*b); there is one
-// combine per element read.  Layout: one warp per destination row, lanes
-// across the row's 32-bit words, so every sub-run row is read as contiguous
-// 128-byte segments.  int8 rows are combined four lanes at a time with the
-// byte-SIMD __vmaxs4 on 32-bit words.  The add sums each segment in order
-// (the TPU kernel sums a balanced tree: equal up to float associativity).
+// Design (merge_path.cuh): the N row ends and the S sub-run rows form one
+// merge path of N + S steps, cut into shares of kShareSteps; a team of 32
+// lanes (16 for rows of at most 16 units, so int8 W=256 runs two teams a
+// warp) walks one share, writes the rows that end in it, and leaves the
+// open row's partial as a carry-out; a second launch folds each row's
+// carry-outs into out in share order.  x is folded once, by the share
+// that ends the row.  A share's v is one contiguous slab v[j0:j1], read as
+// 16-byte units when rows are a multiple of 16 bytes (int32/float32
+// W=128, int8 W=256) and as 32-bit words otherwise (int32 W=40, int8 W=8,
+// W=1), by the same kernel.  The slab is read straight into registers,
+// kUnroll rows of loads at a time, not through a TMA or cp.async ring: a
+// share is short (64 steps: about 30 rows and 34 sub-runs on the main
+// path's sketch plan), a row's sub-runs are loaded together while the
+// next row's x is loaded ahead, and tens of resident teams per SM keep
+// more bytes in flight than the memory system needs.  Of 32 to 256 steps
+// a share, 64 was the fastest or near it on the H100 at every instance
+// and shape (128 loses at int8, 256 at the main path).
 //
-// Plain C interface (ctypes): each entry point launches on the given stream,
-// allocates nothing, and returns cudaGetLastError().
+// Bound: HBM bytes.  It reads v once (S*W*b), x once (N*W*b, min/max only)
+// and the pointer (N+1 int64), and writes out once (N*W*b); one combine per
+// element read.  The partition adds the search's few rounds of pointer
+// loads per share and one carry-out row per share that ends inside a row
+// (written and read once: ~1-3% of the bytes at 64 steps a share and
+// 512-byte rows).  A hub's sub-runs are spread over ceil(its steps / 64) shares, so
+// its time is its bytes at the card's rate plus the carry pass over its
+// ~S_hub/64 carry-outs, no longer one warp walking the whole run.
+//
+// Plain C interface (ctypes): each entry point launches both kernels on
+// the given stream, allocates nothing (the caller passes carry [shares,
+// words] and carry_row [shares]), and returns the first cudaError.
 
 #include <cstdint>
-#include <climits>
 #include <cuda_runtime.h>
+
+#include "merge_path.cuh"
 
 namespace {
 
-constexpr int kWarp = 32;
-constexpr int kRowsPerBlock = 8;   // one warp per destination row
+using namespace merge_path;
 
-struct MinI32 {   // uint32 min carried as biased int32
-  using T = int32_t;
-  static __device__ __forceinline__ T ident() { return INT_MAX; }
-  static __device__ __forceinline__ T combine(T a, T b) { return min(a, b); }
-};
+constexpr int kShareSteps = 64;   // merge-path steps (rows + items) a team
 
-struct MaxI32 {
-  using T = int32_t;
-  static __device__ __forceinline__ T ident() { return INT_MIN; }
-  static __device__ __forceinline__ T combine(T a, T b) { return max(a, b); }
-};
+template <class Op, class U, int T, bool kFoldSelf>
+__global__ void __launch_bounds__(kBlock)
+segscan_kernel(const U* __restrict__ v, const U* __restrict__ x,
+               const int64_t* __restrict__ ptr, U* __restrict__ out,
+               U* __restrict__ carry, int64_t* __restrict__ carry_row,
+               int64_t num_rows, int64_t num_items, int64_t units,
+               int64_t shares) {
+  const Team<T> t;
+  if (t.id >= shares) return;   // uniform across the team
+  const Share s = find_share<T, kShareSteps>(t, ptr, num_rows, num_items);
+  walk_share<Op, U, T, kFoldSelf>(t, s, ptr, x, out, carry, carry_row,
+                                  num_rows, units, RowLoad<U>{v, units});
+}
 
-struct MaxI8x4 {  // four int8 lanes per 32-bit word
-  using T = uint32_t;
-  static __device__ __forceinline__ T ident() { return 0x80808080u; }
-  static __device__ __forceinline__ T combine(T a, T b) {
-    return __vmaxs4(a, b);
-  }
-};
-
-struct AddF32 {
-  using T = float;
-  static __device__ __forceinline__ T ident() { return 0.0f; }
-  static __device__ __forceinline__ T combine(T a, T b) { return a + b; }
-};
-
-template <class Op, bool kFoldSelf>
-__global__ void __launch_bounds__(kWarp * kRowsPerBlock)
-segment_combine_kernel(const typename Op::T* __restrict__ v,
-                       const typename Op::T* __restrict__ x,
-                       const int64_t* __restrict__ ptr,
-                       typename Op::T* __restrict__ out,
-                       int64_t num_rows, int64_t words) {
-  using T = typename Op::T;
-  const int64_t row =
-      static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + threadIdx.y;
-  if (row >= num_rows) return;
-  const int64_t s0 = ptr[row];
-  const int64_t s1 = ptr[row + 1];
-  for (int64_t c = threadIdx.x; c < words; c += kWarp) {
-    T acc = kFoldSelf ? x[row * words + c] : Op::ident();
-#pragma unroll 4
-    for (int64_t s = s0; s < s1; ++s) {
-      acc = Op::combine(acc, v[s * words + c]);
-    }
-    out[row * words + c] = acc;
-  }
+template <class Op, bool kFoldSelf, class U, int T>
+cudaError_t run(const void* v, const void* x, const void* ptr, void* out,
+                void* carry, void* carry_row, int64_t num_rows,
+                int64_t num_items, int64_t units, int64_t shares,
+                cudaStream_t stream) {
+  const dim3 grid = grid_for<T>(shares, units);
+  segscan_kernel<Op, U, T, kFoldSelf><<<grid, kBlock, 0, stream>>>(
+      static_cast<const U*>(v), static_cast<const U*>(x),
+      static_cast<const int64_t*>(ptr), static_cast<U*>(out),
+      static_cast<U*>(carry), static_cast<int64_t*>(carry_row), num_rows,
+      num_items, units, shares);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  carry_kernel<Op, U, T><<<grid, kBlock, 0, stream>>>(
+      static_cast<const U*>(carry), static_cast<const int64_t*>(carry_row),
+      static_cast<U*>(out), units, shares);
+  return cudaGetLastError();
 }
 
 template <class Op, bool kFoldSelf>
 int launch(const void* v, const void* x, const void* ptr, void* out,
-           int64_t num_rows, int64_t words, void* stream) {
-  using T = typename Op::T;
-  if (num_rows > 0) {
-    const dim3 block(kWarp, kRowsPerBlock);
-    const dim3 grid(
-        static_cast<unsigned>((num_rows + kRowsPerBlock - 1) / kRowsPerBlock));
-    segment_combine_kernel<Op, kFoldSelf>
-        <<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const T*>(v), static_cast<const T*>(x),
-            static_cast<const int64_t*>(ptr), static_cast<T*>(out), num_rows,
-            words);
+           void* carry, void* carry_row, int64_t num_rows, int64_t num_items,
+           int64_t words, int64_t shares, void* stream) {
+  if (num_rows <= 0 || words <= 0) {
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  if (num_items < 0 || shares != num_shares(num_rows, num_items, kShareSteps)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto st = static_cast<cudaStream_t>(stream);
+  const bool vec = words % 4 == 0 && aligned16(v) && aligned16(out) &&
+                   aligned16(carry) && (!kFoldSelf || aligned16(x));
+  const int64_t units = vec ? words / 4 : words;
+  cudaError_t err;
+  if (vec) {
+    err = units <= 16
+        ? run<Op, kFoldSelf, uint4, 16>(v, x, ptr, out, carry, carry_row,
+                                        num_rows, num_items, units, shares, st)
+        : run<Op, kFoldSelf, uint4, 32>(v, x, ptr, out, carry, carry_row,
+                                        num_rows, num_items, units, shares, st);
+  } else {
+    err = units <= 16
+        ? run<Op, kFoldSelf, uint32_t, 16>(v, x, ptr, out, carry, carry_row,
+                                           num_rows, num_items, units, shares,
+                                           st)
+        : run<Op, kFoldSelf, uint32_t, 32>(v, x, ptr, out, carry, carry_row,
+                                           num_rows, num_items, units, shares,
+                                           st);
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
 extern "C" {
 
-// words = row width in 32-bit words (W for 4-byte types, W / 4 for int8).
+// The merge-path steps of one share: the caller sizes the scratch as
+// ceil((num_rows + num_items) / segscan_share_steps()) rows.
+int64_t segscan_share_steps() { return kShareSteps; }
+
+// v [num_items, words], x / out [num_rows, words] in 32-bit words (W for
+// 4-byte types, W / 4 for int8), ptr int64 [num_rows + 1], carry [shares,
+// words], carry_row int64 [shares].
 
 int segscan_min_i32(const void* v, const void* x, const void* ptr, void* out,
-                    int64_t num_rows, int64_t words, void* stream) {
-  return launch<MinI32, true>(v, x, ptr, out, num_rows, words, stream);
+                    void* carry, void* carry_row, int64_t num_rows,
+                    int64_t num_items, int64_t words, int64_t shares,
+                    void* stream) {
+  return launch<MinI32, true>(v, x, ptr, out, carry, carry_row, num_rows,
+                              num_items, words, shares, stream);
 }
 
 int segscan_max_i32(const void* v, const void* x, const void* ptr, void* out,
-                    int64_t num_rows, int64_t words, void* stream) {
-  return launch<MaxI32, true>(v, x, ptr, out, num_rows, words, stream);
+                    void* carry, void* carry_row, int64_t num_rows,
+                    int64_t num_items, int64_t words, int64_t shares,
+                    void* stream) {
+  return launch<MaxI32, true>(v, x, ptr, out, carry, carry_row, num_rows,
+                              num_items, words, shares, stream);
 }
 
 int segscan_max_i8(const void* v, const void* x, const void* ptr, void* out,
-                   int64_t num_rows, int64_t words, void* stream) {
-  return launch<MaxI8x4, true>(v, x, ptr, out, num_rows, words, stream);
+                   void* carry, void* carry_row, int64_t num_rows,
+                   int64_t num_items, int64_t words, int64_t shares,
+                   void* stream) {
+  return launch<MaxI8x4, true>(v, x, ptr, out, carry, carry_row, num_rows,
+                               num_items, words, shares, stream);
 }
 
 int segscan_add_f32(const void* v, const void* x, const void* ptr, void* out,
-                    int64_t num_rows, int64_t words, void* stream) {
+                    void* carry, void* carry_row, int64_t num_rows,
+                    int64_t num_items, int64_t words, int64_t shares,
+                    void* stream) {
   (void)x;
-  return launch<AddF32, false>(v, nullptr, ptr, out, num_rows, words, stream);
+  return launch<AddF32, false>(v, nullptr, ptr, out, carry, carry_row,
+                               num_rows, num_items, words, shares, stream);
 }
 
 }  // extern "C"

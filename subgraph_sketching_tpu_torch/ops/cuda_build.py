@@ -3,14 +3,16 @@
 ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with ctypes.  The build runs
 at first use, from the sources in this package only, into ``_build/``
-beside it; the library's file name carries a hash of its source and flags,
-so an edited source is rebuilt and a current one is reused.  nvcc's output
+beside it; the library's file name carries a hash of its source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header is rebuilt and a current one is reused.  nvcc's output
 (``-Xptxas -v``: registers and spills) is kept beside it as ``.log``.
 ``load_all`` starts one nvcc per source, all at once.
 
 The wrappers (``ops/segscan.py``, ``studies/*.py``) share the glue below:
 ``entry`` declares a C entry point's argument types, ``check_tensors``
-refuses what no kernel takes, and ``launch`` calls an entry point on the
+refuses what no kernel takes, ``merge_path_scratch`` allocates the
+carry-out scratch of K1 and K3, and ``launch`` calls an entry point on the
 current stream and raises on the cudaError it returns.
 """
 
@@ -45,8 +47,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library of ``csrc/<name>.cu``, named by a hash of that source,
+    the shared headers (``csrc/*.cuh``) and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            digest.update(fh.read())
     return os.path.join(BUILD_DIR, f"{name}_{digest.hexdigest()[:12]}.so")
 
 
@@ -102,6 +109,35 @@ def entry(name: str, fn_name: str, argtypes: tuple):
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def share_steps(name: str) -> int:
+    """The merge-path steps of one share of ``csrc/<name>.cu``'s kernels
+    (its ``constexpr kShareSteps``, read from the built library)."""
+    fn = getattr(load(name), f"{name}_share_steps")
+    fn.argtypes = []
+    fn.restype = ctypes.c_int64
+    return int(fn())
+
+
+def merge_path_shares(num_rows: int, num_items: int, steps: int) -> int:
+    """Shares of a merge path of ``num_rows`` row ends and ``num_items``
+    items, ``steps`` steps a share: the rows of the carry-out scratch that
+    a merge-path kernel (``csrc/merge_path.cuh``) launches with."""
+    return -(-(num_rows + num_items) // steps)
+
+
+def merge_path_scratch(name: str, num_rows: int, num_items: int, words: int,
+                       device):
+    """The carry-out scratch of one launch of ``csrc/<name>.cu``'s
+    merge-path kernels: (shares, carry int32 [shares, words], carry_row
+    int64 [shares]), uninitialised (the kernels write before they read)."""
+    import torch
+    shares = merge_path_shares(num_rows, num_items, share_steps(name))
+    return (shares,
+            torch.empty((shares, words), dtype=torch.int32, device=device),
+            torch.empty(shares, dtype=torch.int64, device=device))
 
 
 def check_tensors(what: str, **tensors) -> None:

@@ -9,11 +9,20 @@ plan and each destination's sub-run range ``ptr`` ([N + 1], the plan's
     min / max:  out[n] = op(x[n], op over v[ptr[n]:ptr[n+1]])
     add:        out[n] = sum over v[ptr[n]:ptr[n+1]]    (0 when empty)
 
-On the card this is ``csrc/segscan.cu``, a per-destination segment
-reduction with no cross-block carry.  It is bound by HBM bytes: S*W*b read
-of v, N*W*b read of x (min/max only), N*W*b write, plus the (N+1)-entry
-pointer.  It streams each row once and writes no [S, W] totals array, which
-the TPU version wrote and then gathered.
+On the card this is ``csrc/segscan.cu`` over ``csrc/merge_path.cuh``: the
+N row ends and S sub-runs form one merge path, cut into equal shares of
+steps whatever the rows' lengths; a team of lanes reduces the rows that
+end in its share (x folded in once, there), and the row open at a share's
+end leaves a carry-out that a second launch folds into ``out`` in share
+order.  No atomics on values: min/max are exact and the float32 add is the
+same from run to run.  Rows whose bytes are a multiple of 16 are read as
+16-byte units, others as 32-bit words.  It is bound by HBM bytes: S*W*b
+read of v, N*W*b read of x (min/max only), N*W*b write, plus the
+(N+1)-entry pointer; the carry-outs add one row per share that ends
+inside a row.  A hub's sub-runs spread over many shares, so its time is
+its bytes and not one warp's walk.  No [S, W] totals array is written, as
+the TPU version wrote and then gathered.  The wrapper allocates the
+carry-out scratch ([shares, words] and [shares]) with ``torch.empty``.
 
 Dispatch: a CPU tensor takes :func:`segment_combine_plain`; a CUDA tensor
 launches the kernel, or raises on an (op, dtype, shape, layout) it does not
@@ -35,7 +44,7 @@ _ENTRY = {
     ("max", torch.int8): ("segscan_max_i8", 4),
     ("add", torch.float32): ("segscan_add_f32", 1),
 }
-_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int64,) * 2 + (ctypes.c_void_p,)
+_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int64,) * 4 + (ctypes.c_void_p,)
 
 # kernel launches per instance, counted where segment_combine launches
 # (the plain version never counts)
@@ -116,10 +125,13 @@ def segment_combine(v: torch.Tensor, x: torch.Tensor, op: str,
         raise ValueError(f"segment_combine: unsupported device {v.device}")
     _check_cuda_args(v, x, ptr, op)
     fn_name, per_word = _ENTRY[(op, v.dtype)]
+    n, s, words = x.shape[0], v.shape[0], x.shape[1] // per_word
+    shares, carry, carry_row = cuda_build.merge_path_scratch(
+        "segscan", n, s, words, x.device)
     out = torch.empty_like(x)
     cuda_build.launch(cuda_build.entry("segscan", fn_name, _ARGTYPES),
                       fn_name, x.device, v.data_ptr(), x.data_ptr(),
-                      ptr.data_ptr(), out.data_ptr(), x.shape[0],
-                      x.shape[1] // per_word)
+                      ptr.data_ptr(), out.data_ptr(), carry.data_ptr(),
+                      carry_row.data_ptr(), n, s, words, shares)
     launches[fn_name] += 1
     return out

@@ -1,17 +1,26 @@
 """K3: fused row gather and segmented min/max over dst-sorted edges.
 
-Counterpart of the JAX study ``studies/pallas_gather_reduce.py``.  One hop
-of sketch propagation in one pass over the edges sorted by destination:
+Replaces the JAX study's Pallas kernel ``studies/pallas_gather_reduce.py``
+(``gather_reduce``).  One hop of sketch propagation in one pass over the
+edges sorted by destination:
 
     out[v] = op(rows[v], rows[u] for (u, v) in edges)
 
 with ``rows`` [n + 1, W] holding the identity in its last row, and pad
 edges (src = dst = n) that touch only that row.  On the card this is
-``csrc/gather_reduce.cu``: one warp per destination row, which walks the
-row's edge range from a per-destination pointer that ``prepare_csr_edges``
-derives on the host (the JAX layout has only the two sorted arrays).  The
-pad edges fold row n into itself, a no-op under min/max, so the pointer
-stops at the real edges and row n is copied.
+``csrc/gather_reduce.cu`` over ``csrc/merge_path.cuh``, driven by a
+per-destination pointer that ``prepare_csr_edges`` derives on the host
+(the JAX layout has only the two sorted arrays).  The pad edges fold row n
+into itself, a no-op under min/max, so the pointer stops at the real edges
+and row n is copied.  The n + 1 row ends and the E_pad edges form one merge
+path, cut into equal shares of steps whatever the degrees; a team of lanes
+copies its share's src slab to shared memory, gathers 8 source rows at a
+time (16-byte units where a row's bytes are a multiple of 16, else 32-bit
+words), reduces the rows that end in its share, and leaves the row open at
+its end as a carry-out that a second launch folds into the output in share
+order.  A hub's edges spread over many shares, so its time is its gathers
+(E*W*b bytes, from L2 or HBM) and not one warp's walk.  The wrapper
+allocates the carry-out scratch with ``torch.empty``.
 
 Instances: biased int32 min (MinHash) and int8 max (HLL).  Dispatch as in
 ``ops/segscan.py``: a CPU tensor takes :func:`gather_reduce_plain`; a CUDA
@@ -35,8 +44,8 @@ _ENTRY = {
     ("min", torch.int32): ("gather_reduce_min_i32", 1),
     ("max", torch.int8): ("gather_reduce_max_i8", 4),
 }
-_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int64,) * 2 + (ctypes.c_void_p,)
-MAX_WORDS = 128   # the kernel keeps a row's words in four registers a lane
+_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int64,) * 4 + (ctypes.c_void_p,)
+MAX_WORDS = 128   # the study's widest row (kMaxWords in the kernel)
 
 # kernel launches per instance, counted where gather_reduce launches
 launches = {name: 0 for name, _ in _ENTRY.values()}
@@ -117,11 +126,14 @@ def gather_reduce(rows: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
         raise ValueError(f"gather_reduce: unsupported device {rows.device}")
     _check_cuda_args(rows, src, dst, ptr, is_min)
     fn_name, per_word = _ENTRY[("min" if is_min else "max", rows.dtype)]
+    n, e, words = rows.shape[0], src.shape[0], rows.shape[1] // per_word
+    shares, carry, carry_row = cuda_build.merge_path_scratch(
+        "gather_reduce", n, e, words, rows.device)
     out = torch.empty_like(rows)
     cuda_build.launch(cuda_build.entry("gather_reduce", fn_name, _ARGTYPES),
                       fn_name, rows.device, rows.data_ptr(), src.data_ptr(),
-                      ptr.data_ptr(), out.data_ptr(), rows.shape[0],
-                      rows.shape[1] // per_word)
+                      ptr.data_ptr(), out.data_ptr(), carry.data_ptr(),
+                      carry_row.data_ptr(), n, e, words, shares)
     launches[fn_name] += 1
     return out
 

@@ -1,8 +1,13 @@
 """Card-only tests of the port: the CUDA kernels K1 (csrc/segscan.cu), K3
 (csrc/gather_reduce.cu), K2 (csrc/block_prop.cu) and K4
 (csrc/dma_gather.cu) against their plain torch versions, bit-equal, and
-the serving slice on the card against the same slice on the CPU.  They
-skip without a CUDA device.
+the serving slice on the card against the same slice on the CPU.  K1 and
+K3 split their work by a merge-path partition (csrc/merge_path.cuh), so
+they are also run on degree profiles that hit each edge of it (rows of one
+share, one share +- 1 and three shares, empty rows at a share boundary, a
+star, a long last row, one row, no items), at widths of 16-byte units and
+of 32-bit words, and their float32 add is held equal to itself across
+calls.  They skip without a CUDA device.
 
 This file imports no jax, so it also runs where jax is not installed:
 
@@ -194,6 +199,121 @@ def test_hop_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="indices"):
         dg.block_mins(rows, torch.zeros(10, dtype=torch.int32, device=cuda),
                       1)
+
+
+# Degree profiles that hit each edge of the merge-path partition, as item
+# counts per row in terms of P, the steps of one share (a row of k items
+# takes k + 1 steps).  The first rows of "one_share" each fill one share.
+PROFILES = {
+    "one_share": lambda p: [p - 1, p - 1, p - 1, 3],
+    "share_plus_minus_1": lambda p: [p, 1, p - 2, 5, p + 1, 0, p - 1, 2],
+    "spans_3_shares": lambda p: [2, 3 * p + 7, 1, 4],
+    "empty_rows_at_boundary": lambda p: [p - 1] + [0] * (p + 3) + [4] + [0] * 5,
+    "star": lambda p: [0] * 7 + [4 * p + 9] + [0] * 9,
+    "long_last_row": lambda p: [3, 1, 0, 2, 6 * p + 5],
+    "n1": lambda p: [3 * p + 2],
+    "no_items": lambda p: [0] * (2 * p + 3),
+    "random_hub": lambda p: list(np.random.default_rng(5).integers(0, 12, 500))
+    + [20 * p + 3] + list(np.random.default_rng(6).integers(0, 3, 300)),
+}
+
+# (op, dtype, widths): every instance at a width of 16-byte units and at
+# widths of 32-bit words only
+K1_CASES = [("min", torch.int32, (128, 40, 1)), ("max", torch.int32, (128, 40, 1)),
+            ("add", torch.float32, (128, 40, 1)), ("max", torch.int8, (256, 8, 4))]
+K3_CASES = [("min", torch.int32, (128, 40, 1)), ("max", torch.int8, (256, 8, 4))]
+
+
+def _profile_ptr(profile, steps):
+    counts = np.asarray(PROFILES[profile](steps), dtype=np.int64)
+    return np.concatenate([[0], np.cumsum(counts)]), counts
+
+
+def _rows(n, dtype, width, g, dyadic=False):
+    """Random rows; float32 as multiples of 1/4 in [-8, 8) when ``dyadic``
+    (every partial sum of a few thousand is exact, so any order agrees)."""
+    if dtype == torch.float32:
+        if dyadic:
+            return torch.randint(-32, 32, (n, width), generator=g,
+                                 device="cuda").float() / 4
+        return torch.randn((n, width), generator=g, device="cuda")
+    return _hop_input(n, dtype, width, g)
+
+
+@pytest.mark.parametrize("profile", list(PROFILES))
+@pytest.mark.parametrize("op,dtype,width", [
+    (op, dtype, w) for op, dtype, widths in K1_CASES for w in widths])
+def test_segscan_partition_edges(cuda, profile, op, dtype, width):
+    """K1 bit-equal to its plain version on every partition edge (float32
+    add on dyadic inputs), at 16-byte and word widths."""
+    from subgraph_sketching_tpu_torch.ops import cuda_build
+    ptr_np, counts = _profile_ptr(profile, cuda_build.share_steps("segscan"))
+    n, s = len(counts), int(ptr_np[-1])
+    g = torch.Generator(device="cuda").manual_seed(11)
+    v = _rows(s, dtype, width, g, dyadic=True)
+    x = _rows(n, dtype, width, g, dyadic=True)
+    ptr = torch.from_numpy(ptr_np).to(cuda)
+    name = segscan._ENTRY[(op, dtype)][0]
+    before = segscan.launches[name]
+    got = segscan.segment_combine(v, x, op, ptr)
+    want = segscan.segment_combine_plain(v, x, op, ptr)
+    torch.cuda.synchronize()
+    assert segscan.launches[name] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("profile", ["spans_3_shares", "star", "random_hub"])
+def test_segscan_add_is_deterministic(cuda, profile):
+    """float32 add on non-dyadic inputs with a hub: bit-equal to itself
+    across calls (its order depends on ptr and the grid only), and within
+    float32 reassociation of the plain version."""
+    from subgraph_sketching_tpu_torch.ops import cuda_build
+    ptr_np, counts = _profile_ptr(profile, cuda_build.share_steps("segscan"))
+    n, s = len(counts), int(ptr_np[-1])
+    g = torch.Generator(device="cuda").manual_seed(12)
+    v = torch.randn((s, 128), generator=g, device="cuda")
+    x = torch.randn((n, 128), generator=g, device="cuda")
+    ptr = torch.from_numpy(ptr_np).to(cuda)
+    first = segscan.segment_combine(v, x, "add", ptr)
+    second = segscan.segment_combine(v, x, "add", ptr)
+    ids = segscan.segment_ids(ptr)
+    zeros = torch.zeros((n, 128), dtype=torch.float64, device=cuda)
+    want = zeros.index_add(0, ids, v.double())
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    # |err| of a float32 sum of k terms, in any order, <= k * eps * sum |v|
+    scale = zeros.index_add(0, ids, v.abs().double())
+    k = torch.from_numpy(counts).to(cuda).double()[:, None]
+    assert bool(((first.double() - want).abs()
+                 <= k * 2.0 ** -23 * scale).all())
+
+
+@pytest.mark.parametrize("profile", list(PROFILES))
+@pytest.mark.parametrize("op,dtype,width", [
+    (op, dtype, w) for op, dtype, widths in K3_CASES for w in widths])
+def test_gather_reduce_partition_edges(cuda, profile, op, dtype, width):
+    """K3 bit-equal to its plain version, and to itself across two calls,
+    on every partition edge at 16-byte and word widths."""
+    from subgraph_sketching_tpu_torch.ops import cuda_build
+    from subgraph_sketching_tpu_torch.studies import gather_reduce as gr
+    _, counts = _profile_ptr(profile, cuda_build.share_steps("gather_reduce"))
+    n = len(counts)
+    rng = np.random.default_rng(13)
+    dst = np.repeat(np.arange(n), counts)
+    ei = np.stack([rng.integers(0, n, len(dst)), dst]).astype(np.int32)
+    s, d, ptr = (torch.from_numpy(a).to(cuda)
+                 for a in gr.prepare_csr_edges(ei, n))
+    g = torch.Generator(device="cuda").manual_seed(14)
+    is_min = op == "min"
+    rows = gr.append_identity_row(_rows(n, dtype, width, g), is_min=is_min)
+    name = gr._ENTRY[(op, dtype)][0]
+    before = gr.launches[name]
+    got = gr.gather_reduce(rows, s, d, ptr, is_min=is_min)
+    again = gr.gather_reduce(rows, s, d, ptr, is_min=is_min)
+    want = gr.gather_reduce_plain(rows, s, d, is_min=is_min)
+    torch.cuda.synchronize()
+    assert gr.launches[name] == before + 2
+    assert torch.equal(got, want) and torch.equal(again, got)
 
 
 def test_scorer_on_card_matches_cpu(cuda, tmp_path):
