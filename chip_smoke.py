@@ -14,7 +14,10 @@ Phases, each printing one JSON line:
              calls, then timed beside it, beside one scatter_reduce call
              (a yardstick the port never calls) and beside its bound (HBM
              bytes or combines, whichever takes longer on the data
-             sheet); at three shapes: ``main_path`` (the plans the serve
+             sheet); timed twice, by events around 20 wrapper calls
+             (``kernel_ms``, the host's work included) and by replaying a
+             CUDA graph of 20 wrapper calls (``graph_ms``, the device's
+             time alone); at three shapes: ``main_path`` (the plans the serve
              phase runs K1 on), ``ba_large`` (the same plans on the
              synth-ba-large train graph: 20k nodes, BA m=10, a power-law
              degree profile) and ``bench_hub`` (200k nodes, 3.2M random
@@ -33,10 +36,11 @@ Phases, each printing one JSON line:
              biased int32 W=128, HLL int8 W=256, 2 hops from
              initialise_sketches): the plan (K1), the plain scatter route
              (sketch/elph.py), K3 (studies/gather_reduce.py) and K2
-             (studies/sketch_prop.py).  ``served``: the train message
-             graph the serve phase rebuilt, every hop of every route
-             bit-equal to the served scorer's sketch stack, with the K2
-             and K3 launch counts read around that run; ``bench_hub``:
+             (studies/sketch_prop.py, its fold launch counted apart).
+             ``served``: the train message graph the serve phase
+             rebuilt, every hop of every route bit-equal to the served
+             scorer's sketch stack, with the K2 and K3 launch counts read
+             around that run; ``bench_hub``:
              the kernels phase's hub graph, every hop bit-equal to the
              scatter route.  One line per hop, sketch and route (ms,
              bound, gathered bytes), then one per K2/K3 instance (kernel
@@ -53,8 +57,8 @@ Phases, each printing one JSON line:
              torch.profiler: host stage times, device busy time and share,
              the top kernels
 
-then the per-kernel summary line (each K1 and K3 entry also carries its
-``bench_hub`` time, bound and yardstick: ``hub_ms``, ``hub_bound_ms``,
+then the per-kernel summary line (each K1, K2 and K3 entry also carries
+its ``bench_hub`` time, bound and yardstick: ``hub_ms``, ``hub_bound_ms``,
 ``hub_library_ms``), the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises: the run exits
 non-zero and prints no last line.  Without a CUDA device it exits 2 at once.
@@ -106,6 +110,33 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Mean milliseconds per call of ``fn`` replayed from one CUDA graph of
+    ``calls`` calls: the device's time, without the host's work per call."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # warm-up off the capture, as required
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (calls * replays)
+    del graph
+    return ms
 
 
 def phase_build() -> dict:
@@ -227,6 +258,8 @@ def phase_kernels(shape: str, plans: dict, seed: int = 0) -> list:
             tolerance = "bit-equal"
         kernel_ms = cuda_ms(lambda: segscan.segment_combine(
             v, x, op, plan.sub_ptr))
+        kernel_graph_ms = graph_ms(lambda: segscan.segment_combine(
+            v, x, op, plan.sub_ptr))
         plain_ms = cuda_ms(lambda: segscan.segment_combine_plain(
             v, x, op, plan.sub_ptr))
         # yardstick: one scatter_reduce computing the same function (x as
@@ -253,7 +286,8 @@ def phase_kernels(shape: str, plans: dict, seed: int = 0) -> list:
             "dtype": dtype_name, "W": width, "N": n, "S": S,
             "max_subruns_per_row": int(plan.sub_ptr.diff().max()),
             "max_abs_err": max_err, "tolerance": tolerance,
-            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "kernel_ms": kernel_ms, "graph_ms": kernel_graph_ms,
+            "plain_ms": plain_ms,
             "library_ms": library_ms, "library_widened_to_int32": widened,
             "bytes": bytes_moved, "combines": combines,
             "bound_ms": max(bytes_ms, ops_ms),
@@ -475,12 +509,13 @@ class HopRoutes:
             "K2": {"min": block.propagate_minhash,
                    "max": block.propagate_hll},
         }
-        # K3's kernel reads the real edges' src and the pointer only
+        # K3's kernel reads the real edges' src and the pointer only; K2's
+        # its src, dstl and piece table
         self.edge_bytes = {
             "plan": _nbytes(plan.gather_idx, plan.sub_ptr),
             "scatter": _nbytes(src, dst),
             "K3": 4 * self.e + _nbytes(csr[2]),
-            "K2": _nbytes(block.src, block.dstl, block.blk_ptr),
+            "K2": _nbytes(block.src, block.dstl, *block.pieces.tensors()),
         }
 
     def bound(self, route: str, x) -> dict:
@@ -538,13 +573,17 @@ def phase_hop_routes(shape: str, edge_index, n: int, plan, params,
                                          f"{against}")
     torch.cuda.synchronize()
     launches = {**gr.launches, **sp.launches}
-    if any(v != hops for v in launches.values()):
+    # K2 folds once a hop where a block has more than one piece
+    folds = hops if r.block.pieces.num_folds else 0
+    if launches != {k: folds if "_fold_" in k else hops for k in launches}:
         raise AssertionError(f"{shape}: the K2/K3 routes did not launch "
                              f"their kernels once a hop: {launches}")
 
     records = [{"phase": "hop_routes", "shape": shape, "nodes": n,
                 "edges": r.e, "layout_s": r.layout_s, "equal_to": against,
-                "launches": launches}]
+                "launches": launches,
+                "k2_pieces": r.block.pieces.num_pieces,
+                "k2_folds": r.block.pieces.num_folds}]
     route_ms = {}
     for hop in range(1, hops + 1):
         for i, (sketch, op) in enumerate(SKETCHES):
@@ -573,7 +612,7 @@ def phase_hop_routes(shape: str, edge_index, n: int, plan, params,
                 "K3"),
             sp._ENTRY[(op, x.dtype)][0]: (
                 lambda: sp.block_prop(x, b.src, b.dstl, b.blk_ptr,
-                                      is_min=is_min),
+                                      is_min=is_min, pieces=b.pieces),
                 lambda: sp.block_prop_plain(x, b.src, b.dstl, b.blk_ptr,
                                             is_min=is_min),
                 "K2"),
@@ -594,6 +633,9 @@ def phase_hop_routes(shape: str, edge_index, n: int, plan, params,
                 "plain_ms": cuda_ms(plain),
                 "library_ms": route_ms[(1, sketch, "scatter")],
                 "launches": launches[name], **r.bound(route, x)})
+            if route == "K2":
+                records[-1]["fold_launches"] = launches[
+                    sp._ENTRY[(op, x.dtype)][1]]
             del got, ref
     return records
 
@@ -742,7 +784,7 @@ def main() -> int:
     emit(k4)
     emit(phase_profile(cfg))
 
-    # each K1 and K3 instance's bench_hub record, by name
+    # each K1, K2 and K3 instance's bench_hub record, by name
     at_hub = {r["name"]: r for r in hub_records + hub_routes if "name" in r}
 
     def line(r, lib, ms_key="kernel_ms"):
@@ -752,7 +794,11 @@ def main() -> int:
                "ms": r[ms_key], "plain_ms": r["plain_ms"],
                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                "library_ms": r["library_ms"]}
-        if lib in ("segscan", "gather_reduce"):
+        if lib == "segscan":
+            rec["graph_ms"] = r["graph_ms"]
+        if lib == "block_prop":
+            rec["fold_launches"] = r["fold_launches"]
+        if lib in ("segscan", "gather_reduce", "block_prop"):
             h = at_hub[r["name"]]
             rec.update(hub_ms=h["kernel_ms"], hub_bound_ms=h["bound_ms"],
                        hub_library_ms=h["library_ms"])

@@ -10,9 +10,10 @@ header is rebuilt and a current one is reused.  nvcc's output
 ``load_all`` starts one nvcc per source, all at once.
 
 The wrappers (``ops/segscan.py``, ``studies/*.py``) share the glue below:
-``entry`` declares a C entry point's argument types, ``check_tensors``
-refuses what no kernel takes, ``merge_path_scratch`` allocates the
-carry-out scratch of K1 and K3, and ``launch`` calls an entry point on the
+``entry`` declares a C entry point's argument types, ``share_steps``
+reads a kernel's share size, ``check_tensors`` refuses what no kernel
+takes, ``merge_path_scratch`` allocates the carry-out scratch of K1 and
+K3, and ``launch`` calls an entry point on the
 current stream and raises on the cudaError it returns.
 """
 
@@ -113,8 +114,9 @@ def entry(name: str, fn_name: str, argtypes: tuple):
 
 @functools.lru_cache(maxsize=None)
 def share_steps(name: str) -> int:
-    """The merge-path steps of one share of ``csrc/<name>.cu``'s kernels
-    (its ``constexpr kShareSteps``, read from the built library)."""
+    """The steps of one share of ``csrc/<name>.cu``'s kernels (merge-path
+    steps for K1 and K3, the edges of one piece for K2): its ``constexpr``,
+    exported as ``<name>_share_steps`` and read from the built library."""
     fn = getattr(load(name), f"{name}_share_steps")
     fn.argtypes = []
     fn.restype = ctypes.c_int64

@@ -13,6 +13,13 @@ stores its block's min to row b of an [n_blocks, W] output
 (:func:`block_mins`); :func:`dma_gather` returns the last row.  A CPU
 tensor takes the plain versions.
 
+The kernel does not gather in index order: each CTA first sorts its
+block's indices on their top bits, so that the CTAs, all resident at
+once, sweep the table together and a row gathered by several blocks is
+read from HBM about once.  The min is the same bits in any order, but the
+study's rows/s is then the rate of the block-min function at the study's
+inputs, not the rate of gathering arbitrary rows in the order given.
+
     python -m subgraph_sketching_tpu_torch.studies.dma_gather_rate
 
 prints the kernel's rows/s beside ``rows[idx].min(0)`` in torch at the
@@ -38,7 +45,7 @@ BLOCK = 2048          # indices per block, as in the study
 W = 128               # int32 lanes per row (a MinHash row)
 MAX_WORDS = 128
 
-_ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int64,) * 2 + (ctypes.c_void_p,)
+_ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int64,) * 3 + (ctypes.c_void_p,)
 
 # kernel launches, counted where block_mins launches
 launches = {"dma_gather": 0}
@@ -70,7 +77,8 @@ def _check_args(rows, idx, n_blocks):
     if rows.dtype != torch.int32 or idx.dtype != torch.int32:
         raise ValueError(f"dma_gather: rows and idx must be int32, got "
                          f"{rows.dtype} and {idx.dtype}")
-    if rows.dim() != 2 or not 0 < rows.shape[1] <= MAX_WORDS:
+    if rows.dim() != 2 or not 0 < rows.shape[1] <= MAX_WORDS \
+            or rows.shape[0] < 1:
         raise ValueError(f"dma_gather: rows must be [N, 1..{MAX_WORDS}], "
                          f"got {tuple(rows.shape)}")
     cuda_build.check_tensors("dma_gather", rows=rows, idx=idx)
@@ -88,7 +96,7 @@ def block_mins(rows: torch.Tensor, idx: torch.Tensor,
     cuda_build.launch(
         cuda_build.entry("dma_gather", "dma_gather_block_min", _ARGTYPES),
         "dma_gather", rows.device, rows.data_ptr(), idx.data_ptr(),
-        out.data_ptr(), n_blocks, rows.shape[1])
+        out.data_ptr(), rows.shape[0], n_blocks, rows.shape[1])
     launches["dma_gather"] += 1
     return out
 

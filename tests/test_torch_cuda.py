@@ -7,7 +7,12 @@ they are also run on degree profiles that hit each edge of it (rows of one
 share, one share +- 1 and three shares, empty rows at a share boundary, a
 star, a long last row, one row, no items), at widths of 16-byte units and
 of 32-bit words, and their float32 add is held equal to itself across
-calls.  They skip without a CUDA device.
+calls.  K2 cuts each destination block's edges into pieces, so it is run
+on blocks of exactly one piece, one piece +- 1 and three pieces, on empty
+blocks, a short last block and a star whose hub spans many pieces; K4
+sorts each block's indices, so it is run on indices in random, sorted and
+reverse order, all one index and many repeats.  They skip without a CUDA
+device.
 
 This file imports no jax, so it also runs where jax is not installed:
 
@@ -332,3 +337,131 @@ def test_scorer_on_card_matches_cpu(cuda, tmp_path):
     links = np.random.default_rng(0).integers(0, on_cpu.num_nodes, (2000, 2))
     np.testing.assert_allclose(on_card.score(links), on_cpu.score(links),
                                rtol=1e-4, atol=1e-4)
+
+
+# Edges per K2 destination block, in terms of P, the edges of one piece,
+# and the rows of the last block (None: a whole block)
+K2_PROFILES = {
+    "one_piece_each": lambda p: ([p, p, p], None),
+    "piece_plus_minus_1": lambda p: ([p - 1, p + 1, p, 1, p + 2], None),
+    "spans_3_pieces": lambda p: ([2, 3 * p + 7, 5], None),
+    "empty_blocks": lambda p: ([0, 7, 0, 0, p + 3, 0], None),
+    "short_last_block": lambda p: ([40, 5, 2 * p + 1], 9),
+}
+
+# (op, dtype, width): the sketch instances at 16-byte-unit and word widths
+K2_CASES = [("min", torch.int32, 128), ("min", torch.int32, 40),
+            ("max", torch.int8, 256), ("max", torch.int8, 8)]
+
+
+def _k2_layout(profile, steps, seed=15):
+    """src sorted within each block, dstl random in the block's rows, and
+    the block pointer, for a K2_PROFILES entry."""
+    from subgraph_sketching_tpu_torch.studies import sketch_prop as sp
+    counts, last_rows = K2_PROFILES[profile](steps)
+    rows_of = [sp.BLOCK_ROWS] * len(counts)
+    if last_rows is not None:
+        rows_of[-1] = last_rows
+    n = sum(rows_of)
+    rng = np.random.default_rng(seed)
+    src = np.concatenate([np.sort(rng.integers(0, n, c)) for c in counts])
+    dstl = np.concatenate([rng.integers(0, r, c)
+                           for c, r in zip(counts, rows_of)])
+    blk_ptr = np.concatenate([[0], np.cumsum(counts)])
+    return src.astype(np.int32), dstl.astype(np.int32), blk_ptr, n
+
+
+def _k2_run_twice(x, src, dstl, blk_ptr, pieces, is_min):
+    """K2 twice, its plain version, and the launches each entry point
+    counted over the two calls."""
+    from subgraph_sketching_tpu_torch.studies import sketch_prop as sp
+    name, fold_name, _ = sp._ENTRY[("min" if is_min else "max", x.dtype)]
+    before = {k: sp.launches[k] for k in (name, fold_name)}
+    got = sp.block_prop(x, src, dstl, blk_ptr, is_min=is_min, pieces=pieces)
+    again = sp.block_prop(x, src, dstl, blk_ptr, is_min=is_min, pieces=pieces)
+    want = sp.block_prop_plain(x, src, dstl, blk_ptr, is_min=is_min)
+    torch.cuda.synchronize()
+    return got, again, want, (sp.launches[name] - before[name],
+                              sp.launches[fold_name] - before[fold_name])
+
+
+@pytest.mark.parametrize("profile", list(K2_PROFILES))
+@pytest.mark.parametrize("op,dtype,width", K2_CASES)
+def test_block_prop_piece_edges(cuda, profile, op, dtype, width):
+    """K2 bit-equal to its plain version, and to itself across two calls,
+    on every edge of the piece cut, at 16-byte and word widths."""
+    from subgraph_sketching_tpu_torch.ops import cuda_build
+    from subgraph_sketching_tpu_torch.studies import sketch_prop as sp
+    steps = cuda_build.share_steps("block_prop")
+    src, dstl, blk_ptr, n = _k2_layout(profile, steps)
+    pieces = sp.block_pieces(blk_ptr, steps, cuda)
+    g = torch.Generator(device="cuda").manual_seed(16)
+    x = _hop_input(n, dtype, width, g)
+    got, again, want, (main, folds) = _k2_run_twice(
+        x, *(torch.from_numpy(a).to(cuda) for a in (src, dstl, blk_ptr)),
+        pieces, op == "min")
+    assert main == 2 and folds == (2 if pieces.num_folds else 0)
+    assert torch.equal(got, want) and torch.equal(again, got)
+
+
+@pytest.mark.parametrize("op,dtype,width", K2_CASES)
+def test_block_prop_star_spans_many_pieces(cuda, op, dtype, width):
+    """A star whose hub's block spans many pieces (folded from scratch),
+    through BlockPropPlan: bit-equal to the plain version, to itself and
+    to the scatter route; a short last block."""
+    from subgraph_sketching_tpu_torch.ops import cuda_build
+    from subgraph_sketching_tpu_torch.sketch import elph
+    from subgraph_sketching_tpu_torch.studies import sketch_prop as sp
+    steps = cuda_build.share_steps("block_prop")
+    n, hub, deg = 3 * sp.BLOCK_ROWS + 17, sp.BLOCK_ROWS + 3, 20 * steps + 5
+    rng = np.random.default_rng(17)
+    ei = np.concatenate([
+        np.stack([rng.integers(0, n, deg), np.full(deg, hub)]),
+        rng.integers(0, n, (2, 500))], axis=1).astype(np.int32)
+    plan = sp.BlockPropPlan(ei, n, device=cuda)
+    assert plan.pieces.num_folds == 1 and plan.pieces.num_slots > 20
+    g = torch.Generator(device="cuda").manual_seed(18)
+    x = _hop_input(n, dtype, width, g)
+    is_min = op == "min"
+    got, again, want, (main, folds) = _k2_run_twice(
+        x, plan.src, plan.dstl, plan.blk_ptr, plan.pieces, is_min)
+    assert main == 2 and folds == 2
+    assert torch.equal(got, want) and torch.equal(again, got)
+    src, dst = (torch.from_numpy(a).to(cuda) for a in ei)
+    scatter = (elph.propagate_minhash if is_min else elph.propagate_hll)(
+        x, src, dst, n)
+    assert torch.equal(got, scatter)
+
+
+# K4 index orders: each block's indices sorted, reversed, all one row, or
+# a handful of rows repeated
+K4_ORDERS = {
+    "random": lambda rng, m, n: rng.integers(0, n, m),
+    "sorted": lambda rng, m, n: np.sort(rng.integers(0, n, m)),
+    "reverse": lambda rng, m, n: np.sort(rng.integers(0, n, m))[::-1],
+    "one_index": lambda rng, m, n: np.full(m, n // 3),
+    "many_repeats": lambda rng, m, n: rng.integers(0, 5, m) * (n // 7),
+}
+
+
+@pytest.mark.parametrize("order", list(K4_ORDERS))
+@pytest.mark.parametrize("width", [128, 40, 1])
+@pytest.mark.parametrize("n_blocks", [1, 512])
+def test_dma_gather_orders(cuda, order, width, n_blocks):
+    """K4 bit-equal to its plain version, and to itself across two calls,
+    whatever the order of the indices, at 16-byte and word widths."""
+    from subgraph_sketching_tpu_torch.studies import dma_gather_rate as dg
+    n = 5000
+    rng = np.random.default_rng(19)
+    g = torch.Generator(device="cuda").manual_seed(20)
+    rows = torch.randint(0, 2 ** 31 - 1, (n, width), generator=g,
+                         device="cuda", dtype=torch.int32)
+    idx = torch.from_numpy(np.ascontiguousarray(K4_ORDERS[order](
+        rng, n_blocks * dg.BLOCK + 37, n)).astype(np.int32)).to(cuda)
+    before = dg.launches["dma_gather"]
+    got = dg.block_mins(rows, idx, n_blocks)
+    again = dg.block_mins(rows, idx, n_blocks)
+    torch.cuda.synchronize()
+    assert dg.launches["dma_gather"] == before + 2
+    assert torch.equal(got, dg.block_mins_plain(rows, idx, n_blocks))
+    assert torch.equal(again, got)

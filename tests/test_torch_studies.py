@@ -202,20 +202,93 @@ def test_block_layout_matches_jax_at_its_block(jsp, kind):
     assert dstl.min() >= 0 and dstl.max() < sp.BLOCK_ROWS
 
 
+_JAX_BLOCK_PROP = {}
+
+
+def _jax_block_prop(jsp, kind, op):
+    """The JAX K2 study kernel in interpret mode on ``_graph(kind)`` and
+    ``_rows(op)``, run once per (kind, op) in this module."""
+    if (kind, op) not in _JAX_BLOCK_PROP:
+        ei, n = _graph(kind)
+        jplan = jsp.BlockPropPlan(ei, n)
+        with pltpu.force_tpu_interpret_mode():
+            fn = jplan.propagate_minhash if op == "min" \
+                else jplan.propagate_hll
+            _JAX_BLOCK_PROP[(kind, op)] = np.asarray(
+                fn(jnp.asarray(_rows(op, n)[0])))
+    return _JAX_BLOCK_PROP[(kind, op)]
+
+
 @pytest.mark.parametrize("kind,op", [("mixed", "min"), ("mixed", "max"),
                                      ("empty", "max")])
 def test_block_prop_bit_equal_to_pallas(jsp, kind, op):
     ei, n = _graph(kind)
     x_j, x_t = _rows(op, n)
-    jplan = jsp.BlockPropPlan(ei, n)
-    with pltpu.force_tpu_interpret_mode():
-        fn = jplan.propagate_minhash if op == "min" else jplan.propagate_hll
-        want = np.asarray(fn(jnp.asarray(x_j)))
+    want = _jax_block_prop(jsp, kind, op)
     tplan = sp.BlockPropPlan(ei, n, device="cpu")
     fn = tplan.propagate_minhash if op == "min" else tplan.propagate_hll
     got = fn(x_t)
     np.testing.assert_array_equal(_to_numpy(op, got), want)
     assert torch.equal(got, _scatter_route(op, x_t, ei, n))
+
+
+# Edges per block, in terms of the piece size P: blocks of exactly P, of
+# P +- 1, one of 3P + 7, empty blocks, and a layout with no edges at all
+PIECE_PROFILES = {
+    "exact": lambda p: [p, p, p],
+    "plus_minus_1": lambda p: [p - 1, p + 1, p, 1, p + 2],
+    "spans_3_pieces": lambda p: [2, 3 * p + 7, 5],
+    "empty_blocks": lambda p: [0, 7, 0, 0, p + 3, 0],
+    "no_edges": lambda p: [0, 0],
+}
+
+
+@pytest.mark.parametrize("profile", list(PIECE_PROFILES))
+@pytest.mark.parametrize("steps", [1, 4, 64])
+def test_block_pieces_cut_each_block_in_order(profile, steps):
+    counts = np.asarray(PIECE_PROFILES[profile](steps), dtype=np.int64)
+    blk_ptr = np.concatenate([[0], np.cumsum(counts)])
+    pieces = sp.block_pieces(blk_ptr, steps)
+    ptr, blk, slot = (t.numpy() for t in (pieces.ptr, pieces.blk, pieces.slot))
+    fold_ptr, fold_blk = pieces.fold_ptr.numpy(), pieces.fold_blk.numpy()
+    assert ptr[0] == 0 and ptr[-1] == blk_ptr[-1]
+    assert np.all(np.diff(ptr) >= 0) and np.all(np.diff(ptr) <= steps)
+    next_slot = 0
+    for b, c in enumerate(counts):
+        mine = np.flatnonzero(blk == b)
+        # consecutive pieces, ceil(c / steps) of them (one when empty),
+        # covering the block's edges in order
+        assert len(mine) == max(1, -(-c // steps))
+        assert np.array_equal(mine, np.arange(mine[0], mine[0] + len(mine)))
+        assert ptr[mine[0]] == blk_ptr[b] and ptr[mine[-1] + 1] == blk_ptr[b + 1]
+        if len(mine) == 1:
+            assert slot[mine[0]] == -1 and b not in fold_blk
+        else:
+            want = np.arange(next_slot, next_slot + len(mine))
+            assert np.array_equal(slot[mine], want)
+            m = int(np.flatnonzero(fold_blk == b)[0])
+            assert (fold_ptr[m], fold_ptr[m + 1]) == (want[0], want[-1] + 1)
+            next_slot += len(mine)
+    assert pieces.num_slots == next_slot
+    assert pieces.num_pieces == len(blk) and pieces.num_folds == len(fold_blk)
+
+
+@pytest.mark.parametrize("op", ["min", "max"])
+@pytest.mark.parametrize("steps", [1, 7, 300])
+def test_block_prop_by_pieces_bit_equal_to_pallas(jsp, op, steps):
+    """The kernel's piece-by-piece way in plain torch (pieces of ``steps``
+    edges, the hub's block folded from scratch tiles) against the JAX
+    kernel in interpret mode; the last block is shorter than BLOCK_ROWS."""
+    ei, n = _graph("mixed")
+    assert n % sp.BLOCK_ROWS
+    x_t = _rows(op, n)[1]
+    want = _jax_block_prop(jsp, "mixed", op)
+    tplan = sp.BlockPropPlan(ei, n, device="cpu")
+    pieces = sp.block_pieces(tplan.blk_ptr.numpy(), steps)
+    assert pieces.num_folds > 0
+    got = sp.block_prop_pieces_plain(x_t, tplan.src, tplan.dstl, pieces,
+                                     is_min=op == "min")
+    np.testing.assert_array_equal(_to_numpy(op, got), want)
 
 
 # ------------------------------------------------------------ all routes --
