@@ -56,10 +56,24 @@ Phases, each printing one JSON line:
   profile    the same rebuild and one 262144-link request again under
              torch.profiler: host stage times, device busy time and share,
              the top kernels
+  train      BUDDY training at full width through runners.run.run
+             (synth-ws-200000, Config defaults, 2 epochs, eval every epoch,
+             --check_determinism, --save_model), the K1 launch counts read
+             around it (at least 2 min, 2 max and 1 add per message graph);
+             per epoch: loss (finite, falling), train and eval seconds,
+             trained links/s, Hits@100; peak memory.  Then the device idle
+             share over 200 steps under torch.profiler, and the saved
+             checkpoint served by scorer_from_checkpoint: its scores for
+             65536 random links equal to the trainer's predict within 1e-4
+  train_reference  a small BUDDY (synth-ws, hidden 32, dropout 0) trained 2
+             epochs from the same weights on the same orders on the card
+             and on the CPU, in float32 and float64: step losses and
+             parameters allclose (see phase_train_reference)
 
 then the per-kernel summary line (each K1, K2 and K3 entry also carries
 its ``bench_hub`` time, bound and yardstick: ``hub_ms``, ``hub_bound_ms``,
-``hub_library_ms``), the nvidia-smi line, and as the last
+``hub_library_ms``; each K1 entry its launches in the train phase,
+``train_launches``), the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises: the run exits
 non-zero and prints no last line.  Without a CUDA device it exits 2 at once.
 """
@@ -679,11 +693,14 @@ def phase_k4(seed: int = 0) -> dict:
 
 def _device_time(prof) -> tuple:
     """(busy ms, {kernel name: [ms, count]}) from the CUDA events of a
-    torch.profiler run."""
+    torch.profiler run.  User annotations that the profiler puts on the
+    device's timeline (``Optimizer.step#Adam.step``, spanning the step's
+    own kernels) are left out, so no time is counted twice."""
     from torch.autograd import DeviceType
     per = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and not getattr(
+                e, "is_user_annotation", False):
             slot = per.setdefault(e.name[:96], [0.0, 0])
             slot[0] += e.time_range.elapsed_us() / 1e3
             slot[1] += 1
@@ -739,6 +756,248 @@ def phase_profile(cfg, seed: int = 3) -> dict:
     return {"phase": "profile", "rebuild": rebuild, "request": request}
 
 
+def message_graphs(splits) -> int:
+    """The number of message graphs build_all_splits builds for
+    ``splits``: the train graph, and each other split's unless it equals
+    the train graph's (valid shares it; test adds the valid edges)."""
+    import numpy as np
+    g = splits["train"].graph
+    return 1 + sum(
+        not (s.graph.num_nodes == g.num_nodes
+             and np.array_equal(s.graph.edge_index, g.edge_index)
+             and np.array_equal(np.asarray(s.graph.weights),
+                                np.asarray(g.weights)))
+        for name, s in splits.items() if name != "train")
+
+
+def phase_train(splits, seed: int = 4) -> dict:
+    """BUDDY training at full width through the runner's entry point:
+    ``runners.run.run`` on synth-ws-200000 at Config defaults, 2 epochs,
+    eval every epoch, --check_determinism and --save_model, with the K1
+    launch counts read around it.  Then, apart from that run: the device
+    idle share over 200 steps under torch.profiler, and the saved
+    checkpoint served by ``scorer_from_checkpoint``, whose scores for 65536
+    random links must equal the trainer's ``predict`` within 1e-4."""
+    import math
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from subgraph_sketching_tpu_torch.config import Config
+    from subgraph_sketching_tpu_torch.graph.preprocess import (
+        build_all_splits, build_link_dataset,
+    )
+    from subgraph_sketching_tpu_torch.graph.splits import SplitData
+    from subgraph_sketching_tpu_torch.ops import segscan
+    from subgraph_sketching_tpu_torch.ops.cuda_build import BUILD_DIR
+    from subgraph_sketching_tpu_torch.runners.run import build_trainer, run
+    from subgraph_sketching_tpu_torch.serving import scorer_from_checkpoint
+    from subgraph_sketching_tpu_torch.train import checkpoint
+    from subgraph_sketching_tpu_torch.train.loops import make_optimizer
+
+    ckpt = os.path.join(BUILD_DIR, "smoke_train_checkpoint")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    cfg = Config(dataset_name="synth-ws-200000", epochs=2, eval_steps=1,
+                 check_determinism=True, save_model=True,
+                 checkpoint_dir=ckpt)
+    for k in segscan.launches:
+        segscan.launches[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = run(cfg, device="cuda")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(segscan.launches)
+    peak_memory = torch.cuda.max_memory_allocated()
+
+    graphs = message_graphs(splits)
+    need = {"segscan_min_i32": cfg.max_hash_hops * graphs,
+            "segscan_max_i8": cfg.max_hash_hops * graphs,
+            "segscan_add_f32": graphs}
+    if any(launches[k] < v for k, v in need.items()):
+        raise AssertionError(f"the training run's preprocessing did not run "
+                             f"through K1 for its {graphs} message graphs: "
+                             f"{launches}")
+    with open(os.path.join(ckpt, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    losses = [r["rep0_loss"] for r in rows]
+    if len(rows) != cfg.epochs or not all(map(math.isfinite, losses)) \
+            or not losses[1] < losses[0]:
+        raise AssertionError(f"training losses not finite and falling: "
+                             f"{losses}")
+    n_links = len(splits["train"].links)   # every link, every epoch
+    steps = math.ceil(n_links / cfg.batch_size)
+    epochs = [{"epoch": i, "loss": r["rep0_loss"],
+               "train_s": r["rep0_train_time"], "eval_s": r["rep0_eval_time"],
+               "trained_links_per_s": n_links / r["rep0_train_time"],
+               "steps_per_s": steps / r["rep0_train_time"],
+               "hits@100": {"train": r["rep0_TrainHits@100"] / 100,
+                            "valid": r["rep0_tmp_valHits@100"] / 100,
+                            "test": r["rep0_tmp_testHits@100"] / 100}}
+              for i, r in enumerate(rows)]
+
+    # the same staged data again, the trained model and optimizer restored
+    datasets = build_all_splits(splits, cfg, device="cuda")
+    trainer = build_trainer(cfg, datasets, datasets["train"].x.shape[-1],
+                            "cuda")
+    model = trainer.init_model(0)
+    opt = make_optimizer(cfg, model.parameters())
+    step = checkpoint.restore_into(ckpt, model, opt)
+
+    # device idle share over 200 steps of an epoch (after 10 warm steps)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    order = torch.randperm(n_links, generator=g, device="cuda")
+    bs, window = cfg.batch_size, order[:200 * cfg.batch_size]
+    trainer.run_epoch(model, opt, seed, order=order[:10 * bs])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        trainer.run_epoch(model, opt, seed, order=window)
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t1
+    busy_ms, per = _device_time(prof)
+    idle = {"steps": math.ceil(len(window) / bs), "window_ms": window_s * 1e3,
+            "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / (window_s * 1e3),
+            "top_kernels": sorted(([k, v[0], v[1]] for k, v in per.items()),
+                                  key=lambda r: -r[1])[:8]}
+
+    # serve what was trained: the scorer rebuilt from the run's directory
+    # against the trainer's predict on 65536 random links (staged as a
+    # split of the train message graph, so its features come from the
+    # trainer's preprocessing path)
+    model = trainer.init_model(0)
+    checkpoint.restore_into(ckpt, model, step=cfg.epochs)
+    rng = np.random.default_rng(seed)
+    links = rng.integers(0, datasets["train"].num_nodes, (65536, 2))
+    query = SplitData(splits["train"].graph, links,
+                      np.zeros((0, 2), np.int64))
+    trainer.stage("query", build_link_dataset(
+        query, cfg, "query", reuse_from=datasets["train"], device="cuda"))
+    want, _ = trainer.predict(model, "query")
+    del datasets, trainer
+    scorer = scorer_from_checkpoint(ckpt, device="cuda")
+    got = scorer.score(links)
+    shutil.rmtree(ckpt)
+    if scorer.restored_step != cfg.epochs:
+        raise AssertionError(f"served step {scorer.restored_step}, trained "
+                             f"{cfg.epochs}")
+    serve_err = float(np.abs(got - want).max())
+    if not np.isfinite(got).all() or serve_err > 1e-4:
+        raise AssertionError(f"served scores differ from the trainer's "
+                             f"predict: max |err| {serve_err}")
+    return {"phase": "train", "dataset": cfg.dataset_name,
+            "hidden_channels": cfg.hidden_channels,
+            "batch_size": cfg.batch_size,
+            "minhash_num_perm": cfg.minhash_num_perm, "hll_p": cfg.hll_p,
+            "max_hash_hops": cfg.max_hash_hops, "sign_k": cfg.sign_k,
+            "lr": cfg.lr, "train_links": n_links, "steps_per_epoch": steps,
+            "run_s": run_s, "preprocess_s": rows[0]["rep0_preprocess_time"],
+            "epochs": epochs, "results": results,
+            "determinism": "epoch 0 bit-identical on two runs",
+            "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
+            "peak_memory_bytes": peak_memory, "k1_launches": launches,
+            "message_graphs": graphs, "restored_step": step,
+            "profile": idle, "served_links": len(links),
+            "served_max_abs_err": serve_err}
+
+
+# biases of the Linear layers that feed a BatchNorm: their true gradient is
+# zero, and Adam scales each device's rounding noise in it to steps of up
+# to lr, so train_reference freezes them on both devices
+PRE_BN_BIAS = r"(label_lin_layer|lin_out|sign\.lin_\d+)\.bias"
+
+
+def phase_train_reference(seed: int = 5) -> dict:
+    """A small BUDDY (synth-ws, hidden 32, dropout 0) trained 2 epochs from
+    the same weights, on the same explicit orders, on the card and on the
+    CPU, in float32 (the port's precision) and in float64.
+
+    float64: step losses and parameters equal within 1e-9 (the same
+    function on both devices).  float32: step losses within rtol 1e-4;
+    each parameter and BN buffer within rtol 1e-4 / atol 1e-5 of the CPU
+    one, or, where float32 rounding alone moves it further (Adam scales
+    the rounding of a near-zero gradient to up to lr a step), no further
+    from the float64 result than 4x the CPU float32 run is."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from subgraph_sketching_tpu_torch.config import Config
+    from subgraph_sketching_tpu_torch.graph.datasets import get_data
+    from subgraph_sketching_tpu_torch.graph.preprocess import build_all_splits
+    from subgraph_sketching_tpu_torch.train.loops import (
+        BuddyTrainer, epoch_seed, make_optimizer,
+    )
+
+    cfg = Config(dataset_name="synth-ws", hidden_channels=32,
+                 label_dropout=0.0, feature_dropout=0.0, sign_dropout=0.0)
+    splits, directed, _ = get_data(cfg)
+    ds = build_all_splits(splits, cfg, directed=directed, device="cpu")
+    n = ds["train"].num_links
+    g = torch.Generator().manual_seed(seed)
+    orders = [torch.randperm(n, generator=g) for _ in range(2)]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        for dtype in (torch.float32, torch.float64):
+            tr = BuddyTrainer(cfg, ds["train"], ds["train"].x.shape[-1],
+                              device=dev)
+            for data in tr._data.values():   # the staged float tensors
+                data["rows"], data["x"] = (data["rows"].to(dtype),
+                                           data["x"].to(dtype))
+            model = tr.init_model(seed).to(dtype)
+            for name, p in model.named_parameters():
+                p.requires_grad_(not re.fullmatch(PRE_BN_BIAS, name))
+            opt = make_optimizer(cfg, model.parameters())
+            losses = torch.cat([tr.run_epoch(model, opt, epoch_seed(0, e),
+                                             order=orders[e])
+                                for e in range(2)])
+            runs[dev, dtype] = (
+                losses.double().cpu().numpy(),
+                {k: v.double().cpu() for k, v in model.state_dict().items()
+                 if v.is_floating_point()})
+    f32, f64 = torch.float32, torch.float64
+    np.testing.assert_allclose(runs["cuda", f64][0], runs["cpu", f64][0],
+                               rtol=1e-9)
+    for k, v in runs["cpu", f64][1].items():
+        torch.testing.assert_close(runs["cuda", f64][1][k], v, rtol=1e-9,
+                                   atol=1e-12)
+    want, got = runs["cpu", f32][0], runs["cuda", f32][0]
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    max_rel, beyond = 0.0, {}
+    for k, exact in runs["cpu", f64][1].items():
+        cpu, card = runs["cpu", f32][1][k], runs["cuda", f32][1][k]
+        max_rel = max(max_rel, float(((card - cpu).abs()
+                                      / (cpu.abs() + 1e-5)).max()))
+        if bool(((card - cpu).abs() <= 1e-5 + 1e-4 * cpu.abs()).all()):
+            continue
+        card_err = float((card - exact).abs().max())
+        cpu_err = float((cpu - exact).abs().max())
+        beyond[k] = {"card_vs_cpu": float((card - cpu).abs().max()),
+                     "card_vs_float64": card_err,
+                     "cpu_vs_float64": cpu_err}
+        if card_err > 4 * cpu_err:
+            raise AssertionError(f"train_reference: {k} on the card is "
+                                 f"{card_err} from the float64 result, the "
+                                 f"CPU float32 run {cpu_err}")
+    return {"phase": "train_reference", "dataset": cfg.dataset_name,
+            "hidden_channels": cfg.hidden_channels, "steps": len(want),
+            "max_loss_rel_diff": float(np.abs(got / want - 1).max()),
+            "max_param_rel_diff": max_rel,
+            "beyond_rtol_1e-4_atol_1e-5": beyond,
+            "float64_max_param_diff": max(
+                float((runs["cuda", f64][1][k] - v).abs().max())
+                for k, v in runs["cpu", f64][1].items()),
+            "tolerance": "float64: 1e-9; float32: losses rtol 1e-4, "
+                         "parameters rtol 1e-4 / atol 1e-5 or within 4x "
+                         "the CPU float32 run's distance from float64; "
+                         "pre-BN biases frozen"}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -783,6 +1042,9 @@ def main() -> int:
     k4 = phase_k4()
     emit(k4)
     emit(phase_profile(cfg))
+    train = phase_train(splits)
+    emit(train)
+    emit(phase_train_reference())
 
     # each K1, K2 and K3 instance's bench_hub record, by name
     at_hub = {r["name"]: r for r in hub_records + hub_routes if "name" in r}
@@ -796,6 +1058,7 @@ def main() -> int:
                "library_ms": r["library_ms"]}
         if lib == "segscan":
             rec["graph_ms"] = r["graph_ms"]
+            rec["train_launches"] = train["k1_launches"][r["name"]]
         if lib == "block_prop":
             rec["fold_launches"] = r["fold_launches"]
         if lib in ("segscan", "gather_reduce", "block_prop"):

@@ -14,7 +14,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from subgraph_sketching_tpu_torch.models.gnn import SIGN, batch_norm
+from subgraph_sketching_tpu_torch.models.gnn import SIGN, Dropout, batch_norm
 
 
 class BUDDY(nn.Module):
@@ -43,7 +43,7 @@ class BUDDY(nn.Module):
         dim = sf_dim * 2 if append_normalised else sf_dim
         self.label_lin_layer = nn.Linear(dim, dim)
         self.bn_labels = batch_norm(dim)
-        self.label_dropout = nn.Dropout(label_dropout)
+        self.label_dropout = Dropout(label_dropout)
         out_dim = dim
         if self.use_feature:
             # (reference feature_forward, src/models/elph.py:295-311)
@@ -54,14 +54,17 @@ class BUDDY(nn.Module):
                 self.lin_feat = nn.Linear(num_features, hidden_channels)
             self.lin_out = nn.Linear(hidden_channels, hidden_channels)
             self.bn_feats = batch_norm(hidden_channels)
-            self.feature_dropout = nn.Dropout(feature_dropout)
+            self.feature_dropout = Dropout(feature_dropout)
             out_dim += hidden_channels
         self.lin = nn.Linear(out_dim, 1)
 
     @classmethod
     def from_config(cls, cfg, num_features: Optional[int]) -> "BUDDY":
         """The model a BUDDY run with ``cfg`` trains (as the JAX package's
-        BuddyTrainer builds it)."""
+        BuddyTrainer builds it).  ``num_features`` is the width of the
+        split's node features, d*(sign_k+1) when sign_k > 0."""
+        if num_features is not None:
+            num_features //= cfg.sign_k + 1
         return cls(sf_dim=cfg.sf_dim, hidden_channels=cfg.hidden_channels,
                    num_features=num_features,
                    use_feature=cfg.use_feature and num_features is not None,
@@ -86,17 +89,19 @@ class BUDDY(nn.Module):
     def forward(self, sf: torch.Tensor,
                 node_features: Optional[torch.Tensor] = None,
                 src_degree: Optional[torch.Tensor] = None,
-                dst_degree: Optional[torch.Tensor] = None) -> torch.Tensor:
+                dst_degree: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator`` draws the dropout masks in training mode."""
         if self.append_normalised:
             sf = self._append_degree_normalised(sf, src_degree, dst_degree)
         x = self.label_lin_layer(sf)
-        x = self.label_dropout(torch.relu(self.bn_labels(x)))
+        x = self.label_dropout(torch.relu(self.bn_labels(x)), generator)
         if self.use_feature and node_features is not None:
             if self.sign_k != 0:
-                h = self.sign(node_features)
+                h = self.sign(node_features, generator)
             else:
                 h = self.lin_feat(node_features)
             h = self.lin_out(h[:, 0, :] * h[:, 1, :])
-            h = self.feature_dropout(torch.relu(self.bn_feats(h)))
+            h = self.feature_dropout(torch.relu(self.bn_feats(h)), generator)
             x = torch.cat([x, h], dim=1)
         return self.lin(x)

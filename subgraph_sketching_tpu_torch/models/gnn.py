@@ -1,4 +1,4 @@
-"""GNN building blocks of the port: batch norm and SIGN.
+"""GNN building blocks of the port: batch norm, dropout and SIGN.
 
 BatchNorm: flax momentum 0.9 (the JAX package's ``BN_MOMENTUM``) is torch
 momentum 0.1; eps 1e-5 in both.
@@ -6,15 +6,61 @@ momentum 0.1; eps 1e-5 in both.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
 
 
-def batch_norm(num_features: int) -> nn.BatchNorm1d:
-    return nn.BatchNorm1d(num_features, momentum=BN_MOMENTUM, eps=BN_EPS)
+class BatchNorm(nn.BatchNorm1d):
+    """``BatchNorm1d`` with flax's running statistics.
+
+    In training mode torch updates ``running_var`` from the unbiased batch
+    variance; flax (the JAX package's ``batch_norm``) from the biased one.
+    This normalises with the batch statistics as both do and updates the
+    running mean and variance from the biased variance, so the running
+    statistics follow the JAX package's.  Eval mode and the state_dict
+    (parameter and buffer names) are ``BatchNorm1d``'s.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                           self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=0, correction=0)
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        return out
+
+
+def batch_norm(num_features: int) -> BatchNorm:
+    return BatchNorm(num_features, momentum=BN_MOMENTUM, eps=BN_EPS)
+
+
+class Dropout(nn.Module):
+    """Dropout whose mask comes from the ``generator`` given to forward (a
+    ``torch.Generator`` on the input's device), so a training epoch is a
+    function of its seed, as the JAX package's is of its key.  Kept units
+    are scaled by 1/(1-p), as in flax."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or self.p == 0:
+            return x
+        keep = torch.empty_like(x).bernoulli_(1 - self.p, generator=generator)
+        return torch.where(keep.bool(), x / (1 - self.p), torch.zeros_like(x))
 
 
 class SIGN(nn.Module):
@@ -23,7 +69,8 @@ class SIGN(nn.Module):
     Input [B, 2, d*(K+1)] is split into K+1 hop blocks; each gets its own
     Linear+BN+ReLU+Dropout, then blocks are concatenated and mixed
     (reference src/models/gnn.py:169-191).  BatchNorm is applied per link
-    endpoint with shared parameters, like the reference's bn(h[:,0])/bn(h[:,1]).
+    endpoint with shared parameters, like the reference's bn(h[:,0])/bn(h[:,1])
+    (in training mode each call updates the running statistics, as in flax).
     Submodules ``lin_{k}``, ``bn_{k}``, ``lin_out`` mirror the flax names.
     """
 
@@ -35,13 +82,14 @@ class SIGN(nn.Module):
             self.add_module(f"lin_{k}", nn.Linear(in_channels, hidden_channels))
             self.add_module(f"bn_{k}", batch_norm(hidden_channels))
         self.lin_out = nn.Linear(hidden_channels * (K + 1), out_channels)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
 
-    def forward(self, xs: torch.Tensor) -> torch.Tensor:
+    def forward(self, xs: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         hs = []
         for k, x in enumerate(torch.chunk(xs, self.K + 1, dim=-1)):
             h = getattr(self, f"lin_{k}")(x)
             bn = getattr(self, f"bn_{k}")
             h = torch.stack([bn(h[:, 0, :]), bn(h[:, 1, :])], dim=1)
-            hs.append(self.dropout(torch.relu(h)))
+            hs.append(self.dropout(torch.relu(h), generator))
         return self.lin_out(torch.cat(hs, dim=-1))

@@ -1,0 +1,280 @@
+"""Experiment driver of the port: BUDDY training and evaluation (the JAX
+package's runners/run.py, reference src/runners/run.py).
+
+    python -m subgraph_sketching_tpu_torch.runners.run \
+        --dataset_name synth-ba --model BUDDY --epochs 2 --device cpu
+
+The flags are the JAX runner's (every ``Config`` field, reference names)
+plus ``--device`` (default ``cuda``; the run raises when CUDA is absent).
+Preprocessing runs on the device through the plan and K1.
+
+Not ported yet (queued, each raises NotImplementedError): models other than
+BUDDY (ELPH, SEAL, KGE), ``--mesh_shape``, ``--heartbeat_dir``,
+``--profile_dir``, ``--compilation_cache_dir``, datasets other than
+``synth-*`` (``get_data`` raises) and with them citation2's ``train_eval``
+split.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import random
+import time
+from math import inf
+
+import numpy as np
+
+from subgraph_sketching_tpu_torch.config import Config
+from subgraph_sketching_tpu_torch.device import resolve_device
+from subgraph_sketching_tpu_torch.graph.datasets import get_data
+from subgraph_sketching_tpu_torch.graph.preprocess import build_all_splits
+from subgraph_sketching_tpu_torch.metrics_logging import (
+    MetricsLogger, apply_sweep_overrides,
+)
+from subgraph_sketching_tpu_torch.train import checkpoint
+from subgraph_sketching_tpu_torch.train.determinism import (
+    check_epoch_determinism,
+)
+from subgraph_sketching_tpu_torch.train.inference import test
+from subgraph_sketching_tpu_torch.train.loops import (
+    BuddyTrainer, epoch_seed, make_optimizer,
+)
+from subgraph_sketching_tpu_torch.utils import str2bool
+
+
+def set_seed(seed: int) -> np.random.Generator:
+    """Reproducibility per OGB rules (reference run.py:37-48)."""
+    random.seed(seed)
+    np.random.seed(seed)
+    return np.random.default_rng(seed)
+
+
+def _refuse_unported(cfg: Config) -> None:
+    if cfg.model != "BUDDY":
+        raise NotImplementedError(
+            f"model {cfg.model} is not ported yet (BUDDY only; ELPH, the "
+            f"heuristics, SEAL and KGE are queued in ROADMAP.md §1, items "
+            f"9, 10, 12 and 13)")
+    for flag in ("mesh_shape", "heartbeat_dir", "profile_dir",
+                 "compilation_cache_dir"):
+        if getattr(cfg, flag):
+            raise NotImplementedError(f"--{flag} is not ported yet")
+
+
+def build_trainer(cfg: Config, datasets, num_features, device
+                  ) -> BuddyTrainer:
+    trainer = BuddyTrainer(cfg, datasets["train"], num_features,
+                           device=device)
+    for split in ("valid", "test"):
+        trainer.stage(split, datasets[split])
+    return trainer
+
+
+def run(cfg: Config, device="cuda"):
+    """Rep loop with best-val model selection (reference run.py:50-110).
+
+    Besides the JAX runner's per-rep logger keys, each eval row carries
+    ``rep<r>_preprocess_time``, ``rep<r>_train_time`` (the epoch's training
+    alone) and ``rep<r>_eval_time``, in seconds."""
+    dev = resolve_device(device)
+    _refuse_unported(cfg)
+    print(f"executing on {dev}")
+    logger = MetricsLogger(
+        run_dir=cfg.checkpoint_dir, use_wandb=cfg.wandb,
+        config=None if cfg.checkpoint_dir is None else
+        json.loads(cfg.to_json()),
+        wandb_kwargs=dict(
+            entity=cfg.wandb_entity, project=cfg.wandb_project,
+            group=cfg.wandb_group, name=cfg.wandb_run_name,
+            dir=cfg.wandb_output_dir,
+            mode="offline" if cfg.use_wandb_offline else "online"))
+    results_list = []
+    for rep in range(cfg.reps):
+        set_seed(rep)
+        splits, directed, eval_metric = get_data(cfg)
+        if cfg.eval_metric != "hits":
+            eval_metric = cfg.eval_metric
+        t0 = time.time()
+        datasets = build_all_splits(splits, cfg, directed=directed,
+                                    device=dev)
+        num_features = (None if datasets["train"].x is None
+                        else datasets["train"].x.shape[-1])
+        trainer = build_trainer(cfg, datasets, num_features, dev)
+        preprocess_time = time.time() - t0
+        print(f"preprocessing ran in {preprocess_time:.2f}s")
+        model = trainer.init_model(rep)
+        optimizer = make_optimizer(cfg, model.parameters())
+        start_epoch = 0
+        resumed_meta = None
+        if cfg.resume and cfg.checkpoint_dir and rep == 0:
+            # the loop continues FROM the restored epoch: each epoch's seed
+            # is epoch_seed(rep, epoch), so the resumed run's remaining
+            # epochs are bit-identical to an uninterrupted run's
+            step = checkpoint.latest_step(cfg.checkpoint_dir)
+            if step is not None:
+                step = checkpoint.restore_into(cfg.checkpoint_dir, model,
+                                               optimizer, step=step)
+                start_epoch = min(step, cfg.epochs)
+                # best-val tracking is host state: without it the resumed
+                # run would re-select best-val over the remaining epochs
+                resumed_meta = checkpoint.load_run_meta(cfg.checkpoint_dir,
+                                                        step)
+                print(f"resumed from checkpoint step {step}")
+
+        if cfg.check_determinism and rep == 0:
+            n_arr, dloss = check_epoch_determinism(
+                trainer, model, optimizer, epoch_seed(rep, 0))
+            print(f"determinism check passed: {n_arr} state tensors "
+                  f"bitwise-identical across epoch reruns (loss {dloss:.4f})")
+
+        val_res = test_res = train_res = 0.0
+        best_epoch = 0
+        if resumed_meta is not None:
+            val_res = resumed_meta.get("val_res", 0.0)
+            test_res = resumed_meta.get("test_res", 0.0)
+            train_res = resumed_meta.get("train_res", 0.0)
+            best_epoch = resumed_meta.get("best_epoch", 0)
+        print(f"running repetition {rep}")
+        for epoch in range(start_epoch, cfg.epochs):
+            t0 = time.time()
+            loss = trainer.train_epoch(model, optimizer,
+                                       epoch_seed(rep, epoch))
+            train_time = time.time() - t0
+            if (epoch + 1) % cfg.eval_steps == 0:
+                t1 = time.time()
+                results = test(trainer, model, cfg, eval_metric)
+                eval_time = time.time() - t1
+                for key, result in results.items():
+                    train_res, tmp_val, tmp_test = (list(result) + [0.0])[:3]
+                    if tmp_val > val_res:
+                        val_res, test_res, best_epoch = tmp_val, tmp_test, epoch
+                    # per-rep metric dict mirrors the reference's wandb keys
+                    # (run.py:82-88)
+                    logger.log({f"rep{rep}_loss": loss,
+                                f"rep{rep}_Train{key}": 100 * train_res,
+                                f"rep{rep}_Val{key}": 100 * val_res,
+                                f"rep{rep}_tmp_val{key}": 100 * tmp_val,
+                                f"rep{rep}_tmp_test{key}": 100 * tmp_test,
+                                f"rep{rep}_Test{key}": 100 * test_res,
+                                f"rep{rep}_best_epoch": best_epoch,
+                                f"rep{rep}_epoch_time": time.time() - t0,
+                                f"rep{rep}_preprocess_time": preprocess_time,
+                                f"rep{rep}_train_time": train_time,
+                                f"rep{rep}_eval_time": eval_time},
+                               # globally monotonic across reps: wandb drops
+                               # rows whose step goes backwards
+                               step=rep * cfg.epochs + epoch)
+                    print(key)
+                    print(f"Epoch: {epoch:02d}, Best epoch: {best_epoch}, "
+                          f"Loss: {loss:.4f}, Train: {100 * train_res:.2f}%, "
+                          f"Valid: {100 * val_res:.2f}%, "
+                          f"Test: {100 * test_res:.2f}%, "
+                          f"epoch time: {time.time() - t0:.1f}")
+            if (cfg.checkpoint_every and cfg.checkpoint_dir and rep == 0
+                    and (epoch + 1) % cfg.checkpoint_every == 0):
+                # after this epoch's eval, so the sidecar meta carries the
+                # best-val tracking including it
+                checkpoint.save_checkpoint(cfg.checkpoint_dir, model,
+                                           optimizer, step=epoch + 1)
+                checkpoint.save_run_meta(cfg.checkpoint_dir, epoch + 1, {
+                    "val_res": float(val_res), "test_res": float(test_res),
+                    "train_res": float(train_res),
+                    "best_epoch": int(best_epoch)})
+        if start_epoch >= cfg.epochs and cfg.epochs > 0:
+            # resumed from a checkpoint at/past cfg.epochs (e.g. one written
+            # by --save_model after a completed run): the loop body never
+            # ran.  Evaluate the restored model instead of reporting zeros.
+            print(f"checkpoint step {start_epoch} >= epochs {cfg.epochs}; "
+                  f"evaluating restored state")
+            results = test(trainer, model, cfg, eval_metric)
+            for key, result in results.items():
+                train_res, tmp_val, tmp_test = (list(result) + [0.0])[:3]
+                if tmp_val > val_res:
+                    val_res, test_res = tmp_val, tmp_test
+        results_list.append([test_res, val_res, train_res])
+        if cfg.reps > 1:
+            for idx, res in enumerate(results_list):
+                print(f"repetition {idx}: test {res[0]:.2f}, val {res[1]:.2f}, "
+                      f"train {res[2]:.2f}")
+    if cfg.reps > 1:
+        arr = np.array(results_list) * 100
+        print({"test_mean": arr[:, 0].mean(), "val_mean": arr[:, 1].mean(),
+               "train_mean": arr[:, 2].mean(),
+               "test_acc_std": arr[:, 0].std(), "val_acc_std": arr[:, 1].std()})
+    if cfg.save_model and cfg.checkpoint_dir:
+        path = checkpoint.save_checkpoint(cfg.checkpoint_dir, model,
+                                          optimizer, step=cfg.epochs)
+        print(f"saved checkpoint to {path}")
+    logger.finish()
+    return results_list
+
+
+def make_parser() -> argparse.ArgumentParser:
+    """Flags mirror reference run.py:147-261 (same names/defaults), built
+    from ``Config`` as the JAX runner builds them, plus ``--device``."""
+    parser = argparse.ArgumentParser(
+        description="Efficient Link Prediction with Hashes (ELPH) — "
+                    "PyTorch/CUDA")
+    defaults = Config()
+    for f in dataclasses.fields(Config):
+        name = f"--{f.name}"
+        default = getattr(defaults, f.name)
+        if f.name == "use_wandb_offline":
+            # the reference spells the flag --wandb_offline with dest
+            # use_wandb_offline (run.py:243); accept both
+            parser.add_argument("--wandb_offline", name,
+                                dest="use_wandb_offline", type=str2bool,
+                                nargs="?", const=True, default=default)
+            continue
+        if f.name == "mesh_shape":
+            parser.add_argument(name, type=lambda s: [int(x) for x in
+                                                      s.split(",")],
+                                default=None,
+                                help="device mesh, e.g. '8' or '4,2'")
+            continue
+        if f.name == "mesh_axes":
+            parser.add_argument(name, type=lambda s: s.split(","),
+                                default=["data"])
+            continue
+        if isinstance(default, bool):
+            # nargs="?": both the reference's store_true style
+            # (`--cache_subgraph_features`, README.md:77) and the sweepable
+            # `--use_feature 0` style parse
+            parser.add_argument(name, type=str2bool, nargs="?", const=True,
+                                default=default)
+        elif f.type in ("float", float) or isinstance(default, float):
+            parser.add_argument(name, type=float, default=default)
+        elif isinstance(default, int):
+            parser.add_argument(name, type=int, default=default)
+        elif default is None and "int" in str(f.type):
+            parser.add_argument(name, type=int, default=None)
+        else:
+            parser.add_argument(name, type=str, default=default)
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to run on (default: cuda)")
+    return parser
+
+
+def config_from_parsed(args) -> Config:
+    """Parsed args -> Config (``--device`` is not a Config field), with the
+    negative-means-unlimited normalisation of the sample-count fields (the
+    reference CLI's -1 sentinel)."""
+    d = {k: v for k, v in vars(args).items() if k != "device"}
+    for k in ("train_samples", "val_samples", "test_samples",
+              "train_cache_size"):
+        if d[k] is not None and d[k] < 0:
+            d[k] = inf
+    return Config(**d)
+
+
+def main(argv=None):
+    args = make_parser().parse_args(argv)
+    cfg = apply_sweep_overrides(config_from_parsed(args))
+    print(cfg)
+    return run(cfg, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

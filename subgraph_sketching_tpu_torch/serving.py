@@ -7,7 +7,8 @@ features straight from the sketches (the same math as preprocessing,
 including the zero-one knockout / floor) and runs the BUDDY MLP.
 
 Checkpoints: a directory holding ``config.json`` (the ``Config``) and
-``buddy.pt`` (a ``BUDDY`` state_dict), written by
+either ``step_<N>.pt`` files from a training run (``runners/run.py`` with
+``--checkpoint_dir``) or ``buddy.pt`` (a ``BUDDY`` state_dict), written by
 :func:`save_buddy_checkpoint`.  Weights trained by the JAX package cross
 over through ``models/convert.py``.
 
@@ -123,9 +124,17 @@ def scorer_from_checkpoint(checkpoint_dir: str, cfg: Optional[Config] = None,
                            device="cuda") -> LinkScorer:
     """Rebuild the serving stack from a checkpoint directory: re-run the
     deterministic preprocessing on ``device``, load the weights, and return
-    a ready LinkScorer.  ``split`` picks the message graph served against."""
+    a ready LinkScorer.  ``split`` picks the message graph served against.
+
+    The weights are the newest ``step_<N>.pt`` that a training run with
+    ``--checkpoint_dir D`` (``--save_model`` or ``--checkpoint_every``)
+    wrote, with ``restored_step`` set to N; without one, ``buddy.pt``
+    from :func:`save_buddy_checkpoint` (``restored_step`` None)."""
     from subgraph_sketching_tpu_torch.graph.datasets import get_data
     from subgraph_sketching_tpu_torch.graph.preprocess import build_all_splits
+    from subgraph_sketching_tpu_torch.train.checkpoint import (
+        latest_step, load_checkpoint,
+    )
 
     dev = resolve_device(device)
     if cfg is None:
@@ -141,8 +150,15 @@ def scorer_from_checkpoint(checkpoint_dir: str, cfg: Optional[Config] = None,
     datasets = build_all_splits(splits, cfg, directed=directed, device=dev)
     x = datasets["train"].x
     model = BUDDY.from_config(cfg, None if x is None else x.shape[-1])
-    state = torch.load(os.path.join(checkpoint_dir, WEIGHTS_FILE),
-                       map_location="cpu", weights_only=True)
+    step = latest_step(checkpoint_dir)
+    if step is not None:
+        saved, step = load_checkpoint(checkpoint_dir, step)
+        state = saved["model"]
+    else:
+        state = torch.load(os.path.join(checkpoint_dir, WEIGHTS_FILE),
+                           map_location="cpu", weights_only=True)
     model.load_state_dict(state)
-    return LinkScorer(cfg, model, datasets[split], min_bucket=min_bucket,
-                      max_bucket=max_bucket, device=dev)
+    scorer = LinkScorer(cfg, model, datasets[split], min_bucket=min_bucket,
+                        max_bucket=max_bucket, device=dev)
+    scorer.restored_step = step
+    return scorer

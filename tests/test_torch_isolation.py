@@ -17,15 +17,25 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 bad = sorted(k for k in sys.modules
-             if k in ("jax", "flax", "subgraph_sketching_tpu")
-             or k.startswith(("jax.", "flax.", "jaxlib", "subgraph_sketching_tpu.")))
+             if k in ("jax", "flax", "optax", "orbax", "subgraph_sketching_tpu")
+             or k.startswith(("jax.", "flax.", "jaxlib", "optax.", "orbax.",
+                              "subgraph_sketching_tpu.")))
 print(len(names), bad)
+print(" ".join(names))
 """
+
+# the training slice's modules, which must be among those imported
+TRAINING = {"train", "train.losses", "train.evaluation", "train.inference",
+            "train.loops", "train.checkpoint", "train.determinism",
+            "runners.run", "metrics_logging", "utils"}
 
 
 def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", PROBE], cwd=REPO,
                          capture_output=True, text=True, timeout=120,
-                         check=True).stdout.split(maxsplit=1)
-    assert int(out[0]) >= 20          # every module of the package was imported
-    assert out[1].strip() == "[]"
+                         check=True).stdout.splitlines()
+    count, bad = out[0].split(maxsplit=1)
+    assert int(count) >= 40            # every module of the package was imported
+    assert bad.strip() == "[]"
+    imported = set(out[1].split())
+    assert {"subgraph_sketching_tpu_torch." + m for m in TRAINING} <= imported

@@ -1,0 +1,193 @@
+"""The port's BUDDY runner (subgraph_sketching_tpu_torch/runners/run.py),
+checkpoints and serving from a training run, on the CPU.
+
+  * the parser gives the JAX runner's Namespace (less ``device``) on the
+    reference README commands of tests/test_cli.py;
+  * a CPU run on synth-ba (2 epochs, hidden 32, dropout 0, lr 0.01) lands
+    its test Hits@100 within 0.05 of the JAX runner's on the same splits
+    (the two start from different random weights of the same
+    distribution; same-weight parity is tests/test_torch_train.py's);
+  * 2 epochs straight and 1 epoch, save, --resume, 1 epoch give bit-equal
+    model and optimizer states and the same best-val meta;
+  * ``scorer_from_checkpoint`` on a --save_model run scores links as the
+    trainer's ``predict`` does, within 1e-5.
+"""
+
+import dataclasses
+import json
+import os
+import shlex
+
+import numpy as np
+import pytest
+import torch
+
+from subgraph_sketching_tpu.runners import run as jrun
+from subgraph_sketching_tpu_torch.config import Config
+from subgraph_sketching_tpu_torch.graph.datasets import get_data
+from subgraph_sketching_tpu_torch.graph.preprocess import build_all_splits
+from subgraph_sketching_tpu_torch.metrics_logging import apply_sweep_overrides
+from subgraph_sketching_tpu_torch.runners import run
+from subgraph_sketching_tpu_torch.serving import scorer_from_checkpoint
+from subgraph_sketching_tpu_torch.train import checkpoint
+from subgraph_sketching_tpu_torch.train.determinism import (
+    check_epoch_determinism,
+)
+from subgraph_sketching_tpu_torch.utils import str2bool
+from test_cli import REFERENCE_COMMANDS
+
+SMALL = ["--dataset_name", "synth-ba", "--model", "BUDDY", "--epochs", "2",
+         "--hidden_channels", "32", "--batch_size", "256",
+         "--eval_batch_size", "1024", "--lr", "0.01",
+         "--label_dropout", "0", "--feature_dropout", "0"]
+
+
+# ---------------------------------------------------------------- parser --
+
+@pytest.mark.parametrize("cmd", REFERENCE_COMMANDS + [
+    "", "--wandb_offline", "--mesh_shape 4,2 --mesh_axes data,graph",
+    "--train_samples -1 --max_nodes_per_hop 50 --use_feature 0"])
+def test_parser_matches_jax(cmd):
+    argv = shlex.split(cmd)
+    args = run.make_parser().parse_args(argv)
+    assert args.device == "cuda"
+    jargs = jrun.make_parser().parse_args(argv)
+    assert {k: v for k, v in vars(args).items() if k != "device"} \
+        == vars(jargs)
+    assert (dataclasses.asdict(run.config_from_parsed(args))
+            == dataclasses.asdict(jrun.config_from_parsed(jargs)))
+
+
+def test_str2bool_and_sweep_overrides(monkeypatch):
+    assert [str2bool(v) for v in ("yes", "0", "", True, 1.0)] == [
+        True, False, False, True, True]
+    with pytest.raises(ValueError):
+        str2bool("maybe")
+    monkeypatch.setenv("SWEEP_OVERRIDES", '{"lr": 0.5, "no_such_field": 1}')
+    assert apply_sweep_overrides(Config()).lr == 0.5
+
+
+# ---------------------------------------------------------- refusals ------
+
+def test_main_without_device_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run.main(SMALL)
+
+
+@pytest.mark.parametrize("extra", [
+    ["--model", "ELPH"], ["--model", "SEALGCN"], ["--mesh_shape", "2"],
+    ["--profile_dir", "p"], ["--heartbeat_dir", "h"],
+    ["--compilation_cache_dir", "c"], ["--dataset_name", "Cora"]])
+def test_unported_options_raise(extra):
+    with pytest.raises(NotImplementedError):
+        run.main(SMALL + extra + ["--device", "cpu"])
+
+
+def test_determinism_check_catches_a_nondeterministic_epoch():
+    class NoisyTrainer:
+        calls = 0
+
+        def train_epoch(self, model, optimizer, seed):
+            self.calls += 1
+            with torch.no_grad():
+                model.weight.add_(1e-7 * self.calls)
+            return 0.5
+
+    model = torch.nn.Linear(3, 2)
+    opt = torch.optim.Adam(model.parameters())
+    with pytest.raises(AssertionError, match="nondeterministic epoch"):
+        check_epoch_determinism(NoisyTrainer(), model, opt, 0)
+    # the caller's model is left as it was
+    assert float(model.weight.detach().abs().max()) < 1
+
+
+# ------------------------------------------------------------ CPU runs ----
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """One straight 2-epoch run (checkpoint every epoch, --save_model,
+    --check_determinism) and a resumed one (1 epoch, then --resume to 2)."""
+    base = tmp_path_factory.mktemp("runs")
+    straight, resumed = str(base / "straight"), str(base / "resumed")
+    first = run.main(SMALL + ["--device", "cpu", "--checkpoint_dir", straight,
+                              "--checkpoint_every", "1", "--save_model",
+                              "--check_determinism"])
+    part = run.main(SMALL + ["--device", "cpu", "--checkpoint_dir", resumed,
+                             "--checkpoint_every", "1", "--epochs", "1"])
+    again = run.main(SMALL + ["--device", "cpu", "--checkpoint_dir", resumed,
+                              "--checkpoint_every", "1", "--resume"])
+    return {"straight": straight, "resumed": resumed, "first": first,
+            "part": part, "again": again}
+
+
+def test_runner_hits_within_band_of_jax(runs):
+    want = jrun.main(SMALL + ["--platform", "cpu"])
+    got = runs["first"]
+    assert 0.0 < got[0][0] <= 1.0
+    assert abs(got[0][0] - want[0][0]) <= 0.05, (got, want)
+
+
+def test_metrics_log_carries_the_reference_keys(runs):
+    with open(os.path.join(runs["straight"], "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    assert [r["step"] for r in rows] == [0, 1]
+    for key in ("loss", "TrainHits@100", "ValHits@100", "tmp_valHits@100",
+                "tmp_testHits@100", "TestHits@100", "best_epoch",
+                "epoch_time", "preprocess_time", "train_time", "eval_time"):
+        assert all(f"rep0_{key}" in r for r in rows), key
+    assert rows[0]["rep0_loss"] > rows[1]["rep0_loss"]
+    with open(os.path.join(runs["straight"], "config.json")) as f:
+        assert Config(**{k: v for k, v in json.load(f).items()}) is not None
+
+
+def test_resume_is_bit_equal_to_a_straight_run(runs):
+    assert checkpoint.latest_step(runs["straight"]) == 2
+    assert checkpoint.latest_step(runs["resumed"]) == 2
+    a, _ = checkpoint.load_checkpoint(runs["straight"], 2)
+    b, _ = checkpoint.load_checkpoint(runs["resumed"], 2)
+    assert a["model"].keys() == b["model"].keys()
+    for k, v in a["model"].items():
+        assert torch.equal(v, b["model"][k]), k
+    sa, sb = a["optimizer"]["state"], b["optimizer"]["state"]
+    assert sa.keys() == sb.keys() and len(sa) > 0
+    for i in sa:
+        for k, v in sa[i].items():
+            assert torch.equal(v, sb[i][k]), (i, k)
+    assert (checkpoint.load_run_meta(runs["straight"], 2)
+            == checkpoint.load_run_meta(runs["resumed"], 2))
+    assert runs["again"] == runs["first"]
+
+
+def test_resume_past_final_epoch_evaluates(runs):
+    """--resume from the --save_model checkpoint at step == epochs skips
+    the loop and evaluates the restored model with the saved meta."""
+    again = run.main(SMALL + ["--device", "cpu", "--checkpoint_dir",
+                              runs["straight"], "--resume"])
+    assert again == runs["first"]
+
+
+def test_latest_step_skips_partial_files(tmp_path):
+    for name in ("step_3.pt", "step_10.pt.tmp", "step_x.pt", "meta_step_12.json",
+                 "step_7.pt"):
+        (tmp_path / name).write_bytes(b"")
+    assert checkpoint.latest_step(str(tmp_path)) == 7
+    assert checkpoint.latest_step(str(tmp_path / "missing")) is None
+
+
+def test_serving_a_trained_checkpoint_matches_predict(runs):
+    d = runs["straight"]
+    scorer = scorer_from_checkpoint(d, split="valid", device="cpu")
+    assert scorer.restored_step == 2
+    with open(os.path.join(d, "config.json")) as f:
+        cfg = Config.from_json(f.read())
+    splits, directed, _ = get_data(cfg)
+    datasets = build_all_splits(splits, cfg, directed=directed, device="cpu")
+    trainer = run.build_trainer(cfg, datasets, datasets["train"].x.shape[-1],
+                                "cpu")
+    model = trainer.init_model(0)
+    assert checkpoint.restore_into(d, model) == 2
+    want, _ = trainer.predict(model, "valid")
+    got = scorer.score(datasets["valid"].links)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
