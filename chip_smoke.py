@@ -7,8 +7,9 @@ Phases, each printing one JSON line:
 
   device     the card's name and power limit (nvidia-smi)
   build      nvcc of every kernel source (csrc/segscan.cu, gather_reduce.cu,
-             block_prop.cu, dma_gather.cu), one nvcc each, all at once;
-             each one's seconds
+             block_prop.cu, dma_gather.cu) and g++ of the plan builder
+             (csrc/plan_build.cpp), one compiler each, all at once; each
+             one's seconds
   kernels    each K1 instance (ops/segscan.py), held against its plain
              torch version on the card and against itself across two
              calls, then timed beside it, beside one scatter_reduce call
@@ -69,11 +70,36 @@ Phases, each printing one JSON line:
              epochs from the same weights on the same orders on the card
              and on the CPU, in float32 and float64: step losses and
              parameters allclose (see phase_train_reference)
+  datasets   the reference's datasets, in three parts:
+             ``collab``: an ogbl_collab raw-layout tree at the published
+             shape (235,868 nodes, 128-dim features, 1,179,052 train edges
+             with weights and years, 60,084 valid and 46,329 test edges
+             with 100,000 negatives each), written from a seed (its
+             seconds apart), then the reference's collab BUDDY command cut
+             to one epoch through runners.run, twice with one --cache_dir:
+             the second run reads the caches and equals the first
+             (subgraph and SIGN features, epoch-0 loss); per run get_data,
+             preprocessing, epoch and eval seconds, Hits@50, peak memory.
+             ``chunked_synth_ws``: the chunk-streamed plan against the
+             one-shot plan on the synth-ws-200000 train graph at
+             max_slots 2^18 (2 hops of MinHash and HLL bit-equal, one SIGN
+             add within the add bound, K1 once per chunk of every reduce).
+             ``citation2_scale``: a graph with ogbl-citation2's published
+             counts (2,927,963 nodes, 30,387,995 edges, power-law
+             in-degrees, 128-dim features) through the citation2
+             preprocessing (to_undirected, SIGN sign_k 3, 2-hop sketches)
+             on the chunked plan at the default max_gather_slots: the C++
+             plan tables against numpy (equal, both timed), each hop's
+             device ms, the K1 launch counts, peak memory; then every
+             chunk merge of every reduce, K1 against its plain version,
+             and each K1 instance timed over one reduce's chunks
 
 then the per-kernel summary line (each K1, K2 and K3 entry also carries
 its ``bench_hub`` time, bound and yardstick: ``hub_ms``, ``hub_bound_ms``,
 ``hub_library_ms``; each K1 entry its launches in the train phase,
-``train_launches``), the nvidia-smi line, and as the last
+``train_launches``; and the three K1 instances of the citation2-scale
+chunk merges, their ``ms`` summed over one reduce's chunks), the
+nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises: the run exits
 non-zero and prints no last line.  Without a CUDA device it exits 2 at once.
 """
@@ -91,6 +117,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 VECTOR_OPS_PER_S = 67e12       # float32 outside the tensor cores, same sheet
 CSRC = "subgraph_sketching_tpu_torch/csrc"
 KERNEL_LIBS = ("segscan", "gather_reduce", "block_prop", "dma_gather")
+PLAN_BUILDER = "plan_build"    # csrc/plan_build.cpp: host code, built by g++
 # library name -> the TPU kernel it replaces (file:line of the pallas_call's
 # function)
 REPLACES = {"segscan": "subgraph_sketching_tpu/ops/pallas_segscan.py:103",
@@ -155,17 +182,18 @@ def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
 
 def phase_build() -> dict:
     from subgraph_sketching_tpu_torch.ops import cuda_build
+    libs = KERNEL_LIBS + (PLAN_BUILDER,)
     t0 = time.perf_counter()
-    seconds = cuda_build.load_all(KERNEL_LIBS)
+    seconds = cuda_build.load_all(libs)
     wall = time.perf_counter() - t0
-    for name in KERNEL_LIBS:
+    for name in libs:
         log = cuda_build.library_path(name)[:-3] + ".log"
         if os.path.exists(log):   # absent when the build was reused
             with open(log) as f:
                 sys.stderr.write(f.read())
     return {"phase": "build", "seconds": seconds, "wall_s": wall,
             "libraries": {name: os.path.relpath(cuda_build.library_path(name))
-                          for name in KERNEL_LIBS}}
+                          for name in libs}}
 
 
 # (instance name, op, dtype name, width) for every K1 instance
@@ -998,6 +1026,485 @@ def phase_train_reference(seed: int = 5) -> dict:
                          "pre-BN biases frozen"}
 
 
+# ------------------------------------------------------------- datasets --
+
+# ogbl-collab at its published shape (ogb/linkproppred/master.csv and the
+# OGB paper's dataset table): nodes, feature width, train edges stored one
+# direction, valid and test edges, each with 100,000 negatives
+COLLAB = {"nodes": 235_868, "features": 128, "train": 1_179_052,
+          "valid": 60_084, "test": 46_329, "negatives": 100_000}
+# the reference README's collab BUDDY command (tests/test_cli.py), cut to
+# one epoch below
+COLLAB_COMMAND = ("--dataset_name ogbl-collab --K 50 --lr 0.02 "
+                  "--feature_dropout 0.05 --add_normed_features 1 "
+                  "--cache_subgraph_features --label_dropout 0.1 "
+                  "--year 2007 --model BUDDY")
+# ogbl-citation2's published counts: nodes and (directed) edges
+CITATION2 = {"nodes": 2_927_963, "edges": 30_387_995, "features": 128}
+
+
+def _write_csv_gz(path: str, arr, fmt: str) -> None:
+    """A headerless comma-separated ``.csv.gz``, as the ogb package stores
+    its raw files: gzip level 1, each block of rows formatted by one ``%``
+    over the block's values."""
+    import gzip
+
+    import numpy as np
+    arr = np.asarray(arr)
+    if arr.ndim == 1:
+        arr = arr[:, None]
+    line = ",".join([fmt] * arr.shape[1]) + "\n"
+    with gzip.open(path, "wt", compresslevel=1) as f:
+        for s in range(0, len(arr), 1 << 14):
+            block = arr[s:s + (1 << 14)]
+            f.write((line * len(block)) % tuple(block.ravel().tolist()))
+
+
+def _power_law_nodes(rng, n: int, size: int, exponent: float):
+    """``size`` node ids, the node of rank r drawn with probability
+    proportional to r^-exponent (ranks a random permutation of the
+    nodes)."""
+    import numpy as np
+    cdf = np.cumsum(np.arange(1, n + 1, dtype=np.float64) ** -exponent)
+    cdf /= cdf[-1]
+    ranks = np.minimum(np.searchsorted(cdf, rng.random(size)), n - 1)
+    return rng.permutation(n).astype(np.int32)[ranks]
+
+
+def write_collab(root: str, seed: int = 6) -> None:
+    """An ``ogbl_collab`` raw-layout tree at the published shape, from a
+    seed, in the layout of tests/ogb_fixture.py: co-authorship edges with
+    power-law endpoints, weights (mostly 1) and years 1963-2017 (skewed
+    recent), float node features, and the time split's .pt files."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n = COLLAB["nodes"]
+    base = os.path.join(root, "ogbl_collab")
+    raw, split = os.path.join(base, "raw"), os.path.join(base, "split", "time")
+    os.makedirs(raw)
+    os.makedirs(split)
+
+    def edges(k):
+        src = _power_law_nodes(rng, n, k, 0.5)
+        dst = _power_law_nodes(rng, n, k, 0.5)
+        dst = np.where(dst == src, (dst + 1) % n, dst)
+        return np.stack([src, dst], axis=1).astype(np.int64)
+
+    train = edges(COLLAB["train"])
+    weight = rng.geometric(0.7, len(train)).astype(np.int64)
+    year = 2017 - np.minimum(54, rng.exponential(8.0, len(train))).astype(
+        np.int64)
+    feat = (2 * rng.random((n, COLLAB["features"]), dtype=np.float32) - 1)
+    _write_csv_gz(os.path.join(raw, "edge.csv.gz"), train, "%d")
+    _write_csv_gz(os.path.join(raw, "num-node-list.csv.gz"), [n], "%d")
+    _write_csv_gz(os.path.join(raw, "edge_weight.csv.gz"), weight, "%d")
+    _write_csv_gz(os.path.join(raw, "edge_year.csv.gz"), year, "%d")
+    _write_csv_gz(os.path.join(raw, "node-feat.csv.gz"), feat, "%.7g")
+    torch.save({"edge": torch.from_numpy(train),
+                "weight": torch.from_numpy(weight),
+                "year": torch.from_numpy(year)},
+               os.path.join(split, "train.pt"))
+    for name, y in (("valid", 2018), ("test", 2019)):
+        e = edges(COLLAB[name])
+        torch.save({"edge": torch.from_numpy(e),
+                    "weight": torch.from_numpy(
+                        rng.geometric(0.7, len(e)).astype(np.int64)),
+                    "year": torch.full((len(e),), y, dtype=torch.int64),
+                    "edge_neg": torch.from_numpy(edges(COLLAB["negatives"]))},
+                   os.path.join(split, f"{name}.pt"))
+
+
+def phase_datasets_collab() -> dict:
+    """(a) ogbl-collab at its published shape through the runner: the
+    reference's collab BUDDY command, cut to one epoch, run twice with one
+    --cache_dir.  The second run reads the caches (the train negatives and
+    every split's subgraph features: no sketch is built, so no min/max K1
+    launch), and its subgraph features, SIGN features and epoch-0 loss
+    equal the first run's."""
+    import shlex
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from subgraph_sketching_tpu_torch.ops import segscan
+    from subgraph_sketching_tpu_torch.runners import run as runner
+
+    root = tempfile.mkdtemp(prefix="smoke_collab_")
+    try:
+        t0 = time.perf_counter()
+        write_collab(root)
+        write_s = time.perf_counter() - t0
+        built = []   # each run's datasets, seen through the runner's call
+        build_all_splits = runner.build_all_splits
+
+        def keep(*args, **kwargs):
+            built.append(build_all_splits(*args, **kwargs))
+            return built[-1]
+
+        runs = []
+        runner.build_all_splits = keep
+        try:
+            for i in range(2):
+                ckpt = os.path.join(root, f"run{i}")
+                for k in segscan.launches:
+                    segscan.launches[k] = 0
+                torch.cuda.reset_peak_memory_stats()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                results = runner.main(shlex.split(COLLAB_COMMAND) + [
+                    "--epochs", "1", "--device", "cuda", "--data_root", root,
+                    "--cache_dir", os.path.join(root, "cache"),
+                    "--checkpoint_dir", ckpt])
+                torch.cuda.synchronize()
+                run_s = time.perf_counter() - t0
+                with open(os.path.join(ckpt, "metrics.jsonl")) as f:
+                    (row,) = [json.loads(line) for line in f]
+                runs.append({
+                    "run_s": run_s, "get_data_s": row["rep0_get_data_time"],
+                    "preprocess_s": row["rep0_preprocess_time"],
+                    "epoch_s": row["rep0_train_time"],
+                    "eval_s": row["rep0_eval_time"], "loss": row["rep0_loss"],
+                    "hits@50": {"train": row["rep0_TrainHits@50"] / 100,
+                                "valid": row["rep0_tmp_valHits@50"] / 100,
+                                "test": row["rep0_tmp_testHits@50"] / 100},
+                    "results": results,
+                    "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                    "k1_launches": dict(segscan.launches)})
+        finally:
+            runner.build_all_splits = build_all_splits
+        first, second = built
+        for split in first:
+            for what in ("subgraph_features", "x"):
+                if not np.array_equal(getattr(first[split], what),
+                                      getattr(second[split], what)):
+                    raise AssertionError(f"collab: the second run's {what} "
+                                         f"({split}) differ from the first's")
+        if runs[1]["loss"] != runs[0]["loss"]:
+            raise AssertionError(f"collab: epoch-0 loss {runs[1]['loss']} "
+                                 f"on the cached run, {runs[0]['loss']} "
+                                 f"before")
+        l0, l1 = runs[0]["k1_launches"], runs[1]["k1_launches"]
+        if l0["segscan_min_i32"] < 4 or l0["segscan_max_i8"] < 4 \
+                or l0["segscan_add_f32"] < 2:
+            raise AssertionError(f"collab: the first run did not build its "
+                                 f"two message graphs through K1: {l0}")
+        if l1["segscan_min_i32"] or l1["segscan_max_i8"]:
+            raise AssertionError(f"collab: the second run built sketches "
+                                 f"despite the caches: {l1}")
+        cached = sorted(os.listdir(os.path.join(root, "cache")))
+        if sum(f.endswith("subgraph_features.npz") for f in cached) != 3 \
+                or not any("negative_samples" in f for f in cached):
+            raise AssertionError(f"collab: caches missing: {cached}")
+        train = first["train"]
+        return {"phase": "datasets", "part": "collab",
+                "dataset": "ogbl-collab", "shape": COLLAB,
+                "command": COLLAB_COMMAND + " --epochs 1",
+                "write_s": write_s, "nodes": train.num_nodes,
+                "train_message_edges": int(train.edge_index.shape[1]),
+                "train_links": int(train.num_links),
+                "links": {k: int(d.num_links) for k, d in first.items()},
+                "runs": runs, "cached_files": cached,
+                "second_run_equal": ["subgraph_features", "x",
+                                     "epoch-0 loss"]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _reset_k1() -> None:
+    from subgraph_sketching_tpu_torch.ops import segscan
+    for k in segscan.launches:
+        segscan.launches[k] = 0
+
+
+def phase_datasets_chunked(plans: dict, max_slots: int = 1 << 18) -> dict:
+    """(b) The chunk-streamed plan against the one-shot plan on the
+    synth-ws-200000 train message graph, at a ``max_slots`` that forces
+    several chunks: 2 hops of MinHash and HLL bit-equal, one SIGN add
+    within the add bound, and K1 launched once per chunk of every
+    reduce."""
+    import numpy as np
+    import torch
+
+    from subgraph_sketching_tpu_torch.config import Config
+    from subgraph_sketching_tpu_torch.graph.preprocess import (
+        sketch_params_from_config,
+    )
+    from subgraph_sketching_tpu_torch.ops import segscan
+    from subgraph_sketching_tpu_torch.ops.graph_ops import gcn_norm
+    from subgraph_sketching_tpu_torch.ops.segment_scan import (
+        ChunkedSegmentPlan, make_auto_plan,
+    )
+    from subgraph_sketching_tpu_torch.sketch.elph import initialise_sketches
+
+    g = plans["graph"]
+    n = g.num_nodes
+    one = plans["min"][0]
+    chunked = make_auto_plan(g.edge_index, n, max_slots=max_slots,
+                             device="cuda")
+    ei = torch.from_numpy(g.edge_index.astype(np.int64)).to("cuda")
+    nei, nw = gcn_norm(ei, None, n)
+    sign_chunked = make_auto_plan(nei.cpu().numpy(), n, max_slots=max_slots,
+                                  device="cuda")
+    if not (isinstance(chunked, ChunkedSegmentPlan)
+            and isinstance(sign_chunked, ChunkedSegmentPlan)):
+        raise AssertionError("synth-ws-200000 at max_slots 2^18 did not "
+                             "take the chunked plan")
+    params = sketch_params_from_config(Config(dataset_name="synth-ws-200000"))
+    rows = initialise_sketches(n, params, "cuda")
+    reduces = []
+
+    def counted(plan, x, op, w=None):
+        _reset_k1()
+        out = plan.reduce(x, op, edge_data_slots=w)
+        torch.cuda.synchronize()
+        launches = sum(segscan.launches.values())
+        if launches < plan.num_chunks:
+            raise AssertionError(f"chunked {op}: {launches} K1 launches for "
+                                 f"{plan.num_chunks} chunks")
+        reduces.append({"op": op, "chunks": plan.num_chunks,
+                        "k1_launches": launches})
+        return out
+
+    for hop in range(1, 3):
+        nxt = tuple(counted(chunked, x, op)
+                    for x, op in zip(rows, ("min", "max")))
+        for got, x, (what, op) in zip(nxt, rows, SKETCHES):
+            if not torch.equal(got, one.reduce(x, op)):
+                raise AssertionError(f"chunked {what} hop {hop} differs from "
+                                     f"the one-shot plan")
+        rows = nxt
+    sign_one, w_one = plans["add"]
+    x0 = torch.from_numpy(np.asarray(g.x, dtype=np.float32)).to("cuda")
+    got = counted(sign_chunked, x0, "add", sign_chunked.stage_edge_data(nw))
+    v = sign_one.reduce_subruns(x0, "add", w_one).contiguous()
+    want = segscan.segment_combine_plain(v, x0, "add", sign_one.sub_ptr)
+    check_add(got, want, v, x0, sign_one.sub_ptr, "chunked SIGN add")
+    return {"phase": "datasets", "part": "chunked_synth_ws",
+            "dataset": "synth-ws-200000", "nodes": n,
+            "edges": int(g.num_edges), "max_slots": max_slots,
+            "sub_len": chunked.sub_len, "chunks": chunked.num_chunks,
+            "sign_chunks": sign_chunked.num_chunks,
+            "window_rows": chunked.window, "reduces": reduces,
+            "add_max_abs_err": float((got - want).abs().max()),
+            "tolerance": f"min/max bit-equal to the one-shot plan; add "
+                         f"{ADD_TOLERANCE}"}
+
+
+def citation2_graph(seed: int = 7):
+    """A directed graph with ogbl-citation2's published counts, from a
+    seed: power-law in-degrees (hubs of thousands of citations), uniform
+    citing nodes, no self-loops."""
+    import numpy as np
+
+    from subgraph_sketching_tpu_torch.graph.container import Graph
+    rng = np.random.default_rng(seed)
+    n, e = CITATION2["nodes"], CITATION2["edges"]
+    dst = _power_law_nodes(rng, n, e, 0.5)
+    src = rng.integers(0, n - 1, e, dtype=np.int32)
+    src += (src >= dst).astype(np.int32)
+    return Graph(np.stack([src, dst]), n), int(np.bincount(dst).max())
+
+
+def _chunk_instance(plan, x, op: str, w=None) -> dict:
+    """One K1 instance over every chunk of one reduce: each chunk's merge
+    (its sub-runs into its window of ``x``) timed by K1, by its plain
+    version and by one scatter_reduce over the window, summed over the
+    chunks, with the bound of the bytes the merges move."""
+    import torch
+
+    from subgraph_sketching_tpu_torch.ops import segscan
+    from subgraph_sketching_tpu_torch.ops.segment_scan import (
+        with_identity_row,
+    )
+    red = {"min": "amin", "max": "amax", "add": "sum"}[op]
+    rows = with_identity_row(x, op)
+    width, b = x.shape[1], x.element_size()
+    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    nbytes = combines = 0
+    for c, ((s0, s1, lo, hi), ptr) in enumerate(zip(plan.bounds, plan.ptrs)):
+        v = plan.chunk_subruns(rows, c, op, w)
+        win = x[lo:hi]
+        total["ms"] += cuda_ms(lambda: segscan.segment_combine(v, win, op,
+                                                               ptr),
+                               iters=5, warmup=1)
+        total["plain_ms"] += cuda_ms(
+            lambda: segscan.segment_combine_plain(v, win, op, ptr),
+            iters=5, warmup=1)
+        base = win if op != "add" else torch.zeros_like(win)
+        idx = segscan.segment_ids(ptr)[:, None].expand(-1, width)
+        lib_v, lib_base = v, base
+        if v.dtype == torch.int8:   # scatter_reduce takes no int8 amax
+            lib_v, lib_base = v.int(), base.int()
+        total["library_ms"] += cuda_ms(lambda: lib_base.scatter_reduce(
+            0, idx, lib_v, red, include_self=True), iters=5, warmup=1)
+        r = hi - lo
+        nbytes += ((s1 - s0) * width * b + (r * width * b if op != "add"
+                                            else 0)
+                   + r * width * b + (r + 1) * 8)
+        combines += (s1 - s0) * width + (r * width if op != "add" else 0)
+        del v
+    return {**total, **_bound(nbytes, combines)}
+
+
+def phase_datasets_citation2(seed: int = 7) -> tuple:
+    """(c) Citation2 scale: a graph with ogbl-citation2's published counts,
+    128-dim features, and the citation2 preprocessing (to_undirected,
+    SIGN with sign_k 3, 2-hop sketches at Config defaults) through
+    make_auto_plan at the default max_gather_slots, which takes the
+    chunked form.  The K1 launch counts are set to 0 just before that
+    drive and read just after.  Then every chunk's merge of every reduce
+    again, K1 against segment_combine_plain on the same chunk (min/max
+    bit-equal, add within the add bound), and each K1 instance timed over
+    one reduce's chunks.  Returns (the record, the instances)."""
+    import numpy as np
+    import torch
+
+    from subgraph_sketching_tpu_torch.config import Config
+    from subgraph_sketching_tpu_torch.graph.preprocess import (
+        sketch_params_from_config,
+    )
+    from subgraph_sketching_tpu_torch.ops import segscan
+    from subgraph_sketching_tpu_torch.ops.graph_ops import gcn_norm
+    from subgraph_sketching_tpu_torch.ops.segment_scan import (
+        ChunkedSegmentPlan, make_auto_plan, plan_tables_native,
+        plan_tables_plain,
+    )
+    from subgraph_sketching_tpu_torch.sketch.elph import initialise_sketches
+
+    cfg = Config(dataset_name="ogbl-citation2", sign_k=3)
+    max_slots = cfg.max_gather_slots
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    directed, max_in_degree = citation2_graph(seed)
+    g = directed.to_undirected()
+    del directed
+    graph_s = time.perf_counter() - t0
+    n = g.num_nodes
+    x = torch.randn((n, CITATION2["features"]), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(seed))
+
+    # the host plan tables: the C++ builder against numpy on the sketch
+    # graph (equal tables), then the two plans as preprocessing builds them
+    src, dst = g.edge_index
+    t0 = time.perf_counter()
+    native = plan_tables_native(src, dst, n, 16)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = plan_tables_plain(src, dst, n, 16)
+    numpy_s = time.perf_counter() - t0
+    if not all(np.array_equal(a, b) for a, b in zip(native, plain)):
+        raise AssertionError("citation2: C++ plan tables differ from numpy")
+    del native, plain
+    ei = torch.from_numpy(g.edge_index.astype(np.int64)).to("cuda")
+    nei, nw = gcn_norm(ei, torch.from_numpy(g.edge_weight).to("cuda"), n)
+    del ei
+    t0 = time.perf_counter()
+    sign_plan = make_auto_plan(nei.cpu().numpy(), n, max_slots=max_slots,
+                               device="cuda")
+    sign_plan_s = time.perf_counter() - t0
+    wslots = sign_plan.stage_edge_data(nw)
+    del nei, nw
+    t0 = time.perf_counter()
+    plan = make_auto_plan(g.edge_index, n, max_slots=max_slots,
+                          device="cuda")
+    plan_s = time.perf_counter() - t0
+    if not (isinstance(plan, ChunkedSegmentPlan)
+            and isinstance(sign_plan, ChunkedSegmentPlan)):
+        raise AssertionError("citation2 scale did not take the chunked plan")
+    params = sketch_params_from_config(cfg)
+    t0 = time.perf_counter()
+    hop0 = initialise_sketches(n, params, "cuda")
+    init_s = time.perf_counter() - t0
+
+    def timed(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    # the drive
+    _reset_k1()
+    torch.cuda.synchronize()
+    xs, hop_ms = [x], {"sign": [], "minhash": [], "hll": []}
+    for _ in range(cfg.sign_k):
+        out, ms = timed(lambda: sign_plan.reduce(xs[-1], "add",
+                                                 edge_data_slots=wslots))
+        xs.append(out)
+        hop_ms["sign"].append(ms)
+    sketches = [hop0]
+    for _ in range(cfg.max_hash_hops):
+        mh, ms_mh = timed(lambda: plan.reduce(sketches[-1][0], "min"))
+        hll, ms_hll = timed(lambda: plan.reduce(sketches[-1][1], "max"))
+        sketches.append((mh, hll))
+        hop_ms["minhash"].append(ms_mh)
+        hop_ms["hll"].append(ms_hll)
+    launches = dict(segscan.launches)
+    peak_memory = torch.cuda.max_memory_allocated()
+    need = {"segscan_add_f32": cfg.sign_k * sign_plan.num_chunks,
+            "segscan_min_i32": cfg.max_hash_hops * plan.num_chunks,
+            "segscan_max_i8": cfg.max_hash_hops * plan.num_chunks}
+    if any(launches[k] != v for k, v in need.items()):
+        raise AssertionError(f"citation2: K1 launches {launches}, one per "
+                             f"chunk of every reduce is {need}")
+
+    # every chunk's merge on K1 against its plain version
+    add_err = [0.0]
+
+    def merge(v, win, op, ptr):
+        got = segscan.segment_combine(v, win, op, ptr)
+        want = segscan.segment_combine_plain(v, win, op, ptr)
+        if op == "add":
+            check_add(got, want, v, win, ptr, "citation2 SIGN chunk")
+            add_err[0] = max(add_err[0], float((got - want).abs().max()))
+        elif not torch.equal(got, want):
+            raise AssertionError(f"citation2: a chunk's {op} merge on K1 is "
+                                 f"not bit-equal to its plain version")
+        return want
+
+    for k in range(cfg.sign_k):
+        sign_plan.reduce(xs[k], "add", edge_data_slots=wslots, merge=merge)
+    for h in range(cfg.max_hash_hops):
+        for i, op in enumerate(("min", "max")):
+            again = plan.reduce(sketches[h][i], op, merge=merge)
+            if not torch.equal(again, sketches[h + 1][i]):
+                raise AssertionError(f"citation2: hop {h + 1} {op} on the "
+                                     f"plain merge differs")
+    torch.cuda.synchronize()
+    del xs[1:], sketches[1:]
+
+    instances = {
+        "segscan_min_i32": _chunk_instance(plan, hop0[0], "min"),
+        "segscan_max_i8": _chunk_instance(plan, hop0[1], "max"),
+        "segscan_add_f32": _chunk_instance(sign_plan, x, "add", wslots)}
+    for name, rec in instances.items():
+        rec.update(launches=launches[name],
+                   max_abs_err=add_err[0] if name == "segscan_add_f32"
+                   else 0.0)
+    record = {
+        "phase": "datasets", "part": "citation2_scale", **CITATION2,
+        "max_in_degree": max_in_degree,
+        "undirected_edges": int(g.num_edges), "graph_s": graph_s,
+        "sign_k": cfg.sign_k, "max_hash_hops": cfg.max_hash_hops,
+        "max_gather_slots": max_slots, "sub_len": plan.sub_len,
+        "chunks": plan.num_chunks, "sign_chunks": sign_plan.num_chunks,
+        "window_rows": plan.window,
+        "plan_tables_cpp_s": native_s, "plan_tables_numpy_s": numpy_s,
+        "make_auto_plan_s": {"sketch": plan_s, "sign": sign_plan_s},
+        "hop0_init_s": init_s, "hop_device_ms": hop_ms,
+        "k1_launches": launches, "peak_memory_bytes": peak_memory,
+        "merge_check": "every chunk of every reduce: K1 bit-equal (min/max) "
+                       f"to segment_combine_plain, add {ADD_TOLERANCE}",
+        "instances": instances}
+    return record, instances
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1045,6 +1552,11 @@ def main() -> int:
     train = phase_train(splits)
     emit(train)
     emit(phase_train_reference())
+    emit(phase_datasets_collab())
+    emit(phase_datasets_chunked(plans))
+    del plans, hub
+    citation2, chunked = phase_datasets_citation2()
+    emit(citation2)
 
     # each K1, K2 and K3 instance's bench_hub record, by name
     at_hub = {r["name"]: r for r in hub_records + hub_routes if "name" in r}
@@ -1076,7 +1588,16 @@ def main() -> int:
         for r in main_records if k1[r["name"]] > 0] + [
         line(r, {"K3": "gather_reduce", "K2": "block_prop"}[r["route"]])
         for r in served if "name" in r] + [
-        line({**k4, "library_ms": k4["torch_gather_min_ms"]}, "dma_gather")]})
+        line({**k4, "library_ms": k4["torch_gather_min_ms"]},
+             "dma_gather")] + [
+        {"name": f"{name} (chunk merge, citation2 scale)", "route": "cuda",
+         "source": f"{CSRC}/segscan.cu", "replaces": REPLACES["segscan"],
+         "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+         "chunks": citation2["sign_chunks" if name == "segscan_add_f32"
+                             else "chunks"]}
+        for name, r in chunked.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

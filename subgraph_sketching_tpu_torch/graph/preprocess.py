@@ -1,18 +1,23 @@
 """Per-split preprocessing for BUDDY: the HashDataset equivalent.
 
 Produces what BUDDY training and serving need — links+labels, SIGN-propagated
-node features, degrees, the sketch stacks and per-link subgraph features —
-as the JAX package's graph/preprocess.py does (reference
-src/datasets/elph.py:21-242).  The graph work runs on ``device`` through
-the padded-tree plan and K1.
+node features, degrees, optional RA scores, the sketch stacks and per-link
+subgraph features — with npz disk caching keyed like the reference (split,
+hops, year, num_negs; src/datasets/elph.py:154-173), as the JAX package's
+graph/preprocess.py does (reference src/datasets/elph.py:21-242).  The
+graph work runs on ``device``: through the padded-tree plan and K1, or,
+with ``use_plan`` false, by the scatter route.
 
-Not ported yet (queued): the RA feature, the node-sharded mesh build and
-the ELPH dataset.  The npz caches are not read or written: rebuilding gives
-the same arrays.
+The caches are the JAX package's files: a cache written by either package
+loads in the other.  MinHash is stored as uint32, as the JAX package holds
+it; the port's biased int32 lanes are converted at that boundary only.
+
+Not ported yet (queued): the node-sharded mesh build and the ELPH dataset.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -22,11 +27,14 @@ import torch
 from subgraph_sketching_tpu_torch.config import Config
 from subgraph_sketching_tpu_torch.device import resolve_device
 from subgraph_sketching_tpu_torch.graph.splits import SplitData
+from subgraph_sketching_tpu_torch.heuristics import resource_allocation
 from subgraph_sketching_tpu_torch.ops.graph_ops import gcn_norm
+from subgraph_sketching_tpu_torch.ops.segment import segment_sum
 from subgraph_sketching_tpu_torch.ops.segment_scan import make_auto_plan
 from subgraph_sketching_tpu_torch.sketch.elph import (
     build_hash_tables, subgraph_features_batched,
 )
+from subgraph_sketching_tpu_torch.sketch.minhash import from_biased, to_biased
 from subgraph_sketching_tpu_torch.sketch.params import SketchParams, Sketches
 
 
@@ -50,6 +58,7 @@ class LinkDataset:
     x: Optional[np.ndarray]           # node features (SIGN-propagated)
     degrees: np.ndarray               # [n] weighted degrees
     subgraph_features: Optional[np.ndarray] = None  # [N, sf_dim]
+    RA: Optional[np.ndarray] = None   # [N] resource-allocation scores
     sketches: Optional[Sketches] = None  # retained for serving
 
     @property
@@ -65,26 +74,82 @@ def sign_features(x: np.ndarray, edge_index: np.ndarray,
     """SIGN precompute (reference _generate_sign_features,
     src/datasets/elph.py:87-110): gcn_norm then sign_k=0 -> one propagation
     replacing x; sign_k>0 -> concat [x, Ax, ..., A^k x].  The SpMM is the
-    plan's add path (K1 merges it)."""
-    if not use_plan:
-        raise NotImplementedError(
-            "only the plan SpMM is ported (use_plan=True)")
+    plan's add path (K1 merges it) when ``use_plan``, else a scatter
+    ``segment_sum`` over the edges."""
     dev = resolve_device(device)
     ei = torch.from_numpy(np.asarray(edge_index, dtype=np.int64)).to(dev)
     ew = (None if edge_weight is None
           else torch.from_numpy(np.asarray(edge_weight)).to(dev))
     nei, nw = gcn_norm(ei, ew, num_nodes)
-    plan = make_auto_plan(nei.cpu().numpy(), num_nodes,
-                          max_slots=max_gather_slots, device=dev)
-    wslots = plan.stage_edge_data(nw)
+    if use_plan:
+        plan = make_auto_plan(nei.cpu().numpy(), num_nodes,
+                              max_slots=max_gather_slots, device=dev)
+        wslots = plan.stage_edge_data(nw)
+
+        def prop(v: torch.Tensor) -> torch.Tensor:
+            return plan.reduce(v, "add", edge_data_slots=wslots)
+    else:
+        src, dst = nei[0].long(), nei[1].long()
+
+        def prop(v: torch.Tensor) -> torch.Tensor:
+            return segment_sum(v.index_select(0, src) * nw[:, None], dst,
+                               num_nodes)
     cur = torch.from_numpy(np.asarray(x, dtype=np.float32)).to(dev)
     if sign_k == 0:
-        return plan.reduce(cur, "add", edge_data_slots=wslots).cpu().numpy()
+        return prop(cur).cpu().numpy()
     xs = [cur]
     for _ in range(sign_k):
-        cur = plan.reduce(cur, "add", edge_data_slots=wslots)
+        cur = prop(cur)
         xs.append(cur)
     return torch.cat(xs, dim=-1).cpu().numpy()
+
+
+def _cache_name(cfg: Config, split: str, kind: str) -> Optional[str]:
+    """The npz file of one cached array kind of one split, named as the
+    JAX package names it, or None without ``cache_dir``."""
+    if not cfg.cache_dir:
+        return None
+    hop_str = "" if cfg.max_hash_hops == 2 else f"{cfg.max_hash_hops}hop_"
+    year_str = f"year_{cfg.year}" if (cfg.dataset_name == "ogbl-collab"
+                                      and cfg.year > 0) else ""
+    neg_str = ("" if cfg.num_negs == 1 or split != "train"
+               else f"negs{cfg.num_negs}_")
+    os.makedirs(cfg.cache_dir, exist_ok=True)
+    return os.path.join(
+        cfg.cache_dir,
+        f"{cfg.dataset_name}_{split}_{neg_str}{year_str}{hop_str}{kind}.npz")
+
+
+def save_sketches(path: str, sketches: Sketches) -> None:
+    """The hash cache: MinHash as uint32 (the JAX package's layout), HLL
+    registers and cardinalities as they are."""
+    np.savez(path, minhash=from_biased(sketches.minhash),
+             hll=sketches.hll.cpu().numpy(),
+             cards=sketches.cards.cpu().numpy())
+
+
+def load_sketches(path: str, device) -> Sketches:
+    """A hash cache written by either package, on ``device``."""
+    z = np.load(path)
+    return Sketches(
+        minhash=torch.from_numpy(to_biased(z["minhash"])).to(device),
+        hll=torch.from_numpy(z["hll"]).to(device),
+        cards=torch.from_numpy(z["cards"]).to(device))
+
+
+def _knockout(sf: np.ndarray, cfg: Config) -> np.ndarray:
+    """The floor / zero-one knockout, applied again after the cache as the
+    reference does (src/datasets/elph.py:214-222): a cached file may come
+    from a run with other flags."""
+    sf = np.array(sf)
+    if cfg.floor_sf:
+        sf = np.maximum(sf, 0)
+    if not cfg.use_zero_one:
+        if cfg.max_hash_hops == 2:
+            sf[:, [4, 5]] = 0
+        elif cfg.max_hash_hops == 3:
+            sf[:, [4, 5, 11, 12]] = 0
+    return sf
 
 
 def build_link_dataset(split_data: SplitData, cfg: Config, split: str,
@@ -98,13 +163,18 @@ def build_link_dataset(split_data: SplitData, cfg: Config, split: str,
     ``reuse_from``: a previously built split (usually train).  When this
     split's message graph is identical (valid shares the train edges), the
     SIGN features and the sketch tables are reused; per-link subgraph
-    features still run."""
+    features and RA still run.
+
+    Caches under ``cfg.cache_dir``, as in the JAX package: the SIGN
+    features with ``load_features``, the sketch tables with
+    ``load_hashes``, the subgraph features with
+    ``cache_subgraph_features`` (a split whose subgraph features come from
+    the cache builds no sketches; unlike the JAX package, the port also
+    writes them for a split that reuses the train split's sketches)."""
     model = model or cfg.model
     if model != "BUDDY":
         raise NotImplementedError(f"preprocessing for {model} is not ported "
                                   f"yet (BUDDY only)")
-    if cfg.use_RA:
-        raise NotImplementedError("--use_RA is not ported yet")
     if cfg.mesh_shape and "graph" in (cfg.mesh_axes or []):
         raise NotImplementedError("the node-sharded (graph mesh) build is "
                                   "not ported yet")
@@ -127,32 +197,65 @@ def build_link_dataset(split_data: SplitData, cfg: Config, split: str,
     labels = split_data.labels
     degrees = reuse_from.degrees if same_graph else g.degrees()
 
+    RA = None
+    if cfg.use_RA:
+        RA = resource_allocation(g.csr(), links, batch_size=2000000)
+
+    feat_cache = _cache_name(cfg, split, f"k{cfg.sign_k}_features")
     if same_graph:
         x = reuse_from.x  # SIGN features depend only on the message graph
+    elif feat_cache and cfg.load_features and os.path.exists(feat_cache):
+        x = np.load(feat_cache)["x"]
     elif g.x is not None:
         x = sign_features(g.x, g.edge_index, g.edge_weight, g.num_nodes,
                           cfg.sign_k, use_plan=cfg.use_plan,
                           max_gather_slots=cfg.max_gather_slots, device=dev)
+        if feat_cache and cfg.load_features:
+            np.savez(feat_cache, x=x)
     else:
         x = None
 
     params = sketch_params_from_config(cfg)
-    if same_graph:
-        sketches = reuse_from.sketches
+    sf_cache = _cache_name(cfg, split, "subgraph_features")
+    sketches = reuse_from.sketches if same_graph else None
+    batch = min(cfg.subgraph_feature_batch_size, 1 << 18)
+    if sketches is not None:
+        sf = subgraph_features_batched(links, sketches, params,
+                                       batch_size=batch).cpu().numpy()
+        if sf_cache and cfg.cache_subgraph_features:
+            # the JAX package writes no file here, so its next run builds
+            # the sketches again for a split that shares the train graph
+            np.savez(sf_cache, sf=sf)
+    elif sf_cache and cfg.cache_subgraph_features \
+            and os.path.exists(sf_cache):
+        sf = np.load(sf_cache)["sf"]
+        if sf.shape[0] != len(links):
+            raise ValueError(
+                f"cached subgraph features {sf_cache} hold {sf.shape[0]} "
+                f"rows for {len(links)} links; delete the cache file and "
+                f"regenerate")
     else:
-        plan = make_auto_plan(g.edge_index, g.num_nodes,
-                              max_slots=cfg.max_gather_slots, device=dev)
-        sketches = build_hash_tables(g.edge_index, g.num_nodes, params,
-                                     plan=plan,
-                                     hops_only=cfg.hops_only_sketches)
-    sf = subgraph_features_batched(
-        links, sketches, params,
-        batch_size=min(cfg.subgraph_feature_batch_size, 1 << 18))
-    # subgraph_features already applies the floor / zero-one knockout from
-    # the same params (the JAX package re-applies them after its cache)
-    sf = sf.cpu().numpy()
+        hash_cache = _cache_name(cfg, split, "hashes")
+        if hash_cache and cfg.load_hashes and os.path.exists(hash_cache):
+            sketches = load_sketches(hash_cache, dev)
+        else:
+            plan = (make_auto_plan(g.edge_index, g.num_nodes,
+                                   max_slots=cfg.max_gather_slots,
+                                   device=dev)
+                    if cfg.use_plan else None)
+            sketches = build_hash_tables(g.edge_index, g.num_nodes, params,
+                                         plan=plan,
+                                         hops_only=cfg.hops_only_sketches,
+                                         device=dev)
+            if hash_cache and cfg.load_hashes:
+                save_sketches(hash_cache, sketches)
+        sf = subgraph_features_batched(links, sketches, params,
+                                       batch_size=batch).cpu().numpy()
+        if sf_cache and cfg.cache_subgraph_features:
+            np.savez(sf_cache, sf=sf)
     return LinkDataset(links, labels, g.edge_index, g.weights, g.num_nodes,
-                       x, degrees, subgraph_features=sf, sketches=sketches)
+                       x, degrees, subgraph_features=_knockout(sf, cfg),
+                       RA=RA, sketches=sketches)
 
 
 def build_all_splits(splits, cfg: Config, directed: bool = False,
@@ -167,3 +270,46 @@ def build_all_splits(splits, cfg: Config, directed: bool = False,
                                        reuse_from=out.get("train"),
                                        device=device)
     return out
+
+
+def make_train_eval_dataset(train_ds: LinkDataset,
+                            n_pos_samples: int = 5000) -> LinkDataset:
+    """Small train subset for train-metric estimates on large datasets
+    (citation2) — reference make_train_eval_data,
+    src/datasets/elph.py:292-325, as in the JAX package.
+
+    The negatives-per-positive count is derived from the dataset (the
+    train split holds cfg.num_negs same-source negatives per positive,
+    laid out in per-positive blocks after all positives), which keeps the
+    k selected positives aligned with exactly their own negative blocks;
+    the alignment is checked as the reference checks it."""
+    n_pos_total = int(train_ds.labels.sum())
+    n_neg_total = len(train_ds.links) - n_pos_total
+    if n_pos_total == 0 or n_neg_total % n_pos_total:
+        raise ValueError(
+            f"train split is not per-positive-block aligned "
+            f"({n_pos_total} positives, {n_neg_total} negatives); "
+            f"regenerate the cached negatives")
+    negs_per_pos = n_neg_total // n_pos_total
+    n_pos = min(n_pos_samples, n_pos_total)
+    n_neg = n_pos * negs_per_pos
+    pos = train_ds.links[:n_pos]
+    neg = train_ds.links[n_pos_total:n_pos_total + n_neg]
+    if not (pos[:, 0].repeat(negs_per_pos) == neg[:, 0]).all():
+        raise ValueError("negatives have different source nodes to "
+                         "positives; delete cached negatives and regenerate")
+    sf = train_ds.subgraph_features
+    RA = None
+    if train_ds.RA is not None:
+        RA = np.concatenate([train_ds.RA[:n_pos],
+                             train_ds.RA[n_pos_total:n_pos_total + n_neg]])
+    return LinkDataset(
+        links=np.concatenate([pos, neg]),
+        labels=np.concatenate([np.ones(n_pos, np.float32),
+                               np.zeros(n_neg, np.float32)]),
+        edge_index=train_ds.edge_index, edge_weight=train_ds.edge_weight,
+        num_nodes=train_ds.num_nodes, x=train_ds.x,
+        degrees=train_ds.degrees,
+        subgraph_features=np.concatenate(
+            [sf[:n_pos], sf[n_pos_total:n_pos_total + n_neg]]),
+        RA=RA, sketches=train_ds.sketches)

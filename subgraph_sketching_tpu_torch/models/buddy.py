@@ -24,6 +24,7 @@ class BUDDY(nn.Module):
       sf            [B, k(k+2)]   subgraph (structure) features
       node_features [B, 2, d] raw features, or [B, 2, d*(sign_k+1)] if sign_k>0
       src_degree / dst_degree [B] — for the degree-normalised feature copy
+      RA            [B] resource-allocation scores (with ``use_RA``)
     Returns logits [B, 1].
     """
 
@@ -34,9 +35,9 @@ class BUDDY(nn.Module):
                  label_dropout: float = 0.5, feature_dropout: float = 0.5,
                  sign_dropout: float = 0.5):
         super().__init__()
-        if use_RA or use_embedding:
+        if use_embedding:
             raise NotImplementedError(
-                "BUDDY's RA and node-embedding inputs are not ported yet")
+                "BUDDY's node-embedding inputs are not ported yet")
         self.use_feature = use_feature and num_features is not None
         self.sign_k = sign_k
         self.append_normalised = append_normalised
@@ -56,6 +57,11 @@ class BUDDY(nn.Module):
             self.bn_feats = batch_norm(hidden_channels)
             self.feature_dropout = Dropout(feature_dropout)
             out_dim += hidden_channels
+        self.use_RA = use_RA
+        if use_RA:
+            # the RA score, batch-normalised, joins the last layer's input
+            self.bn_RA = batch_norm(1)
+            out_dim += 1
         self.lin = nn.Linear(out_dim, 1)
 
     @classmethod
@@ -90,6 +96,7 @@ class BUDDY(nn.Module):
                 node_features: Optional[torch.Tensor] = None,
                 src_degree: Optional[torch.Tensor] = None,
                 dst_degree: Optional[torch.Tensor] = None,
+                RA: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``generator`` draws the dropout masks in training mode."""
         if self.append_normalised:
@@ -104,4 +111,6 @@ class BUDDY(nn.Module):
             h = self.lin_out(h[:, 0, :] * h[:, 1, :])
             h = self.feature_dropout(torch.relu(self.bn_feats(h)), generator)
             x = torch.cat([x, h], dim=1)
+        if self.use_RA and RA is not None:
+            x = torch.cat([x, self.bn_RA(RA[:, None].to(x.dtype))], dim=1)
         return self.lin(x)

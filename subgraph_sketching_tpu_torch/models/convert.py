@@ -70,8 +70,9 @@ def buddy_state_dict_from_flax(params: dict, batch_stats: dict
     """A ``BUDDY`` state_dict from flax ``params`` / ``batch_stats`` trees.
 
     Each Dense kernel [in, out] becomes a Linear weight [out, in]; each
-    BatchNorm (scale, bias, mean, var) becomes (weight, bias, running_mean,
-    running_var).  The trainer's ``BuddyWithEmbedding`` wrapper (a
+    BatchNorm (scale, bias, mean, var), ``bn_RA`` of a ``use_RA`` model
+    included, becomes (weight, bias, running_mean, running_var).  The
+    trainer's ``BuddyWithEmbedding`` wrapper (a
     top-level ``buddy`` entry) is unwrapped.
     """
     if "buddy" in params:

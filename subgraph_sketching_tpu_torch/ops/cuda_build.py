@@ -1,13 +1,17 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's native code: the hand-written CUDA kernels
+and the C++ plan builder.
 
-``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface and loaded with ctypes.  The build runs
-at first use, from the sources in this package only, into ``_build/``
-beside it; the library's file name carries a hash of its source, the
-shared headers (``csrc/*.cuh``) and the flags, so an edited source or
-header is rebuilt and a current one is reused.  nvcc's output
-(``-Xptxas -v``: registers and spills) is kept beside it as ``.log``.
-``load_all`` starts one nvcc per source, all at once.
+``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a``, and
+``csrc/<name>.cpp`` (host code: ``plan_build.cpp``, the plan tables of
+``ops/segment_scan.py``) by ``g++ -O3 -fopenmp``, each into a shared
+library with a plain C interface, loaded with ctypes.  The build runs at
+first use, from the sources in this package only, into ``_build/`` beside
+it; the library's file name carries a hash of its source, the shared
+headers (``csrc/*.cuh``, for the CUDA sources) and the flags, so an
+edited source or header is rebuilt and a current one is reused.  The
+compiler's output (for nvcc ``-Xptxas -v``: registers and spills) is kept
+beside it as ``.log``.  ``load_all`` starts one compiler per source, all
+at once.
 
 The wrappers (``ops/segscan.py``, ``studies/*.py``) share the glue below:
 ``entry`` declares a C entry point's argument types, ``share_steps``
@@ -32,6 +36,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+GXX_FLAGS = ["-O3", "-fopenmp", "-shared", "-fPIC", "-std=c++17"]
 
 _LIBS: dict = {}
 
@@ -47,21 +52,50 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if found:
+        return found
+    raise RuntimeError("g++ not found: the plan builder (csrc/plan_build.cpp) "
+                       "is built with a C++ compiler")
+
+
+def _is_host(name: str) -> bool:
+    """``csrc/<name>.cpp`` (host code for g++) rather than ``<name>.cu``."""
+    return os.path.exists(os.path.join(CSRC, f"{name}.cpp"))
+
+
+def _sources(name: str) -> list:
+    """The files the library of ``name`` is built from, main source first:
+    a CUDA source with every shared header, or a host source alone."""
+    if _is_host(name):
+        return [f"{name}.cpp"]
+    return [f"{name}.cu",
+            *sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))]
+
+
+def _command(name: str, out: str) -> list:
+    src = os.path.join(CSRC, _sources(name)[0])
+    if _is_host(name):
+        return [_gxx(), *GXX_FLAGS, "-o", out, src]
+    return [_nvcc(), *NVCC_FLAGS, "-o", out, src]
+
+
 def library_path(name: str) -> str:
-    """The library of ``csrc/<name>.cu``, named by a hash of that source,
-    the shared headers (``csrc/*.cuh``) and the flags."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
-    for f in [f"{name}.cu", *headers]:
+    """The library of ``csrc/<name>.cu`` (or ``.cpp``), named by a hash of
+    its sources and the compiler's flags."""
+    flags = GXX_FLAGS if _is_host(name) else NVCC_FLAGS
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for f in _sources(name):
         with open(os.path.join(CSRC, f), "rb") as fh:
             digest.update(fh.read())
     return os.path.join(BUILD_DIR, f"{name}_{digest.hexdigest()[:12]}.so")
 
 
 def load_all(names) -> dict:
-    """Build every missing ``csrc/<name>.cu`` of ``names`` with one nvcc
-    each, all running together, then load them.  Returns {name: seconds
-    from the start of the builds to the end of that one's nvcc} (0.0 for a
+    """Build every missing library of ``names`` with one compiler each,
+    all running together, then load them.  Returns {name: seconds from the
+    start of the builds to the end of that one's compiler} (0.0 for a
     library that was already built)."""
     t0 = time.perf_counter()
     running = {}
@@ -72,8 +106,8 @@ def load_all(names) -> dict:
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
         proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            _command(name, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
         running[name] = (proc, tmp, out)
     seconds = {name: 0.0 for name in names}
     failed = []
@@ -81,7 +115,7 @@ def load_all(names) -> dict:
         log, _ = proc.communicate()
         seconds[name] = time.perf_counter() - t0
         if proc.returncode != 0:
-            failed.append(f"nvcc failed for csrc/{name}.cu "
+            failed.append(f"the build of csrc/{_sources(name)[0]} failed "
                           f"(rc {proc.returncode}):\n{log}")
             continue
         with open(out[:-3] + ".log", "w") as f:
@@ -96,7 +130,8 @@ def load_all(names) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built if needed."""
+    """The loaded library for ``csrc/<name>.cu`` (or ``.cpp``), built if
+    needed."""
     if name not in _LIBS:
         load_all([name])
     return _LIBS[name]

@@ -8,11 +8,14 @@ The flags are the JAX runner's (every ``Config`` field, reference names)
 plus ``--device`` (default ``cuda``; the run raises when CUDA is absent).
 Preprocessing runs on the device through the plan and K1.
 
+Datasets: ``synth-*``, Planetoid (Cora, Citeseer, Pubmed) and ogbl-*
+from their raw files under ``--data_root`` (default ``SKETCH_DATA_ROOT``
+or ``dataset/`` in the checkout).  On ogbl-citation2 the train metric is
+taken on a small ``train_eval`` subset with its same-source negatives.
+
 Not ported yet (queued, each raises NotImplementedError): models other than
-BUDDY (ELPH, SEAL, KGE), ``--mesh_shape``, ``--heartbeat_dir``,
-``--profile_dir``, ``--compilation_cache_dir``, datasets other than
-``synth-*`` (``get_data`` raises) and with them citation2's ``train_eval``
-split.
+BUDDY (ELPH, SEAL, KGE), BUDDY's node embeddings, ``--mesh_shape``,
+``--heartbeat_dir``, ``--profile_dir`` and ``--compilation_cache_dir``.
 """
 
 from __future__ import annotations
@@ -29,7 +32,9 @@ import numpy as np
 from subgraph_sketching_tpu_torch.config import Config
 from subgraph_sketching_tpu_torch.device import resolve_device
 from subgraph_sketching_tpu_torch.graph.datasets import get_data
-from subgraph_sketching_tpu_torch.graph.preprocess import build_all_splits
+from subgraph_sketching_tpu_torch.graph.preprocess import (
+    build_all_splits, make_train_eval_dataset,
+)
 from subgraph_sketching_tpu_torch.metrics_logging import (
     MetricsLogger, apply_sweep_overrides,
 )
@@ -56,7 +61,7 @@ def _refuse_unported(cfg: Config) -> None:
         raise NotImplementedError(
             f"model {cfg.model} is not ported yet (BUDDY only; ELPH, the "
             f"heuristics, SEAL and KGE are queued in ROADMAP.md §1, items "
-            f"9, 10, 12 and 13)")
+            f"3, 5, 7 and 8)")
     for flag in ("mesh_shape", "heartbeat_dir", "profile_dir",
                  "compilation_cache_dir"):
         if getattr(cfg, flag):
@@ -69,6 +74,12 @@ def build_trainer(cfg: Config, datasets, num_features, device
                            device=device)
     for split in ("valid", "test"):
         trainer.stage(split, datasets[split])
+    # citation2: the train metric on a small subset with aligned same-source
+    # negatives (reference get_loaders, data.py:55-59)
+    trainer.train_eval_split = "train"
+    if cfg.dataset_name == "ogbl-citation2":
+        trainer.stage("train_eval", make_train_eval_dataset(datasets["train"]))
+        trainer.train_eval_split = "train_eval"
     return trainer
 
 
@@ -76,6 +87,7 @@ def run(cfg: Config, device="cuda"):
     """Rep loop with best-val model selection (reference run.py:50-110).
 
     Besides the JAX runner's per-rep logger keys, each eval row carries
+    ``rep<r>_get_data_time`` (loading and splitting the dataset),
     ``rep<r>_preprocess_time``, ``rep<r>_train_time`` (the epoch's training
     alone) and ``rep<r>_eval_time``, in seconds."""
     dev = resolve_device(device)
@@ -93,7 +105,9 @@ def run(cfg: Config, device="cuda"):
     results_list = []
     for rep in range(cfg.reps):
         set_seed(rep)
+        t0 = time.time()
         splits, directed, eval_metric = get_data(cfg)
+        get_data_time = time.time() - t0
         if cfg.eval_metric != "hits":
             eval_metric = cfg.eval_metric
         t0 = time.time()
@@ -144,7 +158,8 @@ def run(cfg: Config, device="cuda"):
             train_time = time.time() - t0
             if (epoch + 1) % cfg.eval_steps == 0:
                 t1 = time.time()
-                results = test(trainer, model, cfg, eval_metric)
+                results = test(trainer, model, cfg, eval_metric,
+                               train_split=trainer.train_eval_split)
                 eval_time = time.time() - t1
                 for key, result in results.items():
                     train_res, tmp_val, tmp_test = (list(result) + [0.0])[:3]
@@ -160,6 +175,7 @@ def run(cfg: Config, device="cuda"):
                                 f"rep{rep}_Test{key}": 100 * test_res,
                                 f"rep{rep}_best_epoch": best_epoch,
                                 f"rep{rep}_epoch_time": time.time() - t0,
+                                f"rep{rep}_get_data_time": get_data_time,
                                 f"rep{rep}_preprocess_time": preprocess_time,
                                 f"rep{rep}_train_time": train_time,
                                 f"rep{rep}_eval_time": eval_time},
@@ -188,7 +204,8 @@ def run(cfg: Config, device="cuda"):
             # ran.  Evaluate the restored model instead of reporting zeros.
             print(f"checkpoint step {start_epoch} >= epochs {cfg.epochs}; "
                   f"evaluating restored state")
-            results = test(trainer, model, cfg, eval_metric)
+            results = test(trainer, model, cfg, eval_metric,
+                           train_split=trainer.train_eval_split)
             for key, result in results.items():
                 train_res, tmp_val, tmp_test = (list(result) + [0.0])[:3]
                 if tmp_val > val_res:

@@ -13,7 +13,7 @@ either ``step_<N>.pt`` files from a training run (``runners/run.py`` with
 over through ``models/convert.py``.
 
 Not ported yet (queued): streaming edge insert/delete, the ELPH scorer, the
-RA and node-embedding inputs.
+RA and node-embedding inputs (a ``use_RA`` config is refused).
 """
 
 from __future__ import annotations
@@ -37,6 +37,14 @@ CONFIG_FILE = "config.json"
 WEIGHTS_FILE = "buddy.pt"
 
 
+def _refuse_unported(cfg: Config) -> None:
+    if cfg.use_RA:
+        raise NotImplementedError(
+            "serving a use_RA model is not ported yet: the scorer computes "
+            "no RA scores for its queries (queued with the other serving "
+            "inputs); train without --use_RA to serve on the port")
+
+
 class LinkScorer:
     """Serve scores for arbitrary (src, dst) pairs.
 
@@ -54,6 +62,7 @@ class LinkScorer:
     def __init__(self, cfg: Config, model: BUDDY, dataset: LinkDataset,
                  min_bucket: int = 1024, max_bucket: int = 1 << 18,
                  device="cuda"):
+        _refuse_unported(cfg)
         if dataset.sketches is None and cfg.use_struct_feature:
             raise ValueError(
                 "serving needs the sketch stacks: build the dataset with "
@@ -146,6 +155,7 @@ def scorer_from_checkpoint(checkpoint_dir: str, cfg: Optional[Config] = None,
             cfg = Config.from_json(f.read())
     if cfg.model != "BUDDY":
         raise NotImplementedError(f"serving {cfg.model} is not ported yet")
+    _refuse_unported(cfg)
     splits, directed, _ = get_data(cfg)
     datasets = build_all_splits(splits, cfg, directed=directed, device=dev)
     x = datasets["train"].x

@@ -3,7 +3,8 @@
 Counterpart of the JAX package's sketch/elph.py (reference ``ElphHashes``,
 src/hashing.py:48-323).  Hop-0 sketches are initialised on the host
 (bit-exact 64-bit hashing, see node_hash.py); the hops run on the device
-through the padded-tree plan, whose merge is K1:
+through the padded-tree plan, whose merge is K1, or by the scatter route
+when no plan is given (``--use_plan false``):
 
   * k-hop propagation = segment-min (minhash) / segment-max (HLL) over the
     in-edges with the node's own row folded in (the reference adds explicit
@@ -68,23 +69,32 @@ def build_hash_tables(edge_index: np.ndarray, num_nodes: int,
     """All per-hop sketches + cardinalities (reference src/hashing.py:139-165).
 
     edge_index: [2, E] int (host).  plan: an ops.segment_scan plan for the
-    same edges (built here when None), on ``device``.
+    same edges, whose device the hops run on (the plan route, merged by
+    K1); with None the hops run on ``device`` by the scatter route
+    (``propagate_minhash`` / ``propagate_hll``), as the JAX package runs
+    them without a plan.
     hops_only: return K-row stacks (hops 1..K; hop 0 dropped) — the feature
     extractor accepts both layouts.
     """
     assert params.max_hops in (1, 2, 3), \
         f"hashing is not implemented for {params.max_hops} hops"
-    if plan is None:
-        from subgraph_sketching_tpu_torch.ops.segment_scan import (
-            make_auto_plan,
-        )
-        plan = make_auto_plan(np.asarray(edge_index), num_nodes,
-                              device=device)
-    mh0, hll0 = initialise_sketches(num_nodes, params, plan.device)
+    if plan is not None:
+        dev = plan.device
+
+        def hop(t: torch.Tensor, op: str) -> torch.Tensor:
+            return plan.reduce(t, op)
+    else:
+        dev = resolve_device(device)
+        ei = torch.from_numpy(np.asarray(edge_index, dtype=np.int64)).to(dev)
+
+        def hop(t: torch.Tensor, op: str) -> torch.Tensor:
+            step = propagate_minhash if op == "min" else propagate_hll
+            return step(t, ei[0], ei[1], num_nodes)
+    mh0, hll0 = initialise_sketches(num_nodes, params, dev)
     mhs, hlls, cards = [mh0], [hll0], []
     for _ in range(params.max_hops):
-        mhs.append(plan.reduce(mhs[-1], "min"))
-        hlls.append(plan.reduce(hlls[-1], "max"))
+        mhs.append(hop(mhs[-1], "min"))
+        hlls.append(hop(hlls[-1], "max"))
         cards.append(hll_count(hlls[-1], params.hll_p))
     if hops_only:
         mhs, hlls = mhs[1:], hlls[1:]

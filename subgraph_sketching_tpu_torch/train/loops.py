@@ -4,7 +4,8 @@ train/loops.py, BUDDY part).
 As in the JAX package:
 
   * every per-link tensor of a split lives on the device, packed into one
-    [L, F] float32 row array (sf ‖ label ‖ src degree ‖ dst degree);
+    [L, F] float32 row array (sf ‖ label ‖ src degree ‖ dst degree, and
+    ‖ RA with ``use_RA``);
   * an epoch walks a device-side permutation; the last batch is padded
     with index -1, which reads link 0 and is masked out of the loss only
     (the padding rows do enter the BatchNorm batch statistics, as in the
@@ -17,7 +18,7 @@ dropout mask come from one ``torch.Generator`` on the device, seeded by
 ``fold_in(PRNGKey(rep), epoch)``.  The step losses stay on the device and
 are read once per epoch.
 
-Not ported yet (queued): RA, node embeddings (``BuddyWithEmbedding``), the
+Not ported yet (queued): node embeddings (``BuddyWithEmbedding``), the
 data-parallel mesh, ``dtype`` other than float32, and the ELPH trainer.
 """
 
@@ -140,8 +141,6 @@ class BuddyTrainer:
 
     def __init__(self, cfg: Config, dataset: LinkDataset,
                  num_features: Optional[int], device="cuda"):
-        if cfg.use_RA:
-            raise NotImplementedError("--use_RA is not ported yet")
         if cfg.train_node_embedding or cfg.pretrained_node_embedding:
             raise NotImplementedError("BUDDY's node embeddings are not "
                                       "ported yet")
@@ -163,14 +162,18 @@ class BuddyTrainer:
     # -- data staging -------------------------------------------------------
     def stage(self, split: str, ds: LinkDataset) -> None:
         """Put one split's per-link data on the device: ``links``, ``rows``
-        (sf ‖ label ‖ src degree ‖ dst degree, one [L, F] float32 array, so
-        a batch is one row gather) and the node features ``x``."""
+        (sf ‖ label ‖ src degree ‖ dst degree ‖ RA with ``use_RA``, one
+        [L, F] float32 array, so a batch is one row gather) and the node
+        features ``x``."""
         sf = np.asarray(ds.subgraph_features, dtype=np.float32)
         labels = np.asarray(ds.labels, dtype=np.float32)[:, None]
         deg = np.asarray(ds.degrees, dtype=np.float32)
         links = np.asarray(ds.links, dtype=np.int64)
-        rows = np.concatenate([sf, labels, deg[links[:, 0]][:, None],
-                               deg[links[:, 1]][:, None]], axis=1)
+        cols = [sf, labels, deg[links[:, 0]][:, None],
+                deg[links[:, 1]][:, None]]
+        if self.cfg.use_RA:
+            cols.append(np.asarray(ds.RA, dtype=np.float32)[:, None])
+        rows = np.concatenate(cols, axis=1)
         d = {"links": torch.from_numpy(links).to(self.device),
              "rows": torch.from_numpy(rows).to(self.device)}
         if self.use_feature:
@@ -192,7 +195,8 @@ class BuddyTrainer:
         batch = {"sf": rows[:, :c], "labels": rows[:, c], "mask": idx >= 0,
                  "src_degree": rows[:, c + 1], "dst_degree": rows[:, c + 2],
                  "node_features": data["x"][links] if self.use_feature
-                 else None}
+                 else None,
+                 "RA": rows[:, c + 3] if self.cfg.use_RA else None}
         if self.cfg.use_struct_feature is False:
             batch["sf"] = torch.zeros_like(batch["sf"])
         return batch
@@ -201,7 +205,8 @@ class BuddyTrainer:
     def _apply(model: BUDDY, batch, generator=None) -> torch.Tensor:
         return model(batch["sf"], node_features=batch["node_features"],
                      src_degree=batch["src_degree"],
-                     dst_degree=batch["dst_degree"], generator=generator)
+                     dst_degree=batch["dst_degree"], RA=batch["RA"],
+                     generator=generator)
 
     # -- model --------------------------------------------------------------
     def init_model(self, seed: int) -> BUDDY:

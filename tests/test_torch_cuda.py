@@ -88,6 +88,53 @@ def test_kernel_matches_plain(cuda, op, dtype, width):
         assert torch.equal(got[:10], x[:10])   # empty: the node's own row
 
 
+@pytest.mark.parametrize("op,dtype,width", INSTANCES)
+def test_chunked_plan_merges_each_chunk_by_the_kernel(cuda, op, dtype,
+                                                      width):
+    """The chunk-streamed plan on the card: one K1 launch a chunk, each on
+    the chunk's window of the output, bit-equal to the one-shot plan and
+    to the same chunks merged by the plain version (the add on dyadic
+    inputs, whose every partial sum is exact)."""
+    from subgraph_sketching_tpu_torch.ops.segment_scan import make_auto_plan
+    ei, n = _plan()
+    one = SortedSegmentPlan(ei, n, device=cuda)
+    chunked = make_auto_plan(ei, n, max_slots=4096, device=cuda)
+    assert chunked.num_chunks > 2 and chunked.base.native
+    g = torch.Generator(device="cuda").manual_seed(2)
+    w = w_one = None
+    if op == "add":
+        x = torch.randint(-32, 32, (n, width), generator=g,
+                          device="cuda").float() / 4
+        weights = np.random.default_rng(3).integers(
+            1, 5, ei.shape[1]).astype(np.float32) / 4
+        w, w_one = chunked.stage_edge_data(weights), \
+            one.stage_edge_data(weights)
+    else:
+        x = _input(n, dtype, width, g)
+    name = segscan._ENTRY[(op, dtype)][0]
+    before = segscan.launches[name]
+    got = chunked.reduce(x, op, edge_data_slots=w)
+    torch.cuda.synchronize()
+    assert segscan.launches[name] == before + chunked.num_chunks
+    assert torch.equal(got, one.reduce(x, op, edge_data_slots=w_one))
+    assert torch.equal(got, chunked.reduce(
+        x, op, edge_data_slots=w, merge=segscan.segment_combine_plain))
+
+
+def test_plan_on_the_card_takes_the_native_tables(cuda):
+    from subgraph_sketching_tpu_torch.ops.segment_scan import (
+        plan_tables_plain,
+    )
+    ei, n = _plan()
+    plan = SortedSegmentPlan(ei, n, device=cuda)
+    assert plan.native
+    want = plan_tables_plain(ei[0], ei[1], n, plan.sub_len)
+    got = (plan.order, plan._gather_idx_np, plan._sub_dst_np,
+           plan._run_starts, plan.sub_starts)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
 def test_kernel_refuses_what_it_does_not_take(cuda):
     ei, n = _plan(n=200, deg=4)
     plan = SortedSegmentPlan(ei, n, device=cuda)

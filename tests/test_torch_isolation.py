@@ -1,4 +1,5 @@
-"""The port imports neither jax nor anything of the JAX package.
+"""The port imports neither jax nor anything of the JAX package, and
+neither pandas nor ogb (it reads the raw dataset layouts itself).
 
 Checked in a fresh interpreter: this test process has jax loaded already
 (tests/conftest.py imports it).
@@ -17,17 +18,21 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 bad = sorted(k for k in sys.modules
-             if k in ("jax", "flax", "optax", "orbax", "subgraph_sketching_tpu")
+             if k in ("jax", "flax", "optax", "orbax", "subgraph_sketching_tpu",
+                      "pandas", "ogb")
              or k.startswith(("jax.", "flax.", "jaxlib", "optax.", "orbax.",
-                              "subgraph_sketching_tpu.")))
+                              "subgraph_sketching_tpu.", "pandas.", "ogb.")))
 print(len(names), bad)
 print(" ".join(names))
 """
 
-# the training slice's modules, which must be among those imported
-TRAINING = {"train", "train.losses", "train.evaluation", "train.inference",
+# the training slice's modules and the dataset slice's (loading, LCC, RA
+# and the plan builder's build), which must be among those imported
+REQUIRED = {"train", "train.losses", "train.evaluation", "train.inference",
             "train.loops", "train.checkpoint", "train.determinism",
-            "runners.run", "metrics_logging", "utils"}
+            "runners.run", "metrics_logging", "utils",
+            "graph.datasets", "graph.lcc", "heuristics", "ops.cuda_build",
+            "ops.segment_scan", "graph.preprocess"}
 
 
 def test_port_imports_no_jax():
@@ -38,4 +43,4 @@ def test_port_imports_no_jax():
     assert int(count) >= 40            # every module of the package was imported
     assert bad.strip() == "[]"
     imported = set(out[1].split())
-    assert {"subgraph_sketching_tpu_torch." + m for m in TRAINING} <= imported
+    assert {"subgraph_sketching_tpu_torch." + m for m in REQUIRED} <= imported

@@ -79,7 +79,7 @@ def test_main_without_device_needs_cuda():
 @pytest.mark.parametrize("extra", [
     ["--model", "ELPH"], ["--model", "SEALGCN"], ["--mesh_shape", "2"],
     ["--profile_dir", "p"], ["--heartbeat_dir", "h"],
-    ["--compilation_cache_dir", "c"], ["--dataset_name", "Cora"]])
+    ["--compilation_cache_dir", "c"], ["--train_node_embedding"]])
 def test_unported_options_raise(extra):
     with pytest.raises(NotImplementedError):
         run.main(SMALL + extra + ["--device", "cpu"])
@@ -191,3 +191,63 @@ def test_serving_a_trained_checkpoint_matches_predict(runs):
     want, _ = trainer.predict(model, "valid")
     got = scorer.score(datasets["valid"].links)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------- the reference's datasets ----
+
+# the reference README's BUDDY commands (tests/test_cli.py) on the fixtures
+# of tests/test_torch_datasets.py, cut to one epoch; ogbl-ddi's needs the
+# node embeddings, which are not ported yet.  citation2's batch sizes
+# (261424 / 522848) are cut to the fixture's size: a batch pads to its
+# full size, and the command's would cost the CPU seconds for 240 links.
+# name -> (fixture, command, extra flags, the metric it logs)
+DATASET_COMMANDS = {
+    "Cora": ("cora", REFERENCE_COMMANDS[1], [], "Hits@100"),
+    "Citeseer": ("citeseer", REFERENCE_COMMANDS[3], [], "Hits@100"),
+    "Pubmed": ("pubmed", REFERENCE_COMMANDS[5], [], "Hits@100"),
+    "ogbl-collab": ("collab_year", REFERENCE_COMMANDS[7], [], "Hits@50"),
+    "ogbl-citation2": ("citation2", REFERENCE_COMMANDS[10],
+                       ["--batch_size", "256", "--eval_batch_size", "1024"],
+                       "MRR"),
+    "ogbl-ppa": ("ppa_RA", "--dataset_name ogbl-ppa --label_dropout 0.1 "
+                 "--use_feature 0 --use_RA 1 --lr 0.03 --epochs 100 "
+                 "--hidden_channels 256 --cache_subgraph_features "
+                 "--add_normed_features 1 --use_zero_one 1 --model BUDDY",
+                 [], "Hits@100"),
+}
+
+
+@pytest.mark.parametrize("name", list(DATASET_COMMANDS))
+def test_reference_buddy_commands_reach_training(tmp_path, name):
+    from test_torch_datasets import _write_planetoid
+    from test_torch_preprocess import FAMILIES, _write
+    family, cmd, extra, metric = DATASET_COMMANDS[name]
+    if family in FAMILIES:
+        _write(tmp_path, family)
+    else:
+        _write_planetoid(str(tmp_path), name, family, gap=name == "Citeseer")
+    assert name in cmd
+    ckpt = str(tmp_path / "run")
+    result = run.main(shlex.split(cmd) + extra + [
+        "--epochs", "1", "--device", "cpu", "--data_root", str(tmp_path),
+        "--cache_dir", str(tmp_path / "cache"), "--checkpoint_dir", ckpt])
+    with open(os.path.join(ckpt, "metrics.jsonl")) as f:
+        (row,) = [json.loads(line) for line in f]
+    assert np.isfinite(row["rep0_loss"])
+    assert f"rep0_Train{metric}" in row
+    assert all(0.0 <= r <= 1.0 for r in result[0])
+    if "--cache_subgraph_features" in cmd:
+        assert any(f.endswith("subgraph_features.npz")
+                   for f in os.listdir(tmp_path / "cache"))
+
+
+def test_serving_refuses_an_RA_model(tmp_path):
+    cfg = Config(dataset_name="synth-ba", use_RA=True, hidden_channels=32)
+    with open(tmp_path / "config.json", "w") as f:
+        f.write(cfg.to_json())
+    with pytest.raises(NotImplementedError, match="use_RA"):
+        scorer_from_checkpoint(str(tmp_path), device="cpu")
+    from subgraph_sketching_tpu_torch.models import BUDDY
+    from subgraph_sketching_tpu_torch.serving import LinkScorer
+    with pytest.raises(NotImplementedError, match="use_RA"):
+        LinkScorer(cfg, BUDDY.from_config(cfg, 128), None, device="cpu")

@@ -19,7 +19,7 @@ from subgraph_sketching_tpu.ops import pallas_segscan as pss
 from subgraph_sketching_tpu.ops.segment_scan import make_plan
 from subgraph_sketching_tpu_torch.ops import segscan
 from subgraph_sketching_tpu_torch.ops.segment_scan import (
-    SortedSegmentPlan, make_auto_plan,
+    ChunkedSegmentPlan, SortedSegmentPlan, make_auto_plan,
 )
 from subgraph_sketching_tpu_torch.sketch.minhash import from_biased, to_biased
 
@@ -157,11 +157,18 @@ def test_zero_edge_plan():
 
 
 def test_auto_plan_rejects_oversized_slot_table():
+    """A slot table past max_slots is not gathered at once: make_auto_plan
+    streams it in chunks of at most max_slots slots, as the JAX package
+    does (tests/test_torch_segment_scan.py holds the chunked results)."""
     ei = _graph(np.random.default_rng(0), 100, 20, False)
     plan = make_auto_plan(ei, 100, max_slots=1 << 20, device="cpu")
+    assert isinstance(plan, SortedSegmentPlan)
     assert plan.num_subruns * plan.sub_len <= 1 << 20
-    with pytest.raises(ValueError, match="chunk-streamed"):
-        make_auto_plan(ei, 100, max_slots=64, device="cpu")
+    chunked = make_auto_plan(ei, 100, max_slots=64, device="cpu")
+    assert isinstance(chunked, ChunkedSegmentPlan)
+    assert chunked.num_chunks > 1
+    assert all((s1 - s0) * chunked.sub_len <= 64
+               for s0, s1, _, _ in chunked.bounds)
 
 
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():

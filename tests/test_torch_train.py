@@ -381,7 +381,8 @@ def test_optimizer_state_carries_across():
 
 
 @pytest.mark.parametrize("overrides", [
-    {"use_RA": True}, {"train_node_embedding": True}, {"mesh_shape": [2]},
+    {"pretrained_node_embedding": "emb.pt"}, {"train_node_embedding": True},
+    {"mesh_shape": [2]},
     {"dtype": "bfloat16"}])
 def test_trainer_refuses_what_is_not_ported(overrides):
     ds, _ = _datasets(0)
