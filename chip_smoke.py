@@ -94,11 +94,42 @@ Phases, each printing one JSON line:
              chunk merge of every reduce, K1 against its plain version,
              and each K1 instance timed over one reduce's chunks
 
+  plan_spmm  ELPH's differentiable SpMM at full width: PlanSpmm over the
+             gcn_norm'd synth-ws-200000 train graph at W=1024 float32,
+             forward and x-gradient against the plain merge on the card
+             and against autograd through the scatter spmm, one K1 add
+             launch each way; K1 on each direction's sub-run results timed
+             as in the kernels phase (one line each); the whole SpMM timed
+             by each route
+  train_elph ELPH training at full width through runners.run.run
+             (--model ELPH, synth-ws-200000, Config defaults: hidden 1024,
+             batch 1024, gcn, 2 hops, dropouts 0.5; 2 epochs of 131072
+             links, eval every epoch, --check_determinism, --save_model),
+             the K1 launch counts read around it (at least 5 add launches
+             a step: PlanSpmm each way per convolution, gather_rows'
+             backward), the rebuilt trainer's staged plan; per epoch loss
+             (finite, falling), seconds, trained links/s, Hits@100; peak
+             memory; gather_rows' backward at the run's shape against the
+             plain merge and indexing's backward, timed; the device idle
+             share and top kernels over 20 steps under torch.profiler
+             (exactly 5 K1 add launches a step, by the counter and in the
+             trace); a step by the scatter SpMM (two runs from one init
+             bit-identical) beside a step by the plan; the checkpoint
+             served by scorer_from_checkpoint, equal to the trainer's
+             predict on 65536 links within 1e-4
+  elph_reference  a small ELPH (synth-ws, hidden 32, dropout 0) trained 2
+             epochs from the same weights on the same orders on the card
+             and on the CPU, in float32 and float64 (K1's float64 add)
+
 then the per-kernel summary line (each K1, K2 and K3 entry also carries
 its ``bench_hub`` time, bound and yardstick: ``hub_ms``, ``hub_bound_ms``,
 ``hub_library_ms``; each K1 entry its launches in the train phase,
 ``train_launches``; and the three K1 instances of the citation2-scale
-chunk merges, their ``ms`` summed over one reduce's chunks), the
+chunk merges, their ``ms`` summed over one reduce's chunks; and the three
+K1 add instances of the ELPH step at W=1024, PlanSpmm forward and
+backward and gather_rows' backward, each with the add launches of the
+train_elph run, which the three share, and the launches a step counted in
+the profiled window), the
 nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises: the run exits
 non-zero and prints no last line.  Without a CUDA device it exits 2 at once.
@@ -261,19 +292,79 @@ def check_add(got, want, v, x, ptr, what: str) -> None:
                              f"max |err| {float(err.max())}")
 
 
+def k1_record(what: str, op: str, v, x, ptr) -> dict:
+    """K1 on one instance's inputs: held against its plain version on the
+    card (min/max bit-equal, add within ADD_TOLERANCE) and against itself
+    across two calls, then timed beside it, beside one scatter_reduce call
+    (a yardstick the port never calls) and beside its bound."""
+    import torch
+
+    from subgraph_sketching_tpu_torch.ops import segscan
+
+    n, width = x.shape
+    S = v.shape[0]
+    got = segscan.segment_combine(v, x, op, ptr)
+    again = segscan.segment_combine(v, x, op, ptr)
+    want = segscan.segment_combine_plain(v, x, op, ptr)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{what}: two calls differ")
+    max_err = float((got.double() - want.double()).abs().max())
+    if op == "add":
+        check_add(got, want, v, x, ptr, what)
+        tolerance = ADD_TOLERANCE
+    else:
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: kernel is not bit-equal to the "
+                                 f"plain version")
+        tolerance = "bit-equal"
+    del got, again, want
+    kernel_ms = cuda_ms(lambda: segscan.segment_combine(v, x, op, ptr))
+    kernel_graph_ms = graph_ms(lambda: segscan.segment_combine(v, x, op,
+                                                               ptr))
+    plain_ms = cuda_ms(lambda: segscan.segment_combine_plain(v, x, op, ptr))
+    # yardstick: one scatter_reduce computing the same function (x as the
+    # initial value folds the node's own row in for min/max)
+    red = {"min": "amin", "max": "amax", "add": "sum"}[op]
+    base = x if op != "add" else torch.zeros_like(x)
+    idx = segscan.segment_ids(ptr)[:, None].expand(-1, width)
+    lib_v, lib_base, widened = v, base, False
+    try:
+        base.scatter_reduce(0, idx, v, red, include_self=True)
+    except RuntimeError:   # type not supported there: int32 copy
+        lib_v, lib_base, widened = v.int(), base.int(), True
+    library_ms = cuda_ms(lambda: lib_base.scatter_reduce(
+        0, idx, lib_v, red, include_self=True))
+    b = v.element_size()
+    bytes_moved = (S * width * b + (n * width * b if op != "add" else 0)
+                   + n * width * b + (n + 1) * 8)
+    # one combine per element of v, and one per element of x (min/max)
+    combines = S * width + (n * width if op != "add" else 0)
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = combines / VECTOR_OPS_PER_S * 1e3
+    return {"op": op, "dtype": str(v.dtype).replace("torch.", ""),
+            "W": width, "N": n, "S": S,
+            "max_subruns_per_row": int(ptr.diff().max()),
+            "max_abs_err": max_err, "tolerance": tolerance,
+            "kernel_ms": kernel_ms, "graph_ms": kernel_graph_ms,
+            "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_widened_to_int32": widened,
+            "bytes": bytes_moved, "combines": combines,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
 def phase_kernels(shape: str, plans: dict, seed: int = 0) -> list:
     """Every K1 instance on ``plans``: checked against the plain version on
     the card, then timed beside it, one scatter_reduce call and its
     bound."""
     import torch
 
-    from subgraph_sketching_tpu_torch.ops import segscan
-
     g = torch.Generator(device="cuda").manual_seed(seed)
     records = []
     for name, op, dtype_name, width in INSTANCES:
         plan, w_slots = plans[op]
-        n, S = plan.num_segments, plan.num_subruns
+        n = plan.num_segments
         dtype = getattr(torch, dtype_name)
         if dtype == torch.float32:
             x = torch.randn((n, width), generator=g, device="cuda")
@@ -283,58 +374,10 @@ def phase_kernels(shape: str, plans: dict, seed: int = 0) -> list:
             x = torch.randint(lo, hi, (n, width), generator=g, device="cuda",
                               dtype=dtype)
         v = plan.reduce_subruns(x, op, w_slots).contiguous()
-        got = segscan.segment_combine(v, x, op, plan.sub_ptr)
-        again = segscan.segment_combine(v, x, op, plan.sub_ptr)
-        want = segscan.segment_combine_plain(v, x, op, plan.sub_ptr)
-        torch.cuda.synchronize()
-        if not torch.equal(got, again):
-            raise AssertionError(f"{name} ({shape}): two calls differ")
-        max_err = float((got.double() - want.double()).abs().max())
-        if op == "add":
-            check_add(got, want, v, x, plan.sub_ptr, f"{name} ({shape})")
-            tolerance = ADD_TOLERANCE
-        else:
-            if not torch.equal(got, want):
-                raise AssertionError(f"{name} ({shape}): kernel is not "
-                                     f"bit-equal to the plain version")
-            tolerance = "bit-equal"
-        kernel_ms = cuda_ms(lambda: segscan.segment_combine(
-            v, x, op, plan.sub_ptr))
-        kernel_graph_ms = graph_ms(lambda: segscan.segment_combine(
-            v, x, op, plan.sub_ptr))
-        plain_ms = cuda_ms(lambda: segscan.segment_combine_plain(
-            v, x, op, plan.sub_ptr))
-        # yardstick: one scatter_reduce computing the same function (x as
-        # the initial value folds the node's own row in for min/max)
-        red = {"min": "amin", "max": "amax", "add": "sum"}[op]
-        base = x if op != "add" else torch.zeros_like(x)
-        idx = segscan.segment_ids(plan.sub_ptr)[:, None].expand(-1, width)
-        lib_v, lib_base, widened = v, base, False
-        try:
-            base.scatter_reduce(0, idx, v, red, include_self=True)
-        except RuntimeError:   # type not supported there: int32 copy
-            lib_v, lib_base, widened = v.int(), base.int(), True
-        library_ms = cuda_ms(lambda: lib_base.scatter_reduce(
-            0, idx, lib_v, red, include_self=True))
-        b = v.element_size()
-        bytes_moved = (S * width * b + (n * width * b if op != "add" else 0)
-                       + n * width * b + (n + 1) * 8)
-        # one combine per element of v, and one per element of x (min/max)
-        combines = S * width + (n * width if op != "add" else 0)
-        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-        ops_ms = combines / VECTOR_OPS_PER_S * 1e3
-        records.append({
-            "phase": "kernels", "shape": shape, "name": name, "op": op,
-            "dtype": dtype_name, "W": width, "N": n, "S": S,
-            "max_subruns_per_row": int(plan.sub_ptr.diff().max()),
-            "max_abs_err": max_err, "tolerance": tolerance,
-            "kernel_ms": kernel_ms, "graph_ms": kernel_graph_ms,
-            "plain_ms": plain_ms,
-            "library_ms": library_ms, "library_widened_to_int32": widened,
-            "bytes": bytes_moved, "combines": combines,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
-        del x, v, got, want
+        records.append({"phase": "kernels", "shape": shape, "name": name,
+                        **k1_record(f"{name} ({shape})", op, v, x,
+                                    plan.sub_ptr)})
+        del x, v
     return records
 
 
@@ -1026,6 +1069,510 @@ def phase_train_reference(seed: int = 5) -> dict:
                          "pre-BN biases frozen"}
 
 
+# ----------------------------------------------------------------- ELPH --
+
+SPMM_WIDTH = 1024   # Config's hidden_channels: the GCN's SpMM width
+
+
+def _abs_spmm(edge_index, weight, x, n: int):
+    """sum over edges of |w| |x[src]| at the destinations: the scale of an
+    SpMM's float32 rounding, as ADD_TOLERANCE takes it."""
+    from subgraph_sketching_tpu_torch.ops.graph_ops import spmm
+    return spmm(edge_index, weight.abs(), x.abs(), n)
+
+
+def phase_plan_spmm(g, cfg, seed: int = 8) -> tuple:
+    """ELPH's differentiable SpMM at full width: ``PlanSpmm`` over the
+    gcn_norm'd synth-ws-200000 train graph at W = 1024 float32.  Forward
+    and x-gradient each against the plain merge of the same sub-run
+    results on the card and against autograd through the scatter
+    ``spmm`` (within ADD_TOLERANCE), with exactly one K1 add launch each
+    way; then K1 on each direction's sub-run results timed as the kernels
+    phase times it, and the whole SpMM timed by each route (forward, and
+    forward with backward).  Returns ({direction: K1 record}, record)."""
+    import numpy as np
+    import torch
+
+    from subgraph_sketching_tpu_torch.ops import segscan
+    from subgraph_sketching_tpu_torch.ops.graph_ops import gcn_norm, spmm
+    from subgraph_sketching_tpu_torch.ops.segment_scan import PlanSpmm
+
+    n = g.num_nodes
+    ei = torch.from_numpy(g.edge_index.astype(np.int64)).to("cuda")
+    ew = torch.from_numpy(np.asarray(g.weights, np.float32)).to("cuda")
+    nei, nw = gcn_norm(ei, ew, n)
+    t0 = time.perf_counter()
+    ps = PlanSpmm.try_build(nei.cpu().numpy(), nw.cpu().numpy(), n,
+                            max_slots=cfg.max_gather_slots, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if ps is None:
+        raise AssertionError("PlanSpmm.try_build refused the train graph")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((n, SPMM_WIDTH), generator=gen, device="cuda",
+                    requires_grad=True)
+    cot = torch.randn((n, SPMM_WIDTH), generator=gen, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_k1()
+    out = ps(x)
+    torch.cuda.synchronize()
+    fwd_launches = segscan.launches["segscan_add_f32"]
+    (grad,) = torch.autograd.grad(out, x, grad_outputs=cot)
+    torch.cuda.synchronize()
+    bwd_launches = segscan.launches["segscan_add_f32"] - fwd_launches
+    peak = torch.cuda.max_memory_allocated()
+    if (fwd_launches, bwd_launches) != (1, 1) \
+            or sum(segscan.launches.values()) != 2:
+        raise AssertionError(f"PlanSpmm: K1 launches {segscan.launches}, "
+                             f"expected one add each way")
+    x = x.detach()
+    # against autograd through the scatter route
+    xs = x.clone().requires_grad_()
+    ref = spmm(nei, nw, xs, n)
+    (ref_grad,) = torch.autograd.grad(ref, xs, grad_outputs=cot)
+    ref = ref.detach()
+    with torch.no_grad():
+        errs = {}
+        for what, got, want, scale in (
+                ("forward", out, ref, _abs_spmm(nei, nw, x, n)),
+                ("backward", grad, ref_grad,
+                 _abs_spmm(nei.flip(0), nw, cot, n))):
+            err = (got - want).abs()
+            errs[what] = float(err.max())
+            if bool((err > 1e-4 * scale + 1e-6).any()):
+                raise AssertionError(f"PlanSpmm {what} disagrees with the "
+                                     f"scatter spmm: max |err| {errs[what]}")
+        del ref, ref_grad, xs
+        # K1 of each direction against its plain version, then timed
+        k1 = {}
+        for what, plan, w, inp, got in (("forward", ps.fwd, ps._w_fwd, x, out),
+                                        ("backward", ps.bwd, ps._w_bwd, cot,
+                                         grad)):
+            v = plan.reduce_subruns(inp, "add", w).contiguous()
+            want = segscan.segment_combine_plain(v, inp, "add", plan.sub_ptr)
+            check_add(got, want, v, inp, plan.sub_ptr,
+                      f"PlanSpmm {what} against the plain merge")
+            del want
+            k1[what] = {
+                "phase": "plan_spmm", "direction": what,
+                "name": f"segscan_add_f32 (PlanSpmm {what}, "
+                        f"W={SPMM_WIDTH})",
+                **k1_record(f"PlanSpmm {what}", "add", v, inp, plan.sub_ptr)}
+            del v
+        del out, grad
+
+    def plan_step():
+        xr = x.requires_grad_()
+        torch.autograd.grad(ps(xr), xr, grad_outputs=cot)
+
+    def scatter_step():
+        xr = x.requires_grad_()
+        torch.autograd.grad(spmm(nei, nw, xr, n), xr, grad_outputs=cot)
+
+    with torch.no_grad():
+        plan_fwd_ms = cuda_ms(lambda: ps(x), iters=5, warmup=1)
+        scatter_fwd_ms = cuda_ms(lambda: spmm(nei, nw, x, n), iters=5,
+                                 warmup=1)
+    plan_step_ms = cuda_ms(plan_step, iters=5, warmup=1)
+    scatter_step_ms = cuda_ms(scatter_step, iters=5, warmup=1)
+    x.requires_grad_(False)
+    return k1, {
+        "phase": "plan_spmm", "dataset": cfg.dataset_name, "nodes": n,
+        "normed_edges": int(nei.shape[1]), "W": SPMM_WIDTH,
+        "subruns": {"forward": ps.fwd.num_subruns,
+                    "backward": ps.bwd.num_subruns},
+        "try_build_s": build_s, "k1_launches": {"forward": fwd_launches,
+                                                "backward": bwd_launches},
+        "max_abs_err_vs_scatter": errs,
+        "tolerance": ADD_TOLERANCE + " (sum |w| |x| for the routes)",
+        "peak_memory_bytes_forward_backward": peak,
+        "plan_forward_ms": plan_fwd_ms, "scatter_forward_ms": scatter_fwd_ms,
+        "plan_forward_backward_ms": plan_step_ms,
+        "scatter_forward_backward_ms": scatter_step_ms,
+        "k1": {k: {f: r[f] for f in ("kernel_ms", "graph_ms", "bound_ms",
+                                     "plain_ms", "library_ms")}
+               for k, r in k1.items()}}
+
+
+ELPH_TRAIN_SAMPLES = 131072    # 128 steps of the default batch 1024
+ELPH_PROFILE_STEPS = 20
+
+
+def phase_train_elph(splits, seed: int = 9) -> dict:
+    """ELPH training at full width through the runner's entry point:
+    ``runners.run.run`` with --model ELPH on synth-ws-200000 at Config
+    defaults (the reference's Cora ELPH command: hidden 1024, batch 1024,
+    feature_prop gcn, 2 hops, dropouts 0.5), 2 epochs of
+    ELPH_TRAIN_SAMPLES links, eval every epoch, --check_determinism and
+    --save_model, with the K1 launch counts read around it: at least
+    2 * convolutions + 1 add launches a step (each convolution's PlanSpmm
+    forward and backward, and gather_rows' backward), besides the
+    staging's min/max; the same trainer rebuilt must stage a plan.  Then,
+    apart from that run: gather_rows' backward at the run's shape (the
+    trained [N, hidden] features, one batch of links), one K1 add launch,
+    against the plain merge and indexing's backward, and timed; the device
+    idle share and top kernels over ELPH_PROFILE_STEPS steps under
+    torch.profiler, where K1's add runs exactly 2 * convolutions + 1 times
+    a step by the counter and by the trace; a step by the scatter SpMM (a
+    --use_plan false trainer, run twice from one init: bit-identical)
+    beside a step by the plan; and the saved checkpoint served by
+    ``scorer_from_checkpoint``, whose scores for 65536 random links must
+    equal the trainer's ``predict`` within 1e-4.  Returns (the gather_rows
+    K1 record, the phase record)."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from subgraph_sketching_tpu_torch.config import Config
+    from subgraph_sketching_tpu_torch.graph.preprocess import (
+        build_all_splits, build_link_dataset,
+    )
+    from subgraph_sketching_tpu_torch.graph.splits import SplitData
+    from subgraph_sketching_tpu_torch.ops import segscan
+    from subgraph_sketching_tpu_torch.ops.cuda_build import BUILD_DIR
+    from subgraph_sketching_tpu_torch.ops.segment_scan import (
+        gather_rows, segment_order,
+    )
+    from subgraph_sketching_tpu_torch.runners.run import build_trainer, run
+    from subgraph_sketching_tpu_torch.serving import scorer_from_checkpoint
+    from subgraph_sketching_tpu_torch.train import checkpoint
+    from subgraph_sketching_tpu_torch.train.loops import (
+        ElphTrainer, make_optimizer,
+    )
+
+    ckpt = os.path.join(BUILD_DIR, "smoke_elph_checkpoint")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    cfg = Config(dataset_name="synth-ws-200000", model="ELPH", epochs=2,
+                 eval_steps=1, train_samples=ELPH_TRAIN_SAMPLES,
+                 check_determinism=True, save_model=True,
+                 checkpoint_dir=ckpt)
+    _reset_k1()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = run(cfg, device="cuda")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(segscan.launches)
+    peak_memory = torch.cuda.max_memory_allocated()
+
+    steps = math.ceil(ELPH_TRAIN_SAMPLES / cfg.batch_size)
+    trained_steps = steps * (cfg.epochs + 2)   # + the determinism check's 2
+    graphs = message_graphs(splits)
+    convs = cfg.max_hash_hops
+    adds_per_step = 2 * convs + 1   # PlanSpmm each way, gather_rows' backward
+    if launches["segscan_add_f32"] < adds_per_step * trained_steps \
+            or launches["segscan_min_i32"] < convs * graphs \
+            or launches["segscan_max_i8"] < convs * graphs:
+        raise AssertionError(f"the ELPH run's K1 launches fall short: "
+                             f"{launches}, {trained_steps} steps, {graphs} "
+                             f"graphs")
+    with open(os.path.join(ckpt, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    losses = [r["rep0_loss"] for r in rows]
+    if len(rows) != cfg.epochs or not all(map(math.isfinite, losses)) \
+            or not losses[1] < losses[0]:
+        raise AssertionError(f"ELPH losses not finite and falling: {losses}")
+    epochs = [{"epoch": i, "loss": r["rep0_loss"],
+               "train_s": r["rep0_train_time"], "eval_s": r["rep0_eval_time"],
+               "trained_links_per_s": ELPH_TRAIN_SAMPLES
+               / r["rep0_train_time"],
+               "steps_per_s": steps / r["rep0_train_time"],
+               "hits@100": {"train": r["rep0_TrainHits@100"] / 100,
+                            "valid": r["rep0_tmp_valHits@100"] / 100,
+                            "test": r["rep0_tmp_testHits@100"] / 100}}
+              for i, r in enumerate(rows)]
+
+    # the same staged data again, the trained model and optimizer restored
+    datasets = build_all_splits(splits, cfg, device="cuda")
+    width = datasets["train"].x.shape[-1]
+    trainer = build_trainer(cfg, datasets, width, "cuda")
+    if "plan" not in trainer._data["train"]:
+        raise AssertionError("the run's trainer staged no PlanSpmm")
+    model = trainer.init_model(0)
+    opt = make_optimizer(cfg, model.parameters())
+    checkpoint.restore_into(ckpt, model, opt)
+    n_links = trainer.num_links("train")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    order = torch.randperm(n_links, generator=g, device="cuda")
+    bs = cfg.batch_size
+
+    # gather_rows' backward at the run's shape: one batch's [bs, 2] rows of
+    # the trained [N, hidden] features; one K1 add launch, the same on two
+    # runs, against the plain merge of the same rows and indexing's
+    # backward, then K1 timed as the kernels phase times it
+    model.eval()
+    with torch.no_grad():
+        table = trainer.node_features(model, trainer._data["train"])
+    table.requires_grad_()
+    idx = trainer._data["train"]["links"][order[:bs]]
+    cot = torch.randn((bs, 2, table.shape[1]), generator=g, device="cuda")
+
+    def gather_backward():
+        return torch.autograd.grad(gather_rows(table, idx), table,
+                                   grad_outputs=cot)[0]
+
+    _reset_k1()
+    got = gather_backward()
+    torch.cuda.synchronize()
+    if segscan.launches["segscan_add_f32"] != 1 \
+            or sum(segscan.launches.values()) != 1:
+        raise AssertionError(f"gather_rows backward: K1 launches "
+                             f"{segscan.launches}, expected one add")
+    if not torch.equal(got, gather_backward()):
+        raise AssertionError("gather_rows backward: two runs differ")
+    (want,) = torch.autograd.grad(table[idx], table, grad_outputs=cot)
+    with torch.no_grad():
+        perm, ptr = segment_order(idx.reshape(-1), table.shape[0])
+        v = cot.reshape(-1, table.shape[1]).index_select(0, perm)
+        x = table.detach()
+        check_add(got, segscan.segment_combine_plain(v, x, "add", ptr), v,
+                  x, ptr, "gather_rows backward against the plain merge")
+        check_add(got, want, v, x, ptr,
+                  "gather_rows backward against indexing's backward")
+        gather_err = float((got - want).abs().max())
+        del got, want
+        gather_k1 = {
+            "phase": "train_elph",
+            "name": f"segscan_add_f32 (gather_rows backward, "
+                    f"W={table.shape[1]})",
+            "links": [bs, 2],
+            **k1_record("gather_rows backward", "add", v, x, ptr)}
+        del v, x
+    gather_k1.update(
+        backward_ms=cuda_ms(gather_backward, iters=5, warmup=1),
+        index_backward_ms=cuda_ms(lambda: torch.autograd.grad(
+            table[idx], table, grad_outputs=cot)[0], iters=5, warmup=1),
+        max_abs_err_vs_index_backward=gather_err)
+    del table, cot
+    model.train()
+
+    # device idle share over ELPH_PROFILE_STEPS steps (after 3 warm
+    # steps), with K1's add launches counted by the wrapper and in the trace
+    window = order[:ELPH_PROFILE_STEPS * bs]
+    trainer.run_epoch(model, opt, seed, order=order[:3 * bs])
+    torch.cuda.synchronize()
+    _reset_k1()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        trainer.run_epoch(model, opt, seed, order=window)
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t1
+    busy_ms, per = _device_time(prof)
+    window_adds = segscan.launches["segscan_add_f32"]
+    traced_adds = sum(c for k, (_, c) in per.items()
+                      if "segscan_kernel" in k)
+    if window_adds != adds_per_step * ELPH_PROFILE_STEPS \
+            or traced_adds != window_adds:
+        raise AssertionError(
+            f"{ELPH_PROFILE_STEPS} ELPH steps: {window_adds} K1 add launches "
+            f"counted, {traced_adds} traced, expected {adds_per_step} a step")
+    idle = {"steps": ELPH_PROFILE_STEPS, "window_ms": window_s * 1e3,
+            "k1_add_launches": window_adds,
+            "k1_add_kernels_traced": traced_adds,
+            "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / (window_s * 1e3),
+            "top_kernels": sorted(([k, v[0], v[1]] for k, v in per.items()),
+                                  key=lambda r: -r[1])[:10]}
+
+    # a step by the plan and by the scatter SpMM (--use_plan false), each
+    # timed over 5 steps after 2 warm ones on the same links; the scatter
+    # trainer skips the sketches (zero structure features: the same work a
+    # step) and runs twice from one init, bit for bit
+    def step_ms(tr, m) -> float:
+        o = torch.optim.Adam(m.parameters(), lr=cfg.lr)
+        tr.run_epoch(m, o, seed, order=order[:2 * bs])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tr.run_epoch(m, o, seed, order=order[2 * bs:7 * bs])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / 5
+
+    plan_step_ms = step_ms(trainer, trainer.init_model(1))
+    scatter_cfg = dataclasses.replace(cfg, use_plan=False,
+                                      use_struct_feature=False)
+    scatter = ElphTrainer(scatter_cfg, datasets["train"], width,
+                          device="cuda")
+    if "plan" in scatter._data["train"]:
+        raise AssertionError("the --use_plan false trainer staged a plan")
+    runs = [scatter.init_model(1) for _ in range(2)]
+    scatter_step_ms = step_ms(scatter, runs[0])
+    step_ms(scatter, runs[1])
+    if not all(torch.equal(a, b) for a, b in zip(
+            runs[0].state_dict().values(), runs[1].state_dict().values())):
+        raise AssertionError("the scatter SpMM route trained two runs from "
+                             "one init apart")
+    del scatter, runs
+
+    # serve what was trained: the scorer rebuilt from the run's directory
+    # against the trainer's predict on 65536 random links (staged as a
+    # split of the train message graph)
+    model = trainer.init_model(0)
+    checkpoint.restore_into(ckpt, model, step=cfg.epochs)
+    links = np.random.default_rng(seed).integers(
+        0, datasets["train"].num_nodes, (65536, 2))
+    query = SplitData(splits["train"].graph, links,
+                      np.zeros((0, 2), np.int64))
+    trainer.stage("query", build_link_dataset(
+        query, cfg, "query", reuse_from=datasets["train"], device="cuda"))
+    want, _ = trainer.predict(model, "query")
+    del datasets, trainer, model, opt
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    scorer = scorer_from_checkpoint(ckpt, device="cuda")
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t1
+    got = scorer.score(links)
+    shutil.rmtree(ckpt)
+    if scorer.restored_step != cfg.epochs:
+        raise AssertionError(f"served step {scorer.restored_step}, trained "
+                             f"{cfg.epochs}")
+    serve_err = float(np.abs(got - want).max())
+    if not np.isfinite(got).all() or serve_err > 1e-4:
+        raise AssertionError(f"served ELPH scores differ from the trainer's "
+                             f"predict: max |err| {serve_err}")
+    del scorer
+    return gather_k1, {"phase": "train_elph", "dataset": cfg.dataset_name,
+            "model": cfg.model, "hidden_channels": cfg.hidden_channels,
+            "batch_size": cfg.batch_size, "feature_prop": cfg.feature_prop,
+            "max_hash_hops": cfg.max_hash_hops, "lr": cfg.lr,
+            "dropouts": [cfg.label_dropout, cfg.feature_dropout],
+            "train_links": n_links, "train_samples": ELPH_TRAIN_SAMPLES,
+            "steps_per_epoch": steps, "trained_steps": trained_steps,
+            "run_s": run_s, "preprocess_s": rows[0]["rep0_preprocess_time"],
+            "get_data_s": rows[0]["rep0_get_data_time"],
+            "epochs": epochs, "results": results,
+            "determinism": "epoch 0 bit-identical on two runs",
+            "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
+            "peak_memory_bytes": peak_memory, "k1_launches": launches,
+            "k1_add_launches_per_step": launches["segscan_add_f32"]
+            / trained_steps,
+            "k1_add_launches_per_step_expected": adds_per_step,
+            "message_graphs": graphs,
+            "profile": idle, "plan_step_ms": plan_step_ms,
+            "scatter_step_ms": scatter_step_ms,
+            "scatter_route_deterministic": "7 steps twice from one init, "
+                                           "parameters bit-identical", "serve_rebuild_s": rebuild_s,
+            "served_links": len(links), "served_max_abs_err": serve_err}
+
+
+# biases of the Linear layers that feed a BatchNorm in ELPH's head
+ELPH_PRE_BN_BIAS = r"predictor\.(label_lin_layer|lin_out)\.bias"
+
+
+def phase_elph_reference(seed: int = 10) -> dict:
+    """A small ELPH (synth-ws, hidden 32, dropout 0, the pre-BN biases
+    frozen) trained 2 epochs from the same weights, on the same explicit
+    orders, on the card (PlanSpmm and gather_rows on K1) and on the CPU
+    (their plain versions), in float32 and in float64 (K1's float64 add).
+    Each trainer builds its own sketches and subgraph features; the
+    integer sketches must be bit-equal and the features within rtol 1e-5
+    / atol 1e-4, and the runs then train on the CPU's features.  float64:
+    step losses and parameters within 1e-9; float32: as train_reference
+    holds it."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from subgraph_sketching_tpu_torch.config import Config
+    from subgraph_sketching_tpu_torch.graph.datasets import get_data
+    from subgraph_sketching_tpu_torch.graph.preprocess import build_all_splits
+    from subgraph_sketching_tpu_torch.ops import segscan
+    from subgraph_sketching_tpu_torch.train.loops import (
+        ElphTrainer, epoch_seed, make_optimizer,
+    )
+
+    cfg = Config(dataset_name="synth-ws", model="ELPH", hidden_channels=32,
+                 label_dropout=0.0, feature_dropout=0.0)
+    splits, directed, _ = get_data(cfg)
+    ds = build_all_splits(splits, cfg, directed=directed, device="cpu")
+    width = ds["train"].x.shape[-1]
+    n = ds["train"].num_links
+    g = torch.Generator().manual_seed(seed)
+    orders = [torch.randperm(n, generator=g) for _ in range(2)]
+    trainers = {dev: ElphTrainer(cfg, ds["train"], width, device=dev)
+                for dev in ("cpu", "cuda")}
+    sk_cpu, sk_card = (trainers[d]._sk_graph[2] for d in ("cpu", "cuda"))
+    for a, b in zip(sk_card[:2], sk_cpu[:2]):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError("ELPH sketches on the card differ from the "
+                                 "CPU's")
+    sf_cpu = trainers["cpu"]._data["train"]["sf"]
+    sf_card = trainers["cuda"]._data["train"]["sf"]
+    torch.testing.assert_close(sf_card.cpu(), sf_cpu, rtol=1e-5, atol=1e-4)
+    trainers["cuda"]._data["train"]["sf"] = sf_cpu.to("cuda")
+    runs = {}
+    _reset_k1()
+    for dev, tr in trainers.items():
+        base = dict(tr._data["train"])
+        for dtype in (torch.float32, torch.float64):
+            tr._data["train"] = {k: (v.to(dtype) if k in ("x", "sf",
+                                                           "labels") else v)
+                                 for k, v in base.items()}
+            model = tr.init_model(seed).to(dtype)
+            for name, p in model.named_parameters():
+                p.requires_grad_(not re.fullmatch(ELPH_PRE_BN_BIAS, name))
+            opt = make_optimizer(cfg, model.parameters())
+            losses = torch.cat([tr.run_epoch(model, opt, epoch_seed(0, e),
+                                             order=orders[e])
+                                for e in range(2)])
+            runs[dev, dtype] = (
+                losses.double().cpu().numpy(),
+                {k: v.double().cpu() for k, v in model.state_dict().items()
+                 if v.is_floating_point()})
+        tr._data["train"] = base
+    launches = dict(segscan.launches)
+    steps = sum(-(-len(o) // cfg.batch_size) for o in orders)
+    if launches["segscan_add_f32"] < 4 * steps \
+            or launches["segscan_add_f64"] < 4 * steps:
+        raise AssertionError(f"elph_reference: the card's runs did not go "
+                             f"through K1: {launches}")
+    f32, f64 = torch.float32, torch.float64
+    np.testing.assert_allclose(runs["cuda", f64][0], runs["cpu", f64][0],
+                               rtol=1e-9)
+    for k, v in runs["cpu", f64][1].items():
+        torch.testing.assert_close(runs["cuda", f64][1][k], v, rtol=1e-9,
+                                   atol=1e-12)
+    want, got = runs["cpu", f32][0], runs["cuda", f32][0]
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    max_rel, beyond = 0.0, {}
+    for k, exact in runs["cpu", f64][1].items():
+        cpu, card = runs["cpu", f32][1][k], runs["cuda", f32][1][k]
+        max_rel = max(max_rel, float(((card - cpu).abs()
+                                      / (cpu.abs() + 1e-5)).max()))
+        if bool(((card - cpu).abs() <= 1e-5 + 1e-4 * cpu.abs()).all()):
+            continue
+        card_err = float((card - exact).abs().max())
+        cpu_err = float((cpu - exact).abs().max())
+        beyond[k] = {"card_vs_cpu": float((card - cpu).abs().max()),
+                     "card_vs_float64": card_err,
+                     "cpu_vs_float64": cpu_err}
+        if card_err > 4 * cpu_err:
+            raise AssertionError(f"elph_reference: {k} on the card is "
+                                 f"{card_err} from the float64 result, the "
+                                 f"CPU float32 run {cpu_err}")
+    return {"phase": "elph_reference", "dataset": cfg.dataset_name,
+            "hidden_channels": cfg.hidden_channels, "steps": len(want),
+            "k1_launches": launches,
+            "max_sf_abs_diff": float((sf_card.cpu() - sf_cpu).abs().max()),
+            "max_loss_rel_diff": float(np.abs(got / want - 1).max()),
+            "max_param_rel_diff": max_rel,
+            "beyond_rtol_1e-4_atol_1e-5": beyond,
+            "float64_max_param_diff": max(
+                float((runs["cuda", f64][1][k] - v).abs().max())
+                for k, v in runs["cpu", f64][1].items()),
+            "tolerance": "sketches bit-equal, sf rtol 1e-5 / atol 1e-4; "
+                         "float64: 1e-9; float32: losses rtol 1e-4, "
+                         "parameters rtol 1e-4 / atol 1e-5 or within 4x "
+                         "the CPU float32 run's distance from float64; "
+                         "pre-BN biases frozen"}
+
+
 # ------------------------------------------------------------- datasets --
 
 # ogbl-collab at its published shape (ogb/linkproppred/master.csv and the
@@ -1552,6 +2099,14 @@ def main() -> int:
     train = phase_train(splits)
     emit(train)
     emit(phase_train_reference())
+    spmm_k1, plan_spmm = phase_plan_spmm(splits["train"].graph, cfg)
+    emit(plan_spmm)
+    for r in spmm_k1.values():
+        emit(r)
+    gather_k1, elph = phase_train_elph(splits)
+    emit(elph)
+    emit(gather_k1)
+    emit(phase_elph_reference())
     emit(phase_datasets_collab())
     emit(phase_datasets_chunked(plans))
     del plans, hub
@@ -1579,6 +2134,10 @@ def main() -> int:
                        hub_library_ms=h["library_ms"])
         return rec
 
+    # the ELPH run's K1 add launches: each convolution's PlanSpmm forward
+    # and backward and gather_rows' backward a step, and the eval forwards,
+    # on one counter
+    elph_adds = elph["k1_launches"]["segscan_add_f32"]
     # K1: the instances the main path launched (int32 max is checked and
     # timed above, but serving does not run it); K2 and K3 on the served
     # graph, launched by the hop_routes drive; K4 by its study
@@ -1597,7 +2156,18 @@ def main() -> int:
          "bound_by": r["bound_by"], "library_ms": r["library_ms"],
          "chunks": citation2["sign_chunks" if name == "segscan_add_f32"
                              else "chunks"]}
-        for name, r in chunked.items()]})
+        for name, r in chunked.items()] + [
+        {"name": r["name"], "route": "cuda", "source": f"{CSRC}/segscan.cu",
+         "replaces": REPLACES["segscan"], "launches": elph_adds,
+         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+         "graph_ms": r["graph_ms"], "train_launches": elph_adds,
+         "launches_of": "segscan_add_f32 in the train_elph run, "
+                        "all three ELPH add uses together",
+         "launches_per_step_counted_in_trace":
+             elph["profile"]["k1_add_launches"] / ELPH_PROFILE_STEPS}
+        for r in [*spmm_k1.values(), gather_k1]]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -49,9 +49,42 @@
 
 #include "merge_path.cuh"
 
+namespace merge_path {
+
+// float64 add, for the float64 reference runs of training: a 16-byte unit
+// holds two float64 lanes (low word first), so it is combined as a pair
+// and never word by word.
+struct AddF64 {
+  static constexpr uint32_t kIdent = 0u;   // +0.0 in both words
+};
+
+template <>
+__device__ __forceinline__ uint4 combine<AddF64>(uint4 a, uint4 b) {
+  const double s0 = __hiloint2double(static_cast<int>(a.y),
+                                     static_cast<int>(a.x)) +
+                    __hiloint2double(static_cast<int>(b.y),
+                                     static_cast<int>(b.x));
+  const double s1 = __hiloint2double(static_cast<int>(a.w),
+                                     static_cast<int>(a.z)) +
+                    __hiloint2double(static_cast<int>(b.w),
+                                     static_cast<int>(b.z));
+  return make_uint4(static_cast<uint32_t>(__double2loint(s0)),
+                    static_cast<uint32_t>(__double2hiint(s0)),
+                    static_cast<uint32_t>(__double2loint(s1)),
+                    static_cast<uint32_t>(__double2hiint(s1)));
+}
+
+}  // namespace merge_path
+
 namespace {
 
 using namespace merge_path;
+
+// Ops whose lanes span two 32-bit words combine whole 16-byte units only.
+template <class Op>
+constexpr bool kUnitsOnly = false;
+template <>
+constexpr bool kUnitsOnly<AddF64> = true;
 
 constexpr int kShareSteps = 64;   // merge-path steps (rows + items) a team
 
@@ -109,6 +142,8 @@ int launch(const void* v, const void* x, const void* ptr, void* out,
                                         num_rows, num_items, units, shares, st)
         : run<Op, kFoldSelf, uint4, 32>(v, x, ptr, out, carry, carry_row,
                                         num_rows, num_items, units, shares, st);
+  } else if constexpr (kUnitsOnly<Op>) {
+    return static_cast<int>(cudaErrorInvalidValue);
   } else {
     err = units <= 16
         ? run<Op, kFoldSelf, uint32_t, 16>(v, x, ptr, out, carry, carry_row,
@@ -163,6 +198,17 @@ int segscan_add_f32(const void* v, const void* x, const void* ptr, void* out,
                     void* stream) {
   (void)x;
   return launch<AddF32, false>(v, nullptr, ptr, out, carry, carry_row,
+                               num_rows, num_items, words, shares, stream);
+}
+
+// float64 add: words = 2 W, and rows must be whole 16-byte units (W even,
+// 16-byte aligned), else cudaErrorInvalidValue.
+int segscan_add_f64(const void* v, const void* x, const void* ptr, void* out,
+                    void* carry, void* carry_row, int64_t num_rows,
+                    int64_t num_items, int64_t words, int64_t shares,
+                    void* stream) {
+  (void)x;
+  return launch<AddF64, false>(v, nullptr, ptr, out, carry, carry_row,
                                num_rows, num_items, words, shares, stream);
 }
 

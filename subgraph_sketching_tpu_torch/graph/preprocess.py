@@ -1,4 +1,4 @@
-"""Per-split preprocessing for BUDDY: the HashDataset equivalent.
+"""Per-split preprocessing for BUDDY and ELPH: the HashDataset equivalent.
 
 Produces what BUDDY training and serving need — links+labels, SIGN-propagated
 node features, degrees, optional RA scores, the sketch stacks and per-link
@@ -12,7 +12,11 @@ The caches are the JAX package's files: a cache written by either package
 loads in the other.  MinHash is stored as uint32, as the JAX package holds
 it; the port's biased int32 lanes are converted at that boundary only.
 
-Not ported yet (queued): the node-sharded mesh build and the ELPH dataset.
+An ELPH split carries the raw features, the graph, its weights and
+degrees (and RA when asked): ELPH propagates its features in the model
+and its trainer builds the sketches and subgraph features at staging.
+
+Not ported yet (queued): the node-sharded mesh build.
 """
 
 from __future__ import annotations
@@ -170,11 +174,14 @@ def build_link_dataset(split_data: SplitData, cfg: Config, split: str,
     ``load_hashes``, the subgraph features with
     ``cache_subgraph_features`` (a split whose subgraph features come from
     the cache builds no sketches; unlike the JAX package, the port also
-    writes them for a split that reuses the train split's sketches)."""
+    writes them for a split that reuses the train split's sketches).
+
+    ``model`` (default ``cfg.model``) ELPH returns the split before any
+    SIGN, sketch or subgraph-feature work, as the JAX package does."""
     model = model or cfg.model
-    if model != "BUDDY":
+    if model not in ("BUDDY", "ELPH"):
         raise NotImplementedError(f"preprocessing for {model} is not ported "
-                                  f"yet (BUDDY only)")
+                                  f"yet (BUDDY and ELPH only)")
     if cfg.mesh_shape and "graph" in (cfg.mesh_axes or []):
         raise NotImplementedError("the node-sharded (graph mesh) build is "
                                   "not ported yet")
@@ -200,6 +207,11 @@ def build_link_dataset(split_data: SplitData, cfg: Config, split: str,
     RA = None
     if cfg.use_RA:
         RA = resource_allocation(g.csr(), links, batch_size=2000000)
+
+    if model == "ELPH":
+        # ELPH propagates the features in the model (JAX preprocess.py:179)
+        return LinkDataset(links, labels, g.edge_index, g.weights,
+                           g.num_nodes, g.x, degrees, RA=RA)
 
     feat_cache = _cache_name(cfg, split, f"k{cfg.sign_k}_features")
     if same_graph:

@@ -1,5 +1,5 @@
-"""Carry trained flax BUDDY weights, and their optax Adam state, into the
-port.
+"""Carry trained flax BUDDY and ELPH weights, and their optax Adam state,
+into the port.
 
 The JAX package checkpoints with orbax, which needs jax to read; this
 module takes the restored trees as numpy arrays instead, so weights cross
@@ -11,10 +11,13 @@ over without the port importing jax:
     model.load_state_dict(sd)
     optimizer.load_state_dict(adam_state_from_optax(
         jax.tree.map(np.asarray, state.opt_state), model, optimizer))
+
+(``elph_state_dict_from_flax`` for an ELPH trainer's state.)
 """
 
 from __future__ import annotations
 
+from collections.abc import Mapping
 from typing import Dict
 
 import numpy as np
@@ -31,15 +34,22 @@ def _unwrap(params: dict) -> dict:
     return params["buddy"] if "buddy" in params else params
 
 
+# flax's automatic submodule names -> the port's: a GCNConv's Dense
+_RENAME = {"Dense_0": "lin"}
+
+
 def _parameters_from_flax(params: dict, prefix: str = ""
                           ) -> Dict[str, torch.Tensor]:
     """torch parameter name -> tensor for a flax ``params``-shaped tree:
     each Dense kernel [in, out] becomes a Linear weight [out, in]; each
-    BatchNorm (scale, bias) becomes (weight, bias)."""
+    BatchNorm (scale, bias) becomes (weight, bias); a module's own
+    parameter (a GCNConv's ``bias``) keeps its name."""
     out: Dict[str, torch.Tensor] = {}
     for name, sub in params.items():
-        key = prefix + name
-        if "kernel" in sub:
+        key = prefix + _RENAME.get(name, name)
+        if not isinstance(sub, Mapping):
+            out[key] = _tensor(sub)
+        elif "kernel" in sub:
             out[key + ".weight"] = _tensor(sub["kernel"]).T.contiguous()
             if "bias" in sub:
                 out[key + ".bias"] = _tensor(sub["bias"])
@@ -81,6 +91,24 @@ def buddy_state_dict_from_flax(params: dict, batch_stats: dict
             **_batch_stats_from_flax(batch_stats)}
 
 
+def elph_state_dict_from_flax(params: dict, batch_stats: dict
+                              ) -> Dict[str, torch.Tensor]:
+    """An ``ELPHPredictor`` state_dict from the flax ``params`` /
+    ``batch_stats`` trees of the JAX ``ElphTrainer`` (``{"gnn",
+    "predictor"}``): ``gnn/conv_k/Dense_0/kernel`` (transposed) becomes
+    ``gnn.conv_k.lin.weight``, ``gnn/conv_k/bias`` ``gnn.conv_k.bias``,
+    ``gnn/feature_encoder`` and every ``predictor/*`` Dense and BatchNorm
+    map by name.  An ``embedding`` entry (node embeddings, not ported) is
+    refused."""
+    if params.get("embedding"):
+        raise NotImplementedError("ELPH's node embeddings are not ported "
+                                  "yet")
+    trees = ("gnn", "predictor")
+    return {**_parameters_from_flax({k: params.get(k, {}) for k in trees}),
+            **_batch_stats_from_flax({k: batch_stats.get(k, {})
+                                      for k in trees})}
+
+
 def _find_adam_state(opt_state):
     """optax's ``ScaleByAdamState`` (count, mu, nu) inside a chain's nested
     tuples: ``adam`` alone, or ``add_decayed_weights`` then ``adam``."""
@@ -97,7 +125,8 @@ def _find_adam_state(opt_state):
 def adam_state_from_optax(opt_state, model: torch.nn.Module,
                           optimizer: torch.optim.Adam) -> dict:
     """A ``torch.optim.Adam`` state dict holding the moments of an optax
-    Adam state (numpy trees), for ``optimizer`` over ``model.parameters()``.
+    Adam state (numpy trees), for ``optimizer`` over ``model.parameters()``
+    (a ``BUDDY`` or an ``ELPHPredictor``).
 
     optax's ``add_decayed_weights`` then ``adam`` is torch's Adam with
     ``weight_decay`` (decay added to the gradient, eps outside the sqrt),

@@ -1,4 +1,5 @@
-"""GNN building blocks of the port: batch norm, dropout and SIGN.
+"""GNN building blocks of the port: batch norm, dropout, SIGN and the GCN
+convolution.
 
 BatchNorm: flax momentum 0.9 (the JAX package's ``BN_MOMENTUM``) is torch
 momentum 0.1; eps 1e-5 in both.
@@ -11,6 +12,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from subgraph_sketching_tpu_torch.ops.graph_ops import gcn_norm, spmm
 
 BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
@@ -93,3 +96,33 @@ class SIGN(nn.Module):
             h = torch.stack([bn(h[:, 0, :]), bn(h[:, 1, :])], dim=1)
             hs.append(self.dropout(torch.relu(h), generator))
         return self.lin_out(torch.cat(hs, dim=-1))
+
+
+class GCNConv(nn.Module):
+    """out = D^-1/2 (A+I) D^-1/2 X W + b, PyG ``GCNConv``'s default
+    semantics (the JAX package's ``GCNConv``; reference
+    src/models/elph.py:136-146).
+
+    ``lin`` (no bias) runs first, then the propagation: the staged
+    ``PlanSpmm`` when one is given (its gcn_norm weights are in its slot
+    tables), else ``gcn_norm`` (or the ``norm`` passed in) and the scatter
+    ``spmm``; then the separate ``bias``.  In flax ``lin`` is
+    ``Dense_0``, initialised glorot-uniform, and the bias zeros.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.lin = nn.Linear(in_channels, out_channels, bias=False)
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+
+    def forward(self, x: torch.Tensor, edge_index: torch.Tensor,
+                num_nodes: int, edge_weight: Optional[torch.Tensor] = None,
+                norm: Optional[tuple] = None, plan=None) -> torch.Tensor:
+        x = self.lin(x)
+        if plan is not None:
+            out = plan(x)
+        else:
+            ei, w = norm if norm is not None else gcn_norm(
+                edge_index, edge_weight, num_nodes)
+            out = spmm(ei, w, x, num_nodes)
+        return out + self.bias

@@ -1,8 +1,13 @@
-"""Normalised-adjacency ops: gcn_norm, self-loops, degrees.
+"""Normalised-adjacency ops: gcn_norm, self-loops, degrees, the scatter
+SpMM.
 
 Torch counterparts of PyG ``gcn_norm`` as the reference uses it
-(src/datasets/elph.py:99-107).  Edge lists are [2, E] int tensors; the
-SpMM itself runs through the plan's add path (ops/segment_scan.py).
+(src/datasets/elph.py:99-107).  Edge lists are [2, E] int tensors.  The
+SpMM runs through the plan's add path (``ops/segment_scan.py``
+``PlanSpmm``) where a plan is staged; ``spmm`` is the scatter route,
+taken under ``--use_plan false`` or when the plan would exceed
+``max_gather_slots``.  Both add in a fixed order, so a step's SpMM and
+its gradient are the same from run to run on the card.
 """
 
 from __future__ import annotations
@@ -10,6 +15,10 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from subgraph_sketching_tpu_torch.ops.segment_scan import (
+    ordered_segment_add, segment_order,
+)
 
 
 def degrees_from_edges(edge_index: torch.Tensor,
@@ -63,9 +72,50 @@ def gcn_norm(edge_index: torch.Tensor, edge_weight: Optional[torch.Tensor],
         edge_index, edge_weight = add_self_loops(edge_index, edge_weight,
                                                  num_nodes)
     deg = degrees_from_edges(edge_index, edge_weight, num_nodes)
-    deg_inv_sqrt = torch.where(deg > 0, torch.rsqrt(
+    # 1 / sqrt (both correctly rounded) rather than rsqrt, so that the card
+    # and the CPU give the same bits for the same degrees
+    deg_inv_sqrt = torch.where(deg > 0, 1.0 / torch.sqrt(
         torch.where(deg > 0, deg, torch.ones_like(deg))),
         torch.zeros_like(deg))
     row, col = edge_index[0].long(), edge_index[1].long()
     norm_weight = deg_inv_sqrt[row] * edge_weight * deg_inv_sqrt[col]
     return edge_index, norm_weight
+
+
+def spmm(edge_index: torch.Tensor, edge_weight: torch.Tensor,
+         x: torch.Tensor, num_nodes: int) -> torch.Tensor:
+    """out[v] = sum over edges (u, v) of w_uv * x[u], by the scatter route:
+    a row gather, the weight product and a sum at the destinations (the
+    JAX package's ``spmm``; the reference's ``torch_sparse.spmm``,
+    src/datasets/elph.py:103-107).  Differentiable in ``x``; the weights
+    are data and get no gradient.  Each way the edges are grouped by a
+    stable sort of their targets and summed by K1's add, so neither the
+    result nor the gradient depends on the order atomics land in."""
+    return _ScatterSpmm.apply(x, edge_index[0].long(), edge_index[1].long(),
+                              edge_weight.to(x.dtype), num_nodes)
+
+
+def _pull(x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+          w: torch.Tensor, n: int) -> torch.Tensor:
+    """out[v] = sum over e with dst[e] = v of w[e] x[src[e]], in edge
+    order."""
+    perm, ptr = segment_order(dst, n)
+    v = x.index_select(0, src[perm]) * w[perm, None]
+    return ordered_segment_add(v, ptr, n)
+
+
+class _ScatterSpmm(torch.autograd.Function):
+    """``spmm``: forward pulls along the edges, backward along the reversed
+    edges (dL/dx = A^T g)."""
+
+    @staticmethod
+    def forward(ctx, x, src, dst, w, n):
+        ctx.save_for_backward(src, dst, w)
+        ctx.n = n
+        return _pull(x, src, dst, w, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        src, dst, w = ctx.saved_tensors
+        grad = _pull(g.contiguous(), dst, src, w, ctx.n)
+        return grad, None, None, None, None

@@ -21,6 +21,12 @@ if it does not build; a plan on the CPU takes numpy.
 A graph whose slot table exceeds ``max_slots`` rows streams it in chunks
 (:class:`ChunkedSegmentPlan`): per chunk one gather and slot reduce, then
 K1 merges the chunk's sub-runs into its contiguous window of destinations.
+
+:class:`PlanSpmm` is the differentiable weighted SpMM of ELPH's GCN: a
+plan's add reduce forward, the same reduce on the plan of the transposed
+edges backward, both merged by K1.  :func:`gather_rows` is a row gather
+whose backward sums the gradient rows of each source row by a stable sort
+and K1's add, so it is the same from run to run on the card.
 """
 
 from __future__ import annotations
@@ -149,7 +155,7 @@ def _reduce_slots(rows: torch.Tensor, idx: torch.Tensor,
     weight it, and reduce over the slot axis -> [S, W]."""
     v = rows.index_select(0, idx)
     if weights is not None:
-        v = v * weights.to(v.dtype)[:, None]
+        v.mul_(weights.to(v.dtype)[:, None])   # in place: v is fresh
     v = v.view(-1, sub_len, *rows.shape[1:])
     return _SLOT_REDUCE[op](v, dim=1)
 
@@ -371,3 +377,127 @@ def make_auto_plan(edge_index: np.ndarray, num_nodes: int,
     if max_slots and plan.num_subruns * plan.sub_len > max_slots:
         return plan.chunk(max_slots)
     return plan
+
+
+# ------------------------------------------------- differentiable SpMM --
+
+class PlanSpmm:
+    """Differentiable weighted SpMM over a static plan pair (the JAX
+    package's ``PlanSpmm``).
+
+    Forward: ``out[v] = sum over edges (u, v) of w_e x[u]``, the add reduce
+    of the plan of ``edge_index``; backward: ``dL/dx = A^T g``, the add
+    reduce of a second plan built on the transposed edges.  The edge
+    weights (gcn_norm's, staged in slot order once) are data and get no
+    gradient.  On the card both directions end in K1.  The forward keeps
+    no [S*L, W] gather for the backward: only the plans are held.
+
+    Construct through :meth:`try_build`, which returns None where either
+    direction's one-shot slot table would exceed ``max_slots`` (the caller
+    then takes the scatter ``spmm``, as the JAX package does).
+    """
+
+    def __init__(self, edge_index: np.ndarray, edge_weight: np.ndarray,
+                 num_nodes: int, sub_len: int = SUB_LEN, device="cuda"):
+        ei = np.asarray(edge_index)
+        w = np.asarray(edge_weight, dtype=np.float32)
+        self.num_nodes = num_nodes
+        self.fwd = SortedSegmentPlan(ei, num_nodes, sub_len, device=device)
+        self.bwd = SortedSegmentPlan(ei[::-1], num_nodes, sub_len,
+                                     device=device)
+        self.device = self.fwd.device
+        self._w_fwd = self.fwd.stage_edge_data(w)
+        self._w_bwd = self.bwd.stage_edge_data(w)
+
+    @classmethod
+    def try_build(cls, edge_index: np.ndarray, edge_weight: np.ndarray,
+                  num_nodes: int, max_slots: Optional[int] = None,
+                  sub_len: int = SUB_LEN, device="cuda"
+                  ) -> Optional["PlanSpmm"]:
+        """Build, or return None when either direction's slot table
+        exceeds ``max_slots`` rows; the slot counts come from the two
+        degree histograms, as in the JAX package."""
+        if max_slots:
+            ei = np.asarray(edge_index)
+            for deg_axis in (ei[1], ei[0]):       # fwd dst, bwd dst (= src)
+                if _estimated_slots(np.asarray(deg_axis, dtype=np.int64),
+                                    num_nodes, sub_len) > max_slots:
+                    return None
+        return cls(edge_index, edge_weight, num_nodes, sub_len, device)
+
+    @property
+    def tables(self) -> tuple:
+        """The staged device tables of both directions: (gather_idx_f,
+        sub_ptr_f, w_f, gather_idx_b, sub_ptr_b, w_b)."""
+        return (self.fwd.gather_idx, self.fwd.sub_ptr, self._w_fwd,
+                self.bwd.gather_idx, self.bwd.sub_ptr, self._w_bwd)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dim() != 2 or x.shape[0] != self.num_nodes:
+            raise ValueError(f"PlanSpmm: x must be [{self.num_nodes}, W], "
+                             f"got {tuple(x.shape)}")
+        return _PlanSpmmFn.apply(x, self)
+
+
+class _PlanSpmmFn(torch.autograd.Function):
+    """``PlanSpmm``'s forward and backward: one add reduce each way."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, ps: PlanSpmm) -> torch.Tensor:
+        ctx.ps = ps
+        return ps.fwd.reduce(x, "add", edge_data_slots=ps._w_fwd)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        ps = ctx.ps
+        # the gradient of a row gather downstream may arrive strided
+        return ps.bwd.reduce(g.contiguous(), "add",
+                             edge_data_slots=ps._w_bwd), None
+
+
+def segment_order(seg: torch.Tensor, n: int) -> tuple:
+    """(perm, ptr): a stable sort of the [E] segment ids ``seg`` (values in
+    [0, n)) and the [n + 1] int64 pointer of its runs, so that
+    ``rows[perm]`` lists each segment's rows in their original order and
+    K1's add sums them in that order: the same sums from run to run,
+    where a scatter adds with atomics on the card."""
+    s, perm = torch.sort(seg, stable=True)
+    ptr = torch.zeros(n + 1, dtype=torch.int64, device=seg.device)
+    ptr[1:] = torch.cumsum(torch.bincount(s, minlength=n), 0)
+    return perm, ptr
+
+
+def ordered_segment_add(v: torch.Tensor, ptr: torch.Tensor,
+                        n: int) -> torch.Tensor:
+    """[n, W]: the sum of each segment's rows of ``v`` ([E, W], grouped by
+    ``segment_order``), by K1's add."""
+    if v.shape[0] == 0:
+        return v.new_zeros((n, v.shape[1]))
+    # K1's add reads x for its shape only
+    return segment_combine(v.contiguous(), v.new_empty((n, v.shape[1])),
+                           "add", ptr)
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` ([*idx.shape, W]) whose gradient in ``table`` is the
+    same from run to run: the backward sorts the indices (stably) and sums
+    each row's gradient rows in that order by K1's add, where indexing's
+    own backward adds them with atomics on the card."""
+    return _RowGather.apply(table, idx)
+
+
+class _RowGather(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        flat = idx.reshape(-1)
+        ctx.save_for_backward(flat)
+        ctx.num_rows = table.shape[0]
+        return table.index_select(0, flat).view(*idx.shape, table.shape[1])
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (flat,) = ctx.saved_tensors
+        perm, ptr = segment_order(flat, ctx.num_rows)
+        v = g.reshape(-1, g.shape[-1]).index_select(0, perm)
+        return ordered_segment_add(v, ptr, ctx.num_rows), None

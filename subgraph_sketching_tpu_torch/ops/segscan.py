@@ -16,10 +16,11 @@ end in its share (x folded in once, there), and the row open at a share's
 end leaves a carry-out that a second launch folds into ``out`` in share
 order.  No atomics on values: min/max are exact and the float32 add is the
 same from run to run.  Rows whose bytes are a multiple of 16 are read as
-16-byte units, others as 32-bit words.  It is bound by HBM bytes: S*W*b
-read of v, N*W*b read of x (min/max only), N*W*b write, plus the
-(N+1)-entry pointer; the carry-outs add one row per share that ends
-inside a row.  A hub's sub-runs spread over many shares, so its time is
+16-byte units, others as 32-bit words; float64 add (the float64 reference
+runs of training) takes 16-byte units only, two lanes a unit.  It is
+bound by HBM bytes: S*W*b read of v, N*W*b read of x (min/max only),
+N*W*b write, plus the (N+1)-entry pointer; the carry-outs add one row per
+share that ends inside a row.  A hub's sub-runs spread over many shares, so its time is
 its bytes and not one warp's walk.  No [S, W] totals array is written, as
 the TPU version wrote and then gathered.  The wrapper allocates the
 carry-out scratch ([shares, words] and [shares]) with ``torch.empty``.
@@ -37,12 +38,14 @@ import torch
 
 from subgraph_sketching_tpu_torch.ops import cuda_build
 
-# (op, dtype) -> (C entry point, elements per 32-bit word)
+# (op, dtype) -> (C entry point, the multiple a row's width must be: int8
+# rows are read as 32-bit words, float64 rows as 16-byte units)
 _ENTRY = {
     ("min", torch.int32): ("segscan_min_i32", 1),
     ("max", torch.int32): ("segscan_max_i32", 1),
     ("max", torch.int8): ("segscan_max_i8", 4),
     ("add", torch.float32): ("segscan_add_f32", 1),
+    ("add", torch.float64): ("segscan_add_f64", 2),
 }
 _ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int64,) * 4 + (ctypes.c_void_p,)
 
@@ -55,14 +58,16 @@ _IDENTITY = {
     ("max", torch.int32): torch.iinfo(torch.int32).min,
     ("max", torch.int8): torch.iinfo(torch.int8).min,
     ("add", torch.float32): 0.0,
+    ("add", torch.float64): 0.0,
 }
 
 _REDUCE = {"min": "amin", "max": "amax", "add": "sum"}
 
 
 def supported(op: str, dtype: torch.dtype) -> bool:
-    """The four K1 instances: biased-int32 min (MinHash), int8 max (HLL),
-    int32 max and float32 add (SpMM)."""
+    """The five K1 instances: biased-int32 min (MinHash), int8 max (HLL),
+    int32 max, float32 add (SpMM) and float64 add (the float64 reference
+    runs of training)."""
     return (op, dtype) in _ENTRY
 
 
@@ -108,10 +113,11 @@ def _check_cuda_args(v, x, ptr, op):
             or ptr.shape[0] != x.shape[0] + 1:
         raise ValueError("segment_combine: ptr must be int64 [N + 1]")
     cuda_build.check_tensors("segment_combine", x=x, v=v, ptr=ptr)
-    per_word = _ENTRY[(op, v.dtype)][1]
-    if v.shape[1] % per_word:
-        raise ValueError(f"segment_combine: int8 rows need a width that is "
-                         f"a multiple of 4, got {v.shape[1]}")
+    multiple = _ENTRY[(op, v.dtype)][1]
+    if v.shape[1] % multiple:
+        raise ValueError(f"segment_combine: {v.dtype} rows need a width "
+                         f"that is a multiple of {multiple}, got "
+                         f"{v.shape[1]}")
 
 
 def segment_combine(v: torch.Tensor, x: torch.Tensor, op: str,
@@ -124,8 +130,9 @@ def segment_combine(v: torch.Tensor, x: torch.Tensor, op: str,
     if v.device.type != "cuda":
         raise ValueError(f"segment_combine: unsupported device {v.device}")
     _check_cuda_args(v, x, ptr, op)
-    fn_name, per_word = _ENTRY[(op, v.dtype)]
-    n, s, words = x.shape[0], v.shape[0], x.shape[1] // per_word
+    fn_name = _ENTRY[(op, v.dtype)][0]
+    n, s = x.shape[0], v.shape[0]
+    words = x.shape[1] * x.element_size() // 4
     shares, carry, carry_row = cuda_build.merge_path_scratch(
         "segscan", n, s, words, x.device)
     out = torch.empty_like(x)

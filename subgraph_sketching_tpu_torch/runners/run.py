@@ -1,12 +1,14 @@
-"""Experiment driver of the port: BUDDY training and evaluation (the JAX
-package's runners/run.py, reference src/runners/run.py).
+"""Experiment driver of the port: BUDDY and ELPH training and evaluation
+(the JAX package's runners/run.py, reference src/runners/run.py).
 
     python -m subgraph_sketching_tpu_torch.runners.run \
         --dataset_name synth-ba --model BUDDY --epochs 2 --device cpu
 
 The flags are the JAX runner's (every ``Config`` field, reference names)
 plus ``--device`` (default ``cuda``; the run raises when CUDA is absent).
-Preprocessing runs on the device through the plan and K1.
+Preprocessing runs on the device through the plan and K1; ELPH's GCN
+runs in every step through the staged ``PlanSpmm`` (K1 forward and
+backward) or, under ``--use_plan false``, the scatter SpMM.
 
 Datasets: ``synth-*``, Planetoid (Cora, Citeseer, Pubmed) and ogbl-*
 from their raw files under ``--data_root`` (default ``SKETCH_DATA_ROOT``
@@ -14,7 +16,7 @@ or ``dataset/`` in the checkout).  On ogbl-citation2 the train metric is
 taken on a small ``train_eval`` subset with its same-source negatives.
 
 Not ported yet (queued, each raises NotImplementedError): models other than
-BUDDY (ELPH, SEAL, KGE), BUDDY's node embeddings, ``--mesh_shape``,
+BUDDY and ELPH (SEAL, KGE), node embeddings, ``--mesh_shape``,
 ``--heartbeat_dir``, ``--profile_dir`` and ``--compilation_cache_dir``.
 """
 
@@ -44,7 +46,7 @@ from subgraph_sketching_tpu_torch.train.determinism import (
 )
 from subgraph_sketching_tpu_torch.train.inference import test
 from subgraph_sketching_tpu_torch.train.loops import (
-    BuddyTrainer, epoch_seed, make_optimizer,
+    BuddyTrainer, ElphTrainer, epoch_seed, make_optimizer,
 )
 from subgraph_sketching_tpu_torch.utils import str2bool
 
@@ -56,28 +58,33 @@ def set_seed(seed: int) -> np.random.Generator:
     return np.random.default_rng(seed)
 
 
+TRAINERS = {"BUDDY": BuddyTrainer, "ELPH": ElphTrainer}
+
+
 def _refuse_unported(cfg: Config) -> None:
-    if cfg.model != "BUDDY":
+    if cfg.model not in TRAINERS:
         raise NotImplementedError(
-            f"model {cfg.model} is not ported yet (BUDDY only; ELPH, the "
+            f"model {cfg.model} is not ported yet (BUDDY and ELPH only; the "
             f"heuristics, SEAL and KGE are queued in ROADMAP.md §1, items "
-            f"3, 5, 7 and 8)")
+            f"5, 7 and 8)")
     for flag in ("mesh_shape", "heartbeat_dir", "profile_dir",
                  "compilation_cache_dir"):
         if getattr(cfg, flag):
             raise NotImplementedError(f"--{flag} is not ported yet")
 
 
-def build_trainer(cfg: Config, datasets, num_features, device
-                  ) -> BuddyTrainer:
-    trainer = BuddyTrainer(cfg, datasets["train"], num_features,
-                           device=device)
+def build_trainer(cfg: Config, datasets, num_features, device):
+    """The run's trainer (``BuddyTrainer`` or ``ElphTrainer``) with every
+    split staged."""
+    trainer = TRAINERS[cfg.model](cfg, datasets["train"], num_features,
+                                  device=device)
     for split in ("valid", "test"):
         trainer.stage(split, datasets[split])
-    # citation2: the train metric on a small subset with aligned same-source
-    # negatives (reference get_loaders, data.py:55-59)
+    # citation2 (BUDDY, as in the JAX runner): the train metric on a small
+    # subset with aligned same-source negatives (reference get_loaders,
+    # data.py:55-59)
     trainer.train_eval_split = "train"
-    if cfg.dataset_name == "ogbl-citation2":
+    if cfg.dataset_name == "ogbl-citation2" and cfg.model == "BUDDY":
         trainer.stage("train_eval", make_train_eval_dataset(datasets["train"]))
         trainer.train_eval_split = "train_eval"
     return trainer

@@ -1,9 +1,11 @@
-"""Batch link-scoring CLI from a saved BUDDY checkpoint.
+"""Batch link-scoring CLI from a saved BUDDY or ELPH checkpoint.
 
     python -m subgraph_sketching_tpu_torch.runners.serve \
         --checkpoint_dir D --links queries.npy --out scores.npy
 
-``D`` holds ``config.json`` + ``buddy.pt`` (serving.save_buddy_checkpoint).
+``D`` holds ``config.json`` and the newest ``step_<N>.pt`` of a training
+run (``runners/run.py --checkpoint_dir D --save_model``; BUDDY or ELPH),
+or ``config.json`` + ``buddy.pt`` (serving.save_buddy_checkpoint).
 ``--links`` accepts a .npy ([N, 2] int) or a whitespace text file with two
 integer columns.  Scores are logits; pass them through a sigmoid for
 probabilities.  Runs on CUDA unless ``--device cpu`` is given.
@@ -37,7 +39,8 @@ def load_links(path: str) -> np.ndarray:
 def make_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--checkpoint_dir", required=True,
-                   help="checkpoint dir (config.json + buddy.pt)")
+                   help="checkpoint dir (config.json + step_<N>.pt or "
+                        "buddy.pt)")
     p.add_argument("--links", required=True,
                    help=".npy or two-column text file of (src, dst) pairs")
     p.add_argument("--out", default=None,

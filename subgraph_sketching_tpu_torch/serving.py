@@ -1,10 +1,12 @@
-"""Online link scoring with a trained BUDDY model.
+"""Online link scoring with a trained BUDDY or ELPH model.
 
 Counterpart of the JAX package's serving.py ``LinkScorer``: the per-hop
 sketch stacks, the SIGN-propagated node features, the degrees and the
 model stay resident on the device, and a query batch computes subgraph
 features straight from the sketches (the same math as preprocessing,
 including the zero-one knockout / floor) and runs the BUDDY MLP.
+``ElphLinkScorer`` runs ELPH's full-graph GCN once at construction and
+keeps its node features resident; a query runs the LinkPredictor head.
 
 Checkpoints: a directory holding ``config.json`` (the ``Config``) and
 either ``step_<N>.pt`` files from a training run (``runners/run.py`` with
@@ -12,8 +14,8 @@ either ``step_<N>.pt`` files from a training run (``runners/run.py`` with
 :func:`save_buddy_checkpoint`.  Weights trained by the JAX package cross
 over through ``models/convert.py``.
 
-Not ported yet (queued): streaming edge insert/delete, the ELPH scorer, the
-RA and node-embedding inputs (a ``use_RA`` config is refused).
+Not ported yet (queued): streaming edge insert/delete, the RA and
+node-embedding inputs (a ``use_RA`` config is refused).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from subgraph_sketching_tpu_torch.graph.preprocess import (
 from subgraph_sketching_tpu_torch.models.buddy import BUDDY
 from subgraph_sketching_tpu_torch.sketch.elph import subgraph_features
 from subgraph_sketching_tpu_torch.sketch.params import Sketches
+from subgraph_sketching_tpu_torch.train.loops import ElphTrainer
 
 CONFIG_FILE = "config.json"
 WEIGHTS_FILE = "buddy.pt"
@@ -45,7 +48,36 @@ def _refuse_unported(cfg: Config) -> None:
             "inputs); train without --use_RA to serve on the port")
 
 
-class LinkScorer:
+class _BucketedScorer:
+    """The query contract both scorers share: ``score`` checks the ids and
+    scores in chunks of ``max_bucket`` links through ``_score_batch``;
+    ``warmup`` scores one batch of each given size."""
+
+    num_nodes: int
+    min_bucket: int
+    max_bucket: int
+    device: torch.device
+
+    def score(self, links: np.ndarray) -> np.ndarray:
+        """Scores (logits) for [B, 2] int link pairs, any B ≥ 0."""
+        links = np.asarray(links, dtype=np.int64).reshape(-1, 2)
+        if len(links) and (links.min() < 0 or links.max() >= self.num_nodes):
+            raise ValueError(f"link ids must be in [0, {self.num_nodes}); "
+                             f"got [{links.min()}, {links.max()}]")
+        outs = [self._score_batch(
+                    torch.from_numpy(links[s:s + self.max_bucket])
+                    .to(self.device)).cpu().numpy()
+                for s in range(0, len(links), self.max_bucket)]
+        return np.concatenate(outs) if outs else np.zeros((0,), np.float32)
+
+    def warmup(self, buckets: Optional[list] = None) -> None:
+        """Score one batch of each given size (default: min_bucket), so the
+        first query does not pay one-time costs (kernel load, allocator)."""
+        for b in (buckets or [self.min_bucket]):
+            self.score(np.zeros((b, 2), np.int64))
+
+
+class LinkScorer(_BucketedScorer):
     """Serve scores for arbitrary (src, dst) pairs.
 
     Parameters
@@ -98,23 +130,45 @@ class LinkScorer:
             dst_degree=self.deg[links[:, 1]])
         return out.ravel()
 
-    def score(self, links: np.ndarray) -> np.ndarray:
-        """Scores (logits) for [B, 2] int link pairs, any B ≥ 0."""
-        links = np.asarray(links, dtype=np.int64).reshape(-1, 2)
-        if len(links) and (links.min() < 0 or links.max() >= self.num_nodes):
-            raise ValueError(f"link ids must be in [0, {self.num_nodes}); "
-                             f"got [{links.min()}, {links.max()}]")
-        outs = [self._score_batch(
-                    torch.from_numpy(links[s:s + self.max_bucket])
-                    .to(self.device)).cpu().numpy()
-                for s in range(0, len(links), self.max_bucket)]
-        return np.concatenate(outs) if outs else np.zeros((0,), np.float32)
 
-    def warmup(self, buckets: Optional[list] = None) -> None:
-        """Score one batch of each given size (default: min_bucket), so the
-        first query does not pay one-time costs (kernel load, allocator)."""
-        for b in (buckets or [self.min_bucket]):
-            self.score(np.zeros((b, 2), np.int64))
+class ElphLinkScorer(_BucketedScorer):
+    """Serve scores from a trained ELPH (the JAX package's
+    ``ElphLinkScorer``): the full-graph GCN runs once at construction, in
+    eval mode (reference get_elph_preds, inference.py:167-205), and its
+    node features stay resident; a query batch computes subgraph features
+    from the sketch stacks of the split's message graph (the trainer's
+    held set when it is that graph's, else built again) and runs the
+    LinkPredictor head.  Same bucketing contract as ``LinkScorer``.
+    """
+
+    def __init__(self, trainer, model, split: str = "train",
+                 min_bucket: int = 1024, max_bucket: int = 1 << 18):
+        cfg = trainer.cfg
+        _refuse_unported(cfg)
+        self.cfg = cfg
+        self.device = trainer.device
+        self.sketch_params = trainer.sketch_params
+        data = trainer._data[split]
+        self.num_nodes = data["num_nodes"]
+        self.sk = None
+        if cfg.use_struct_feature:
+            self.sk = trainer.graph_sketches(
+                data["edge_index"].cpu().numpy(), self.num_nodes)
+        self.model = model.to(self.device).eval()
+        with torch.inference_mode():
+            self.feats = trainer.node_features(self.model, data)
+        self.min_bucket = min_bucket
+        self.max_bucket = max_bucket
+
+    @torch.inference_mode()
+    def _score_batch(self, links: torch.Tensor) -> torch.Tensor:
+        if self.sk is not None:
+            sf = subgraph_features(links, self.sk, self.sketch_params)
+        else:
+            sf = torch.zeros((links.shape[0], self.sketch_params.sf_dim),
+                             device=self.device)
+        nf = self.feats[links] if self.feats is not None else None
+        return self.model.predictor(sf, nf).ravel()
 
 
 def save_buddy_checkpoint(checkpoint_dir: str, cfg: Config,
@@ -130,10 +184,14 @@ def save_buddy_checkpoint(checkpoint_dir: str, cfg: Config,
 def scorer_from_checkpoint(checkpoint_dir: str, cfg: Optional[Config] = None,
                            split: str = "train", min_bucket: int = 1024,
                            max_bucket: int = 1 << 18,
-                           device="cuda") -> LinkScorer:
+                           device="cuda") -> _BucketedScorer:
     """Rebuild the serving stack from a checkpoint directory: re-run the
     deterministic preprocessing on ``device``, load the weights, and return
-    a ready LinkScorer.  ``split`` picks the message graph served against.
+    a ready LinkScorer (BUDDY) or ElphLinkScorer (ELPH, over an
+    ``ElphTrainer`` holding the train split and the served one).
+    ``split`` picks the message graph served against; only it and the
+    train split (whose SIGN features and sketches it may reuse) are
+    preprocessed.
 
     The weights are the newest ``step_<N>.pt`` that a training run with
     ``--checkpoint_dir D`` (``--save_model`` or ``--checkpoint_every``)
@@ -153,13 +211,14 @@ def scorer_from_checkpoint(checkpoint_dir: str, cfg: Optional[Config] = None,
                                     f"explicitly")
         with open(path) as f:
             cfg = Config.from_json(f.read())
-    if cfg.model != "BUDDY":
+    if cfg.model not in ("BUDDY", "ELPH"):
         raise NotImplementedError(f"serving {cfg.model} is not ported yet")
     _refuse_unported(cfg)
     splits, directed, _ = get_data(cfg)
-    datasets = build_all_splits(splits, cfg, directed=directed, device=dev)
+    datasets = build_all_splits({k: splits[k] for k in dict.fromkeys(
+        ("train", split))}, cfg, directed=directed, device=dev)
     x = datasets["train"].x
-    model = BUDDY.from_config(cfg, None if x is None else x.shape[-1])
+    num_features = None if x is None else x.shape[-1]
     step = latest_step(checkpoint_dir)
     if step is not None:
         saved, step = load_checkpoint(checkpoint_dir, step)
@@ -167,8 +226,20 @@ def scorer_from_checkpoint(checkpoint_dir: str, cfg: Optional[Config] = None,
     else:
         state = torch.load(os.path.join(checkpoint_dir, WEIGHTS_FILE),
                            map_location="cpu", weights_only=True)
-    model.load_state_dict(state)
-    scorer = LinkScorer(cfg, model, datasets[split], min_bucket=min_bucket,
-                        max_bucket=max_bucket, device=dev)
+    if cfg.model == "ELPH":
+        trainer = ElphTrainer(cfg, datasets["train"], num_features,
+                              device=dev)
+        if split != "train":
+            trainer.stage(split, datasets[split])
+        model = trainer.init_model(0)
+        model.load_state_dict(state)
+        scorer = ElphLinkScorer(trainer, model, split=split,
+                                min_bucket=min_bucket, max_bucket=max_bucket)
+    else:
+        model = BUDDY.from_config(cfg, num_features)
+        model.load_state_dict(state)
+        scorer = LinkScorer(cfg, model, datasets[split],
+                            min_bucket=min_bucket, max_bucket=max_bucket,
+                            device=dev)
     scorer.restored_step = step
     return scorer

@@ -1,5 +1,5 @@
-"""BUDDY training and inference loops of the port (the JAX package's
-train/loops.py, BUDDY part).
+"""BUDDY and ELPH training and inference loops of the port (the JAX
+package's train/loops.py).
 
 As in the JAX package:
 
@@ -18,8 +18,14 @@ dropout mask come from one ``torch.Generator`` on the device, seeded by
 ``fold_in(PRNGKey(rep), epoch)``.  The step losses stay on the device and
 are read once per epoch.
 
-Not ported yet (queued): node embeddings (``BuddyWithEmbedding``), the
-data-parallel mesh, ``dtype`` other than float32, and the ELPH trainer.
+ELPH (:class:`ElphTrainer`) runs its full-graph GCN inside every step:
+the SpMM is the staged ``PlanSpmm`` (forward and backward on K1) or, under
+``--use_plan false`` or past ``max_gather_slots``, the scatter ``spmm``;
+the sketches and subgraph features are built once at staging.
+
+Not ported yet (queued): node embeddings (``BuddyWithEmbedding``,
+``ElphEmbedding``), the data-parallel mesh and the memory-sharded mode,
+``dtype`` other than float32.
 """
 
 from __future__ import annotations
@@ -33,8 +39,19 @@ from torch import nn
 
 from subgraph_sketching_tpu_torch.config import Config
 from subgraph_sketching_tpu_torch.device import resolve_device
-from subgraph_sketching_tpu_torch.graph.preprocess import LinkDataset
+from subgraph_sketching_tpu_torch.graph.preprocess import (
+    LinkDataset, sketch_params_from_config,
+)
 from subgraph_sketching_tpu_torch.models.buddy import BUDDY
+from subgraph_sketching_tpu_torch.models.elph import ELPHPredictor
+from subgraph_sketching_tpu_torch.models.gnn import GCNConv
+from subgraph_sketching_tpu_torch.ops.graph_ops import gcn_norm
+from subgraph_sketching_tpu_torch.ops.segment_scan import (
+    PlanSpmm, gather_rows, make_auto_plan,
+)
+from subgraph_sketching_tpu_torch.sketch.elph import (
+    build_hash_tables, subgraph_features_batched,
+)
 from subgraph_sketching_tpu_torch.train.losses import get_loss
 
 
@@ -119,19 +136,75 @@ def _epoch_plan(num_links: int, batch_size: int,
 def _init_like_flax(model: nn.Module, generator: torch.Generator) -> None:
     """flax's initialisers: every Linear weight lecun-normal (a normal
     truncated at two standard deviations, scaled to variance 1/fan_in) and
-    bias zero; BatchNorm at scale 1, bias 0 and unit running statistics."""
+    bias zero, except a GCNConv's, which is glorot-uniform (uniform in
+    +-sqrt(6 / (fan_in + fan_out))) with the conv's bias zero; BatchNorm
+    at scale 1, bias 0 and unit running statistics."""
+    glorot = {id(m.lin) for m in model.modules() if isinstance(m, GCNConv)}
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, nn.Linear):
+            if isinstance(m, nn.Linear) and id(m) in glorot:
+                a = (6.0 / (m.in_features + m.out_features)) ** 0.5
+                nn.init.uniform_(m.weight, -a, a, generator=generator)
+            elif isinstance(m, nn.Linear):
                 std = (1.0 / m.in_features) ** 0.5 / .87962566103423978
                 nn.init.trunc_normal_(m.weight, std=std, a=-2 * std,
                                       b=2 * std, generator=generator)
+                nn.init.zeros_(m.bias)
+            elif isinstance(m, GCNConv):
                 nn.init.zeros_(m.bias)
             elif isinstance(m, nn.BatchNorm1d):
                 m.reset_parameters()
 
 
-class BuddyTrainer:
+def _epoch_order(num_links: int, cfg: Config, g: torch.Generator,
+                 order: Optional[torch.Tensor], device) -> torch.Tensor:
+    """[steps, batch_size] link indices of one epoch: ``order`` (an
+    [n_used] index tensor) or a permutation drawn from ``g``, its tail
+    padded with -1."""
+    bs = cfg.batch_size
+    if order is None:
+        n_used, _ = _epoch_plan(num_links, bs, cfg.train_samples)
+        order = torch.randperm(num_links, generator=g,
+                               device=device)[:n_used]
+    order = order.to(device, torch.int64)
+    steps = max(1, math.ceil(len(order) / bs))
+    pad = steps * bs - len(order)
+    if pad:
+        order = torch.cat([order, order.new_full((pad,), -1)])
+    return order.view(steps, bs)
+
+
+def _refuse_unported(cfg: Config) -> None:
+    if cfg.train_node_embedding or cfg.pretrained_node_embedding:
+        raise NotImplementedError("node embeddings are not ported yet")
+    if cfg.mesh_shape:
+        raise NotImplementedError("the data-parallel mesh is not ported "
+                                  "yet")
+    if cfg.dtype not in (None, "float32", "f32"):
+        raise NotImplementedError(f"--dtype {cfg.dtype} is not ported "
+                                  f"yet (float32 only)")
+
+
+class _Trainer:
+    """What the BUDDY and ELPH trainers share: the staged splits'
+    (``_data``) link counts and the epoch loss."""
+
+    cfg: Config
+    _data: Dict[str, Dict[str, torch.Tensor]]
+
+    def num_links(self, split: str) -> int:
+        return int(self._data[split]["links"].shape[0])
+
+    def train_epoch(self, model: nn.Module, optimizer: torch.optim.Optimizer,
+                    seed: int, order: Optional[torch.Tensor] = None) -> float:
+        """One epoch (see ``run_epoch``); returns the reference's epoch
+        loss, sum(step loss) * batch_size / num_links (train.py:77,89)."""
+        losses = self.run_epoch(model, optimizer, seed, order)
+        total = float(losses.sum()) * self.cfg.batch_size
+        return total / self.num_links("train")
+
+
+class BuddyTrainer(_Trainer):
     """Owns the device-resident split data and the BUDDY step.
 
     The model and its optimizer are the caller's: ``init_model`` builds a
@@ -141,15 +214,7 @@ class BuddyTrainer:
 
     def __init__(self, cfg: Config, dataset: LinkDataset,
                  num_features: Optional[int], device="cuda"):
-        if cfg.train_node_embedding or cfg.pretrained_node_embedding:
-            raise NotImplementedError("BUDDY's node embeddings are not "
-                                      "ported yet")
-        if cfg.mesh_shape:
-            raise NotImplementedError("the data-parallel mesh is not ported "
-                                      "yet")
-        if cfg.dtype not in (None, "float32", "f32"):
-            raise NotImplementedError(f"--dtype {cfg.dtype} is not ported "
-                                      f"yet (float32 only)")
+        _refuse_unported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.use_feature = cfg.use_feature and dataset.x is not None
@@ -218,9 +283,6 @@ class BuddyTrainer:
         return model.to(self.device)
 
     # -- public API ---------------------------------------------------------
-    def num_links(self, split: str) -> int:
-        return int(self._data[split]["links"].shape[0])
-
     def run_epoch(self, model: BUDDY, optimizer: torch.optim.Optimizer,
                   seed: int, order: Optional[torch.Tensor] = None
                   ) -> torch.Tensor:
@@ -230,19 +292,10 @@ class BuddyTrainer:
         ``order``, a [n_used] index tensor, gives it) and then every dropout
         mask, step by step."""
         data = self._data["train"]
-        bs = self.cfg.batch_size
         g = torch.Generator(device=self.device).manual_seed(seed)
-        if order is None:
-            n_used, _ = _epoch_plan(self.num_links("train"), bs,
-                                    self.cfg.train_samples)
-            order = torch.randperm(self.num_links("train"), generator=g,
-                                   device=self.device)[:n_used]
-        order = order.to(self.device, torch.int64)
-        steps = max(1, math.ceil(len(order) / bs))
-        pad = steps * bs - len(order)
-        if pad:
-            order = torch.cat([order, order.new_full((pad,), -1)])
-        perm = order.view(steps, bs)
+        perm = _epoch_order(self.num_links("train"), self.cfg, g, order,
+                            self.device)
+        steps = perm.shape[0]
         model.train()
         losses = torch.empty(steps, device=self.device)
         for step in range(steps):
@@ -254,14 +307,6 @@ class BuddyTrainer:
             optimizer.step()
             losses[step] = loss.detach()
         return losses
-
-    def train_epoch(self, model: BUDDY, optimizer: torch.optim.Optimizer,
-                    seed: int, order: Optional[torch.Tensor] = None) -> float:
-        """One epoch (see ``run_epoch``); returns the reference's epoch
-        loss, sum(step loss) * batch_size / num_links (train.py:77,89)."""
-        losses = self.run_epoch(model, optimizer, seed, order)
-        total = float(losses.sum()) * self.cfg.batch_size
-        return total / self.num_links("train")
 
     @torch.inference_mode()
     def predict(self, model: BUDDY, split: str,
@@ -283,4 +328,187 @@ class BuddyTrainer:
         pred = batched_predict(score, sel, self.cfg.eval_batch_size,
                                pad_value=-1)
         labels = data["rows"][:, self._sf_dim].cpu().numpy()[sel]
+        return pred, labels
+
+
+class ElphTrainer(_Trainer):
+    """Owns the device-resident split data and the ELPH step (the JAX
+    package's ``ElphTrainer`` without its mesh, memory-sharded and
+    embedding branches).
+
+    The full-graph GCN runs inside every step, as in the reference
+    (train.py:188-204); the sketch side is built once at staging (the same
+    values, gradient-free).  The model is one ``ELPHPredictor`` (children
+    ``gnn`` and ``predictor``), the caller's, as for ``BuddyTrainer``.
+    """
+
+    def __init__(self, cfg: Config, dataset: LinkDataset,
+                 num_features: Optional[int], device="cuda"):
+        _refuse_unported(cfg)   # --memory_sharded needs the mesh
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.sketch_params = sketch_params_from_config(cfg)
+        self.use_feature = cfg.use_feature and dataset.x is not None
+        self.num_features = num_features if self.use_feature else None
+        self.loss_fn = get_loss(cfg.loss)
+        self._data: Dict[str, Dict[str, torch.Tensor]] = {}
+        self._num_pos: Dict[str, int] = {}
+        # split -> (edge_index, edge_weight, num_nodes) of its staged SpMM
+        self._spmm_edges: Dict[str, tuple] = {}
+        # one sketch table set, keyed by its message graph
+        self._sk_graph: Optional[tuple] = None
+        self.stage("train", dataset)
+
+    # -- data staging -------------------------------------------------------
+    def graph_sketches(self, edge_index: np.ndarray, num_nodes: int):
+        """The sketch stacks of a message graph: the held set when it is
+        this graph's, else built (through a plan, or by the scatter route
+        under ``--use_plan false``) and held in place of the last set.  One
+        set per distinct message graph, so eval splits that share the
+        train graph reuse its tables, and one set held at a time."""
+        held = self._sk_graph
+        if (held is not None and held[1] == num_nodes
+                and held[0].shape == edge_index.shape
+                and np.array_equal(held[0], edge_index)):
+            return held[2]
+        plan = (make_auto_plan(edge_index, num_nodes,
+                               max_slots=self.cfg.max_gather_slots,
+                               device=self.device)
+                if self.cfg.use_plan else None)
+        sk = build_hash_tables(edge_index, num_nodes, self.sketch_params,
+                               plan=plan,
+                               hops_only=self.cfg.hops_only_sketches,
+                               device=self.device)
+        self._sk_graph = (edge_index, num_nodes, sk)
+        return sk
+
+    def stage(self, split: str, ds: LinkDataset) -> None:
+        """Put one split on the device: ``links``, ``labels``, the subgraph
+        features ``sf`` (zeros under ``--use_struct_feature 0``, which
+        builds no sketch), the message graph and its weights, the raw
+        features ``x``, and the GCN's SpMM: a ``PlanSpmm`` over the
+        gcn_norm'd edges (``plan``) where ``try_build`` admits one, else
+        the gcn_norm'd edges for the scatter ``spmm`` (``norm``).  A split
+        whose edges and weights equal another staged split's reuses its
+        SpMM."""
+        dev = self.device
+        if self.cfg.use_struct_feature is False:
+            sf = torch.zeros((len(ds.links), self.sketch_params.sf_dim),
+                             dtype=torch.float32, device=dev)
+        else:
+            sk = (ds.sketches if ds.sketches is not None
+                  else self.graph_sketches(ds.edge_index, ds.num_nodes))
+            sf = subgraph_features_batched(ds.links, sk, self.sketch_params)
+        d = {"links": torch.from_numpy(
+                 np.asarray(ds.links, dtype=np.int64)).to(dev),
+             "labels": torch.from_numpy(
+                 np.asarray(ds.labels, dtype=np.float32)).to(dev),
+             "sf": sf, "num_nodes": ds.num_nodes,
+             "edge_index": torch.from_numpy(
+                 np.asarray(ds.edge_index, dtype=np.int64)).to(dev),
+             "edge_weight": torch.from_numpy(
+                 np.asarray(ds.edge_weight, dtype=np.float32)).to(dev)}
+        if self.use_feature:
+            d["x"] = torch.from_numpy(
+                np.asarray(ds.x, dtype=np.float32)).to(dev)
+            d.update(self._stage_spmm(split, ds, d))
+        self._data[split] = d
+        # positive count, for pos/neg-aligned eval subsampling (citation2)
+        self._num_pos[split] = int(np.asarray(ds.labels).sum())
+
+    def _stage_spmm(self, split: str, ds: LinkDataset, d: dict) -> dict:
+        """``{"plan": PlanSpmm}`` or ``{"norm": (edge_index, weight)}`` for
+        this split's message graph, reused from a staged split with the
+        same edges and weights."""
+        self._spmm_edges.pop(split, None)   # a re-staged split may change
+        reuse = next(
+            (s for s, (e, w, n) in self._spmm_edges.items()
+             if n == ds.num_nodes and e.shape == ds.edge_index.shape
+             and np.array_equal(e, ds.edge_index)
+             and np.array_equal(w, ds.edge_weight)), None)
+        self._spmm_edges[split] = (ds.edge_index, ds.edge_weight,
+                                   ds.num_nodes)
+        if reuse is not None:
+            return {k: self._data[reuse][k] for k in ("plan", "norm")
+                    if k in self._data[reuse]}
+        ein, wn = gcn_norm(d["edge_index"], d["edge_weight"], ds.num_nodes)
+        plan = (PlanSpmm.try_build(ein.cpu().numpy(), wn.cpu().numpy(),
+                                   ds.num_nodes,
+                                   max_slots=self.cfg.max_gather_slots,
+                                   device=self.device)
+                if self.cfg.use_plan else None)
+        return {"plan": plan} if plan is not None else {"norm": (ein, wn)}
+
+    # -- model --------------------------------------------------------------
+    def init_model(self, seed: int) -> ELPHPredictor:
+        """An ELPHPredictor for this run on the trainer's device,
+        initialised as flax initialises it (glorot-uniform GCN kernels),
+        from a CPU generator seeded with ``seed``."""
+        model = ELPHPredictor.from_config(self.cfg, self.sketch_params,
+                                          self.num_features)
+        _init_like_flax(model, torch.Generator().manual_seed(seed))
+        return model.to(self.device)
+
+    def node_features(self, model: ELPHPredictor, data: dict,
+                      generator: Optional[torch.Generator] = None
+                      ) -> Optional[torch.Tensor]:
+        """The full-graph GCN's output for a staged split (None without
+        features)."""
+        feats, _ = model.gnn(data.get("x"), data["edge_index"],
+                             data["num_nodes"],
+                             edge_weight=data["edge_weight"],
+                             norm=data.get("norm"), plan=data.get("plan"),
+                             generator=generator)
+        return feats
+
+    # -- public API ---------------------------------------------------------
+    def run_epoch(self, model: ELPHPredictor,
+                  optimizer: torch.optim.Optimizer, seed: int,
+                  order: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One epoch; returns the [steps] step losses, on the device.  Each
+        step runs the full-graph GCN with dropout, gathers the batch's
+        node-feature rows (``gather_rows``: a backward that is the same
+        from run to run), runs the head, the BCE loss, the backward
+        through ``PlanSpmm`` and the Adam step.  The generator seeded with
+        ``seed`` draws the permutation (unless ``order`` gives it) and
+        every dropout mask."""
+        data = self._data["train"]
+        g = torch.Generator(device=self.device).manual_seed(seed)
+        perm = _epoch_order(self.num_links("train"), self.cfg, g, order,
+                            self.device)
+        model.train()
+        losses = torch.empty(perm.shape[0], device=self.device)
+        for step, idx in enumerate(perm):
+            safe = idx.clamp(min=0)   # -1 padding reads link 0, masked
+            feats = self.node_features(model, data, g)
+            nf = (gather_rows(feats, data["links"][safe])
+                  if feats is not None else None)
+            logits = model.predictor(data["sf"][safe], nf, generator=g)
+            loss = self.loss_fn(logits, data["labels"][safe], idx >= 0)
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            optimizer.step()
+            losses[step] = loss.detach()
+        return losses
+
+    @torch.inference_mode()
+    def predict(self, model: ELPHPredictor, split: str,
+                n_samples: Optional[int] = None
+                ) -> Tuple[np.ndarray, np.ndarray]:
+        """(pred, labels) over the split's links in order: the full-graph
+        forward once, then the head in eval_batch_size batches (reference
+        get_elph_preds, inference.py:167-205)."""
+        model.eval()
+        data = self._data[split]
+        feats = self.node_features(model, data)
+        sel = eval_subset(self.num_links(split), n_samples,
+                          self.cfg.dataset_name, self._num_pos.get(split))
+
+        def score(idx: np.ndarray) -> torch.Tensor:
+            j = torch.from_numpy(idx).to(self.device)
+            nf = feats[data["links"][j]] if feats is not None else None
+            return model.predictor(data["sf"][j], nf).ravel()
+
+        pred = batched_predict(score, sel, self.cfg.eval_batch_size)
+        labels = data["labels"].cpu().numpy()[sel]
         return pred, labels

@@ -11,8 +11,13 @@ calls.  K2 cuts each destination block's edges into pieces, so it is run
 on blocks of exactly one piece, one piece +- 1 and three pieces, on empty
 blocks, a short last block and a star whose hub spans many pieces; K4
 sorts each block's indices, so it is run on indices in random, sorted and
-reverse order, all one index and many repeats.  They skip without a CUDA
-device.
+reverse order, all one index and many repeats.  ELPH's uses of K1 are
+held at its widths (float32 add at W = 1024 and 32, the float64 add of
+the reference runs): ``PlanSpmm`` forward and backward, one launch each
+way, ``gather_rows``' backward and the scatter ``spmm`` (K1's add each
+way), the same bit for bit on two runs, and two ELPH epochs by the
+scatter route trained twice bit for bit.
+They skip without a CUDA device.
 
 This file imports no jax, so it also runs where jax is not installed:
 
@@ -512,3 +517,165 @@ def test_dma_gather_orders(cuda, order, width, n_blocks):
     assert dg.launches["dma_gather"] == before + 2
     assert torch.equal(got, dg.block_mins_plain(rows, idx, n_blocks))
     assert torch.equal(again, got)
+
+
+# ---- ELPH: K1's add at the GCN's widths, PlanSpmm and gather_rows --------
+
+@pytest.mark.parametrize("profile", ["spans_3_shares", "star", "random_hub"])
+@pytest.mark.parametrize("dtype,width", [(torch.float32, 1024),
+                                         (torch.float32, 32),
+                                         (torch.float64, 32)])
+def test_segscan_add_at_gcn_widths(cuda, profile, dtype, width):
+    """K1's add at ELPH's widths (1024 float32 lanes, a 4 KiB row of 256
+    units; 32 lanes; float64 of the float64 reference runs) on dyadic
+    inputs with a hub whose row spans many shares: bit-equal to the plain
+    version and to itself across two calls, one launch each."""
+    from subgraph_sketching_tpu_torch.ops import cuda_build
+    ptr_np, counts = _profile_ptr(profile, cuda_build.share_steps("segscan"))
+    n, s = len(counts), int(ptr_np[-1])
+    g = torch.Generator(device="cuda").manual_seed(13)
+    v = (torch.randint(-32, 32, (s, width), generator=g, device="cuda")
+         .to(dtype) / 4)
+    x = torch.empty((n, width), dtype=dtype, device=cuda)
+    ptr = torch.from_numpy(ptr_np).to(cuda)
+    name = segscan._ENTRY[("add", dtype)][0]
+    before = segscan.launches[name]
+    first = segscan.segment_combine(v, x, "add", ptr)
+    second = segscan.segment_combine(v, x, "add", ptr)
+    torch.cuda.synchronize()
+    assert segscan.launches[name] == before + 2
+    assert torch.equal(first, second)
+    assert torch.equal(first, segscan.segment_combine_plain(v, x, "add", ptr))
+
+
+def test_segscan_add_f64_refuses_odd_widths(cuda):
+    """float64 rows are read as whole 16-byte units only."""
+    ptr = torch.tensor([0, 2, 3], dtype=torch.int64, device=cuda)
+    v = torch.zeros((3, 5), dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 2"):
+        segscan.segment_combine(v, v[:2].clone(), "add", ptr)
+
+
+def _gcn_plan_spmm(n=3000, seed=9):
+    """A PlanSpmm over the gcn_norm'd edges of ``_plan`` (its hub's run
+    spans hundreds of sub-runs forward; its transpose is another plan)."""
+    from subgraph_sketching_tpu_torch.ops.graph_ops import gcn_norm
+    from subgraph_sketching_tpu_torch.ops.segment_scan import PlanSpmm
+    ei, n = _plan(n, seed=seed)
+    nei, nw = gcn_norm(torch.from_numpy(ei.astype(np.int64)).cuda(), None, n)
+    return PlanSpmm(nei.cpu().numpy(), nw.cpu().numpy(), n,
+                    device="cuda"), nei, nw, n
+
+
+@pytest.mark.parametrize("width", [1024, 32])
+def test_plan_spmm_runs_forward_and_backward_on_the_kernel(cuda, width):
+    """PlanSpmm on the card: one K1 add launch forward and one backward,
+    each against the plain merge of the same sub-run results, and the
+    whole against autograd through the scatter spmm."""
+    from subgraph_sketching_tpu_torch.ops.graph_ops import spmm
+    ps, nei, nw, n = _gcn_plan_spmm()
+    g = torch.Generator(device="cuda").manual_seed(14)
+    x = torch.randn((n, width), generator=g, device="cuda",
+                    requires_grad=True)
+    t = torch.randn((n, width), generator=g, device="cuda")
+    before = segscan.launches["segscan_add_f32"]
+    out = ps(x)
+    torch.cuda.synchronize()
+    assert segscan.launches["segscan_add_f32"] == before + 1
+    (grad,) = torch.autograd.grad((out * t).sum(), x)
+    torch.cuda.synchronize()
+    assert segscan.launches["segscan_add_f32"] == before + 2
+    with torch.no_grad():
+        for plan, w, inp, got in ((ps.fwd, ps._w_fwd, x, out),
+                                  (ps.bwd, ps._w_bwd, t, grad)):
+            v = plan.reduce_subruns(inp, "add", w).contiguous()
+            want = segscan.segment_combine_plain(v, inp, "add", plan.sub_ptr)
+            scale = segscan.segment_combine_plain(v.abs(), inp, "add",
+                                                  plan.sub_ptr)
+            assert bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all())
+    ref = spmm(nei, nw, x, n)
+    (ref_grad,) = torch.autograd.grad((ref * t).sum(), x)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(grad, ref_grad, rtol=1e-4, atol=1e-5)
+
+
+def test_gather_rows_backward_is_deterministic_on_the_card(cuda):
+    """gather_rows' backward (a stable sort, then K1's add) is the same
+    bit for bit on two runs and equal to indexing's backward on dyadic
+    inputs, with one K1 add launch."""
+    from subgraph_sketching_tpu_torch.ops.segment_scan import gather_rows
+    g = torch.Generator(device="cuda").manual_seed(15)
+    table = torch.randn((5000, 1024), generator=g, device="cuda",
+                        requires_grad=True)
+    idx = torch.randint(0, 5000, (1024, 2), generator=g, device="cuda")
+    idx[:300] = 17                              # one row gathered 600 times
+    cot = torch.randint(-32, 32, (1024, 2, 1024), generator=g,
+                        device="cuda").float() / 4
+    before = segscan.launches["segscan_add_f32"]
+    grads = [torch.autograd.grad((gather_rows(table, idx) * cot).sum(),
+                                 table)[0] for _ in range(2)]
+    torch.cuda.synchronize()
+    assert segscan.launches["segscan_add_f32"] == before + 2
+    assert torch.equal(grads[0], grads[1])
+    (want,) = torch.autograd.grad((table[idx] * cot).sum(), table)
+    assert torch.equal(grads[0], want)
+
+
+def test_scatter_spmm_is_deterministic_on_the_card(cuda):
+    """The scatter spmm (``--use_plan false``, or a plan past
+    max_gather_slots) sums by a stable sort and K1's add each way: one add
+    launch forward and one backward, the same bit for bit on two runs,
+    and on dyadic inputs equal to the atomic index_add route."""
+    from subgraph_sketching_tpu_torch.ops.graph_ops import spmm
+    ei, n = _plan()
+    ei = torch.from_numpy(ei.astype(np.int64)).cuda()
+    g = torch.Generator(device="cuda").manual_seed(16)
+    w = torch.randint(1, 5, (ei.shape[1],), generator=g,
+                      device="cuda").float() / 4
+    x = (torch.randint(-32, 32, (n, 64), generator=g, device="cuda").float()
+         / 4).requires_grad_()
+    t = torch.randint(-32, 32, (n, 64), generator=g, device="cuda").float()
+    before = segscan.launches["segscan_add_f32"]
+    runs = []
+    for _ in range(2):
+        out = spmm(ei, w, x, n)
+        (grad,) = torch.autograd.grad((out * t).sum(), x)
+        runs.append((out.detach(), grad))
+    torch.cuda.synchronize()
+    assert segscan.launches["segscan_add_f32"] == before + 4
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    with torch.no_grad():
+        src, dst = ei
+        want = torch.zeros_like(x).index_add_(0, dst, x[src] * w[:, None])
+        want_grad = torch.zeros_like(x).index_add_(0, src,
+                                                   t[dst] * w[:, None])
+    assert torch.equal(runs[0][0], want)
+    assert torch.equal(runs[0][1], want_grad)
+
+
+def test_elph_scatter_route_trains_the_same_twice_on_the_card(cuda):
+    """Two epochs of ELPH by the scatter SpMM (--use_plan false) from one
+    init and one seed give the same losses and parameters bit for bit, as
+    the runner's --check_determinism asks on that route too."""
+    from subgraph_sketching_tpu_torch.config import Config
+    from subgraph_sketching_tpu_torch.graph.datasets import get_data
+    from subgraph_sketching_tpu_torch.graph.preprocess import build_all_splits
+    from subgraph_sketching_tpu_torch.train.loops import (
+        ElphTrainer, make_optimizer,
+    )
+    cfg = Config(dataset_name="synth-ws", model="ELPH", hidden_channels=32,
+                 use_plan=False)
+    splits, directed, _ = get_data(cfg)
+    ds = build_all_splits(splits, cfg, directed=directed, device=cuda)
+    tr = ElphTrainer(cfg, ds["train"], ds["train"].x.shape[-1], device=cuda)
+    assert "plan" not in tr._data["train"]
+    runs = []
+    for _ in range(2):
+        model = tr.init_model(0)
+        opt = make_optimizer(cfg, model.parameters())
+        losses = [tr.run_epoch(model, opt, seed) for seed in (3, 4)]
+        runs.append((torch.cat(losses), model.state_dict()))
+    assert torch.equal(runs[0][0], runs[1][0])
+    for k, v in runs[0][1].items():
+        assert torch.equal(v, runs[1][1][k]), k

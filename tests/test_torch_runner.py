@@ -1,5 +1,5 @@
-"""The port's BUDDY runner (subgraph_sketching_tpu_torch/runners/run.py),
-checkpoints and serving from a training run, on the CPU.
+"""The port's runner (subgraph_sketching_tpu_torch/runners/run.py) for
+BUDDY and ELPH, checkpoints and serving from a training run, on the CPU.
 
   * the parser gives the JAX runner's Namespace (less ``device``) on the
     reference README commands of tests/test_cli.py;
@@ -10,7 +10,10 @@ checkpoints and serving from a training run, on the CPU.
   * 2 epochs straight and 1 epoch, save, --resume, 1 epoch give bit-equal
     model and optimizer states and the same best-val meta;
   * ``scorer_from_checkpoint`` on a --save_model run scores links as the
-    trainer's ``predict`` does, within 1e-5.
+    trainer's ``predict`` does, within 1e-5;
+  * the same for ELPH (``SMALL_ELPH``): Hits@100 within 0.05 of the JAX
+    runner's, resume bit-equal, the served checkpoint equal to
+    ``predict``, and the reference's ELPH commands reach training.
 """
 
 import dataclasses
@@ -40,6 +43,7 @@ SMALL = ["--dataset_name", "synth-ba", "--model", "BUDDY", "--epochs", "2",
          "--hidden_channels", "32", "--batch_size", "256",
          "--eval_batch_size", "1024", "--lr", "0.01",
          "--label_dropout", "0", "--feature_dropout", "0"]
+SMALL_ELPH = [("ELPH" if a == "BUDDY" else a) for a in SMALL]
 
 
 # ---------------------------------------------------------------- parser --
@@ -77,7 +81,7 @@ def test_main_without_device_needs_cuda():
 
 
 @pytest.mark.parametrize("extra", [
-    ["--model", "ELPH"], ["--model", "SEALGCN"], ["--mesh_shape", "2"],
+    ["--model", "transE"], ["--model", "SEALGCN"], ["--mesh_shape", "2"],
     ["--profile_dir", "p"], ["--heartbeat_dir", "h"],
     ["--compilation_cache_dir", "c"], ["--train_node_embedding"]])
 def test_unported_options_raise(extra):
@@ -105,28 +109,44 @@ def test_determinism_check_catches_a_nondeterministic_epoch():
 
 # ------------------------------------------------------------ CPU runs ----
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def _runs(base, small):
     """One straight 2-epoch run (checkpoint every epoch, --save_model,
     --check_determinism) and a resumed one (1 epoch, then --resume to 2)."""
-    base = tmp_path_factory.mktemp("runs")
     straight, resumed = str(base / "straight"), str(base / "resumed")
-    first = run.main(SMALL + ["--device", "cpu", "--checkpoint_dir", straight,
+    first = run.main(small + ["--device", "cpu", "--checkpoint_dir", straight,
                               "--checkpoint_every", "1", "--save_model",
                               "--check_determinism"])
-    part = run.main(SMALL + ["--device", "cpu", "--checkpoint_dir", resumed,
+    part = run.main(small + ["--device", "cpu", "--checkpoint_dir", resumed,
                              "--checkpoint_every", "1", "--epochs", "1"])
-    again = run.main(SMALL + ["--device", "cpu", "--checkpoint_dir", resumed,
+    again = run.main(small + ["--device", "cpu", "--checkpoint_dir", resumed,
                               "--checkpoint_every", "1", "--resume"])
     return {"straight": straight, "resumed": resumed, "first": first,
-            "part": part, "again": again}
+            "part": part, "again": again, "small": small}
 
 
-def test_runner_hits_within_band_of_jax(runs):
-    want = jrun.main(SMALL + ["--platform", "cpu"])
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    return _runs(tmp_path_factory.mktemp("runs"), SMALL)
+
+
+@pytest.fixture(scope="module")
+def elph_runs(tmp_path_factory):
+    return _runs(tmp_path_factory.mktemp("elph_runs"), SMALL_ELPH)
+
+
+def _assert_hits_within_band_of_jax(runs):
+    want = jrun.main(runs["small"] + ["--platform", "cpu"])
     got = runs["first"]
     assert 0.0 < got[0][0] <= 1.0
     assert abs(got[0][0] - want[0][0]) <= 0.05, (got, want)
+
+
+def test_runner_hits_within_band_of_jax(runs):
+    _assert_hits_within_band_of_jax(runs)
+
+
+def test_elph_runner_hits_within_band_of_jax(elph_runs):
+    _assert_hits_within_band_of_jax(elph_runs)
 
 
 def test_metrics_log_carries_the_reference_keys(runs):
@@ -142,7 +162,9 @@ def test_metrics_log_carries_the_reference_keys(runs):
         assert Config(**{k: v for k, v in json.load(f).items()}) is not None
 
 
-def test_resume_is_bit_equal_to_a_straight_run(runs):
+@pytest.mark.parametrize("model", ["BUDDY", "ELPH"])
+def test_resume_is_bit_equal_to_a_straight_run(runs, elph_runs, model):
+    runs = runs if model == "BUDDY" else elph_runs
     assert checkpoint.latest_step(runs["straight"]) == 2
     assert checkpoint.latest_step(runs["resumed"]) == 2
     a, _ = checkpoint.load_checkpoint(runs["straight"], 2)
@@ -176,8 +198,9 @@ def test_latest_step_skips_partial_files(tmp_path):
     assert checkpoint.latest_step(str(tmp_path / "missing")) is None
 
 
-def test_serving_a_trained_checkpoint_matches_predict(runs):
-    d = runs["straight"]
+@pytest.mark.parametrize("model", ["BUDDY", "ELPH"])
+def test_serving_a_trained_checkpoint_matches_predict(runs, elph_runs, model):
+    d = (runs if model == "BUDDY" else elph_runs)["straight"]
     scorer = scorer_from_checkpoint(d, split="valid", device="cpu")
     assert scorer.restored_step == 2
     with open(os.path.join(d, "config.json")) as f:
@@ -186,11 +209,13 @@ def test_serving_a_trained_checkpoint_matches_predict(runs):
     datasets = build_all_splits(splits, cfg, directed=directed, device="cpu")
     trainer = run.build_trainer(cfg, datasets, datasets["train"].x.shape[-1],
                                 "cpu")
-    model = trainer.init_model(0)
-    assert checkpoint.restore_into(d, model) == 2
-    want, _ = trainer.predict(model, "valid")
+    trained = trainer.init_model(0)
+    assert checkpoint.restore_into(d, trained) == 2
+    want, _ = trainer.predict(trained, "valid")
     got = scorer.score(datasets["valid"].links)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert type(scorer).__name__ == {"BUDDY": "LinkScorer",
+                                     "ELPH": "ElphLinkScorer"}[model]
 
 
 # ------------------------------------------- the reference's datasets ----
@@ -239,6 +264,38 @@ def test_reference_buddy_commands_reach_training(tmp_path, name):
     if "--cache_subgraph_features" in cmd:
         assert any(f.endswith("subgraph_features.npz")
                    for f in os.listdir(tmp_path / "cache"))
+
+
+# the reference README's ELPH commands (tests/test_cli.py) on the same
+# fixtures, cut to one epoch and to hidden 32 (the GCN runs over the whole
+# graph in every step); ogbl-ddi's needs the node embeddings
+ELPH_COMMANDS = {
+    "Cora": ("cora", REFERENCE_COMMANDS[0], "Hits@100"),
+    "Citeseer": ("citeseer", REFERENCE_COMMANDS[2], "Hits@100"),
+    "Pubmed": ("pubmed", REFERENCE_COMMANDS[4], "Hits@100"),
+    "ogbl-collab": ("collab_year", REFERENCE_COMMANDS[6], "Hits@50"),
+}
+
+
+@pytest.mark.parametrize("name", list(ELPH_COMMANDS))
+def test_reference_elph_commands_reach_training(tmp_path, name):
+    from test_torch_datasets import _write_planetoid
+    from test_torch_preprocess import FAMILIES, _write
+    family, cmd, metric = ELPH_COMMANDS[name]
+    if family in FAMILIES:
+        _write(tmp_path, family)
+    else:
+        _write_planetoid(str(tmp_path), name, family, gap=name == "Citeseer")
+    assert name in cmd and "--model ELPH" in cmd
+    ckpt = str(tmp_path / "run")
+    result = run.main(shlex.split(cmd) + [
+        "--epochs", "1", "--hidden_channels", "32", "--device", "cpu",
+        "--data_root", str(tmp_path), "--checkpoint_dir", ckpt])
+    with open(os.path.join(ckpt, "metrics.jsonl")) as f:
+        (row,) = [json.loads(line) for line in f]
+    assert np.isfinite(row["rep0_loss"])
+    assert f"rep0_Train{metric}" in row
+    assert all(0.0 <= r <= 1.0 for r in result[0])
 
 
 def test_serving_refuses_an_RA_model(tmp_path):

@@ -1,10 +1,12 @@
-"""The port's BUDDY serving slice (subgraph_sketching_tpu_torch) against the
-JAX package, end to end on the CPU.
+"""The port's serving slice (subgraph_sketching_tpu_torch) against the JAX
+package, end to end on the CPU: BUDDY's ``LinkScorer`` and ELPH's
+``ElphLinkScorer``.
 
 Tolerances: SIGN features rtol=atol=1e-5 (float32 sums in another order);
 subgraph features rtol=1e-5, atol=1e-4 (as tests/test_torch_sketch.py);
 BUDDY logits rtol=2e-4, atol=2e-5 (as tests/test_torch_parity.py);
-LinkScorer scores rtol=atol=1e-4 (features and MLP together).
+LinkScorer and ElphLinkScorer scores rtol=atol=1e-4 (features and MLP
+together); a scorer against its own trainer's predict rtol=atol=1e-5.
 """
 
 import jax
@@ -208,3 +210,49 @@ def test_entry_points_refuse_missing_cuda():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         sign_features(np.zeros((3, 2), np.float32),
                       np.zeros((2, 0), np.int32), None, 3, 0)
+
+
+def test_elph_scorer_matches_jax():
+    """Mirrors tests/test_serving.py::test_elph_scorer_matches_offline_predict
+    (without embeddings, not ported): a JAX ELPH trained one epoch, served
+    by the JAX ElphLinkScorer and, carried over, by the port's."""
+    from subgraph_sketching_tpu.graph.preprocess import (
+        LinkDataset as JLinkDataset, sketch_params_from_config,
+    )
+    from subgraph_sketching_tpu.serving import ElphLinkScorer as JElphScorer
+    from subgraph_sketching_tpu.train.loops import ElphTrainer as JElph
+    from subgraph_sketching_tpu_torch.models import elph_state_dict_from_flax
+    from subgraph_sketching_tpu_torch.serving import ElphLinkScorer
+    from subgraph_sketching_tpu_torch.train.loops import ElphTrainer
+
+    kw = {**CFG, "model": "ELPH"}
+    jcfg, cfg = JConfig(**kw), Config(**kw)
+    splits, directed, _ = get_data(cfg)
+    ds = build_all_splits(splits, cfg, directed=directed, device="cpu")
+    jds = {k: JLinkDataset(d.links, d.labels, d.edge_index, d.edge_weight,
+                           d.num_nodes, d.x, d.degrees)
+           for k, d in ds.items()}
+    width = ds["train"].x.shape[-1]
+    jtr = JElph(jcfg, jds["train"], sketch_params_from_config(jcfg), width)
+    jtr.stage("valid", jds["valid"])
+    state = jtr.init_state(jax.random.PRNGKey(0))
+    state, _ = jtr.train_epoch(state, np.random.default_rng(0),
+                               jax.random.PRNGKey(0))
+    jscorer = JElphScorer(jtr, state, split="valid", min_bucket=64)
+
+    tr = ElphTrainer(cfg, ds["train"], width, device="cpu")
+    tr.stage("valid", ds["valid"])
+    model = tr.init_model(0)
+    model.load_state_dict(elph_state_dict_from_flax(
+        _numpy_tree(state.params), _numpy_tree(state.batch_stats)))
+    scorer = ElphLinkScorer(tr, model, split="valid", max_bucket=500)
+    links = _queries(ds["valid"].num_nodes, ds["valid"].links)
+    got = scorer.score(links)        # several max_bucket chunks
+    assert got.shape == (len(links),) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, jscorer.score(links), rtol=1e-4,
+                               atol=1e-4)
+    offline, _ = tr.predict(model, "valid")
+    np.testing.assert_allclose(scorer.score(ds["valid"].links), offline,
+                               rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="link ids"):
+        scorer.score(np.array([[0, ds["valid"].num_nodes]]))

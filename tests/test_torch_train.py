@@ -380,15 +380,17 @@ def test_optimizer_state_carries_across():
     np.testing.assert_allclose(got_loss, want_loss, rtol=1e-4)
 
 
+@pytest.mark.parametrize("trainer", ["BuddyTrainer", "ElphTrainer"])
 @pytest.mark.parametrize("overrides", [
     {"pretrained_node_embedding": "emb.pt"}, {"train_node_embedding": True},
     {"mesh_shape": [2]},
+    {"memory_sharded": True, "mesh_shape": [2], "mesh_axes": ["graph"]},
     {"dtype": "bfloat16"}])
-def test_trainer_refuses_what_is_not_ported(overrides):
+def test_trainer_refuses_what_is_not_ported(overrides, trainer):
     ds, _ = _datasets(0)
     cfg = Config(**{**BASE, **overrides})
     with pytest.raises(NotImplementedError):
-        loops.BuddyTrainer(cfg, ds["train"], 128, device="cpu")
+        getattr(loops, trainer)(cfg, ds["train"], 128, device="cpu")
 
 
 def test_epoch_is_a_function_of_its_seed():
