@@ -120,6 +120,28 @@ Phases, each printing one JSON line:
   elph_reference  a small ELPH (synth-ws, hidden 32, dropout 0) trained 2
              epochs from the same weights on the same orders on the card
              and on the CPU, in float32 and float64 (K1's float64 add)
+  ddi        node embeddings at ogbl-ddi's published shape: an ogbl_ddi raw
+             tree (4,267 nodes, 1,067,911 train edges with skewed degrees,
+             133,489 valid and test positives, 101,882 / 95,599 negatives)
+             written from a seed (its seconds apart), then the reference's
+             ddi BUDDY command twice with one --cache_dir (the second run
+             reads the caches and equals the first) and its ddi ELPH
+             command, each at its published widths (hidden 256, batch
+             131072, 6 negatives, sign_k 2, a trainable table diffused in
+             every step) cut to 2 epochs, eval every epoch,
+             --check_determinism, --save_model; per run get_data,
+             preprocessing, epoch seconds, links/s, loss (finite,
+             falling), Hits@20, peak memory and K1 add launches (at least 5
+             a step); for the first BUDDY run and the ELPH run 20 profiled
+             steps (idle share, top kernels, exactly 5 K1 add launches a
+             step by counter and trace) and the checkpoint served, equal
+             to predict on 65536 links within 1e-4; then K1 on the
+             diffusion plan's forward and backward sub-run results at
+             W = 256, as the kernels phase holds and times it
+  emb_reference  a small BUDDY and a small ELPH with a trainable,
+             propagated table (synth-ws, hidden 32, sign_k 2, dropouts 0)
+             trained 2 epochs on the card and on the CPU, float32 and
+             float64
 
 then the per-kernel summary line (each K1, K2 and K3 entry also carries
 its ``bench_hub`` time, bound and yardstick: ``hub_ms``, ``hub_bound_ms``,
@@ -129,7 +151,8 @@ chunk merges, their ``ms`` summed over one reduce's chunks; and the three
 K1 add instances of the ELPH step at W=1024, PlanSpmm forward and
 backward and gather_rows' backward, each with the add launches of the
 train_elph run, which the three share, and the launches a step counted in
-the profiled window), the
+the profiled window; and the two K1 add instances of the ddi diffusion at
+W=256, forward and backward, with the add launches of the ddi runs), the
 nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises: the run exits
 non-zero and prints no last line.  Without a CUDA device it exits 2 at once.
@@ -778,6 +801,30 @@ def _device_time(prof) -> tuple:
     return sum(v[0] for v in per.values()), per
 
 
+def profile_window(warm, window) -> tuple:
+    """(host seconds, device busy ms, {kernel: [ms, count]}) of
+    ``window()`` under torch.profiler, with K1's counts set to 0 just
+    before it.  ``warm()`` runs first under the profiler's warm-up step
+    (tracing on, results dropped), so CUPTI's start-up falls there and the
+    window's trace holds every kernel the window launched."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        warm()
+        torch.cuda.synchronize()
+        prof.step()
+        _reset_k1()
+        t0 = time.perf_counter()
+        window()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        prof.step()
+    return (seconds, *_device_time(prof))
+
+
 def phase_profile(cfg, seed: int = 3) -> dict:
     """Where the serving time goes: the rebuild's host stages by clock, and
     the device's busy time under torch.profiler, for the rebuild and for
@@ -985,17 +1032,10 @@ PRE_BN_BIAS = r"(label_lin_layer|lin_out|sign\.lin_\d+)\.bias"
 def phase_train_reference(seed: int = 5) -> dict:
     """A small BUDDY (synth-ws, hidden 32, dropout 0) trained 2 epochs from
     the same weights, on the same explicit orders, on the card and on the
-    CPU, in float32 (the port's precision) and in float64.
-
-    float64: step losses and parameters equal within 1e-9 (the same
-    function on both devices).  float32: step losses within rtol 1e-4;
-    each parameter and BN buffer within rtol 1e-4 / atol 1e-5 of the CPU
-    one, or, where float32 rounding alone moves it further (Adam scales
-    the rounding of a near-zero gradient to up to lr a step), no further
-    from the float64 result than 4x the CPU float32 run is."""
+    CPU, in float32 (the port's precision) and in float64, held as
+    ``hold_card_to_cpu`` holds them."""
     import re
 
-    import numpy as np
     import torch
 
     from subgraph_sketching_tpu_torch.config import Config
@@ -1031,6 +1071,27 @@ def phase_train_reference(seed: int = 5) -> dict:
                 losses.double().cpu().numpy(),
                 {k: v.double().cpu() for k, v in model.state_dict().items()
                  if v.is_floating_point()})
+    return {"phase": "train_reference", "dataset": cfg.dataset_name,
+            "hidden_channels": cfg.hidden_channels,
+            **hold_card_to_cpu(runs, "train_reference"),
+            "tolerance": "float64: 1e-9; float32: losses rtol 1e-4, "
+                         "parameters rtol 1e-4 / atol 1e-5 or within 4x "
+                         "the CPU float32 run's distance from float64; "
+                         "pre-BN biases frozen"}
+
+
+def hold_card_to_cpu(runs: dict, what: str) -> dict:
+    """The comparison of the ``*_reference`` phases, over ``runs[device,
+    dtype] = (step losses, {state entry: tensor})``, both in float64 on
+    the CPU.  float64: step losses and every entry within 1e-9 (the same
+    function on both devices).  float32: step losses within rtol 1e-4;
+    each entry within rtol 1e-4 / atol 1e-5 of the CPU one, or, where
+    float32 rounding alone moves it further (Adam scales the rounding of a
+    near-zero gradient to up to lr a step), no further from the float64
+    result than 4x the CPU float32 run is."""
+    import numpy as np
+    import torch
+
     f32, f64 = torch.float32, torch.float64
     np.testing.assert_allclose(runs["cuda", f64][0], runs["cpu", f64][0],
                                rtol=1e-9)
@@ -1052,21 +1113,16 @@ def phase_train_reference(seed: int = 5) -> dict:
                      "card_vs_float64": card_err,
                      "cpu_vs_float64": cpu_err}
         if card_err > 4 * cpu_err:
-            raise AssertionError(f"train_reference: {k} on the card is "
-                                 f"{card_err} from the float64 result, the "
-                                 f"CPU float32 run {cpu_err}")
-    return {"phase": "train_reference", "dataset": cfg.dataset_name,
-            "hidden_channels": cfg.hidden_channels, "steps": len(want),
+            raise AssertionError(f"{what}: {k} on the card is {card_err} "
+                                 f"from the float64 result, the CPU "
+                                 f"float32 run {cpu_err}")
+    return {"steps": len(want),
             "max_loss_rel_diff": float(np.abs(got / want - 1).max()),
             "max_param_rel_diff": max_rel,
             "beyond_rtol_1e-4_atol_1e-5": beyond,
             "float64_max_param_diff": max(
                 float((runs["cuda", f64][1][k] - v).abs().max())
-                for k, v in runs["cpu", f64][1].items()),
-            "tolerance": "float64: 1e-9; float32: losses rtol 1e-4, "
-                         "parameters rtol 1e-4 / atol 1e-5 or within 4x "
-                         "the CPU float32 run's distance from float64; "
-                         "pre-BN biases frozen"}
+                for k, v in runs["cpu", f64][1].items())}
 
 
 # ----------------------------------------------------------------- ELPH --
@@ -1224,7 +1280,6 @@ def phase_train_elph(splits, seed: int = 9) -> dict:
 
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from subgraph_sketching_tpu_torch.config import Config
     from subgraph_sketching_tpu_torch.graph.preprocess import (
@@ -1352,17 +1407,10 @@ def phase_train_elph(splits, seed: int = 9) -> dict:
 
     # device idle share over ELPH_PROFILE_STEPS steps (after 3 warm
     # steps), with K1's add launches counted by the wrapper and in the trace
-    window = order[:ELPH_PROFILE_STEPS * bs]
-    trainer.run_epoch(model, opt, seed, order=order[:3 * bs])
-    torch.cuda.synchronize()
-    _reset_k1()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        trainer.run_epoch(model, opt, seed, order=window)
-        torch.cuda.synchronize()
-        window_s = time.perf_counter() - t1
-    busy_ms, per = _device_time(prof)
+    window_s, busy_ms, per = profile_window(
+        lambda: trainer.run_epoch(model, opt, seed, order=order[:3 * bs]),
+        lambda: trainer.run_epoch(model, opt, seed,
+                                  order=order[:ELPH_PROFILE_STEPS * bs]))
     window_adds = segscan.launches["segscan_add_f32"]
     traced_adds = sum(c for k, (_, c) in per.items()
                       if "segscan_kernel" in k)
@@ -1476,7 +1524,6 @@ def phase_elph_reference(seed: int = 10) -> dict:
     holds it."""
     import re
 
-    import numpy as np
     import torch
 
     from subgraph_sketching_tpu_torch.config import Config
@@ -1532,40 +1579,11 @@ def phase_elph_reference(seed: int = 10) -> dict:
             or launches["segscan_add_f64"] < 4 * steps:
         raise AssertionError(f"elph_reference: the card's runs did not go "
                              f"through K1: {launches}")
-    f32, f64 = torch.float32, torch.float64
-    np.testing.assert_allclose(runs["cuda", f64][0], runs["cpu", f64][0],
-                               rtol=1e-9)
-    for k, v in runs["cpu", f64][1].items():
-        torch.testing.assert_close(runs["cuda", f64][1][k], v, rtol=1e-9,
-                                   atol=1e-12)
-    want, got = runs["cpu", f32][0], runs["cuda", f32][0]
-    np.testing.assert_allclose(got, want, rtol=1e-4)
-    max_rel, beyond = 0.0, {}
-    for k, exact in runs["cpu", f64][1].items():
-        cpu, card = runs["cpu", f32][1][k], runs["cuda", f32][1][k]
-        max_rel = max(max_rel, float(((card - cpu).abs()
-                                      / (cpu.abs() + 1e-5)).max()))
-        if bool(((card - cpu).abs() <= 1e-5 + 1e-4 * cpu.abs()).all()):
-            continue
-        card_err = float((card - exact).abs().max())
-        cpu_err = float((cpu - exact).abs().max())
-        beyond[k] = {"card_vs_cpu": float((card - cpu).abs().max()),
-                     "card_vs_float64": card_err,
-                     "cpu_vs_float64": cpu_err}
-        if card_err > 4 * cpu_err:
-            raise AssertionError(f"elph_reference: {k} on the card is "
-                                 f"{card_err} from the float64 result, the "
-                                 f"CPU float32 run {cpu_err}")
     return {"phase": "elph_reference", "dataset": cfg.dataset_name,
-            "hidden_channels": cfg.hidden_channels, "steps": len(want),
+            "hidden_channels": cfg.hidden_channels,
             "k1_launches": launches,
             "max_sf_abs_diff": float((sf_card.cpu() - sf_cpu).abs().max()),
-            "max_loss_rel_diff": float(np.abs(got / want - 1).max()),
-            "max_param_rel_diff": max_rel,
-            "beyond_rtol_1e-4_atol_1e-5": beyond,
-            "float64_max_param_diff": max(
-                float((runs["cuda", f64][1][k] - v).abs().max())
-                for k, v in runs["cpu", f64][1].items()),
+            **hold_card_to_cpu(runs, "elph_reference"),
             "tolerance": "sketches bit-equal, sf rtol 1e-5 / atol 1e-4; "
                          "float64: 1e-9; float32: losses rtol 1e-4, "
                          "parameters rtol 1e-4 / atol 1e-5 or within 4x "
@@ -2052,6 +2070,448 @@ def phase_datasets_citation2(seed: int = 7) -> tuple:
     return record, instances
 
 
+# -------------------------------------------------- node embeddings: ddi --
+
+# ogbl-ddi at its published shape (ogb/linkproppred/master.csv and the OGB
+# paper's dataset table): nodes, train edges stored one direction, valid
+# and test positives, and their negatives
+DDI = {"nodes": 4_267, "train": 1_067_911, "valid": 133_489,
+       "test": 133_489, "valid_neg": 101_882, "test_neg": 95_599}
+# the reference README's two ddi commands (tests/test_cli.py), cut below to
+# 2 epochs with eval every epoch
+DDI_COMMANDS = {
+    "BUDDY": "--dataset ogbl-ddi --K 20 --train_node_embedding "
+             "--propagate_embeddings --label_dropout 0.25 --epochs 150 "
+             "--hidden_channels 256 --lr 0.0015 --num_negs 6 --use_feature 0 "
+             "--sign_k 2 --cache_subgraph_features --batch_size 131072 "
+             "--model BUDDY",
+    "ELPH": "--dataset ogbl-ddi --K 20 --train_node_embedding "
+            "--propagate_embeddings --label_dropout 0.25 --epochs 150 "
+            "--hidden_channels 256 --lr 0.0015 --num_negs 6 --use_feature 0 "
+            "--sign_k 2 --batch_size 131072 --model ELPH"}
+DDI_CUT = ["--epochs", "2", "--eval_steps", "1", "--check_determinism",
+           "--save_model", "--device", "cuda"]
+DDI_PROFILE_STEPS = 20
+# K1 add launches a step with a trainable table and sign_k 2: two forward
+# propagations, their two backwards and gather_rows' backward
+DDI_ADDS_PER_STEP = 5
+
+
+def write_ddi(root: str, seed: int = 11) -> dict:
+    """An ``ogbl_ddi`` raw-layout tree at the published shape, from a seed,
+    in the layout of tests/ogb_fixture.py (no node features): distinct
+    unordered pairs without self-loops, endpoints drawn with probability
+    proportional to rank^-0.45 (the largest train degree lands near the
+    real graph's 2,234), shuffled into train / valid / test, and random
+    non-edges as the valid and test negatives.  Returns the train degree
+    profile."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n = DDI["nodes"]
+    need = DDI["train"] + DDI["valid"] + DDI["test"]
+    p = np.arange(1, n + 1, dtype=np.float64) ** -0.45
+    p = p[rng.permutation(n)] / p.sum()
+    keys = np.zeros(0, np.int64)          # lo * n + hi, lo < hi
+    while len(keys) < need:
+        k = 2 * (need - len(keys)) + 1000
+        a, b = rng.choice(n, k, p=p), rng.choice(n, k, p=p)
+        keep = a != b
+        lo, hi = np.minimum(a, b)[keep], np.maximum(a, b)[keep]
+        keys = np.unique(np.concatenate([keys, lo.astype(np.int64) * n + hi]))
+    keys = rng.permutation(keys)[:need]
+
+    def pairs(k):
+        return np.stack([k // n, k % n], axis=1)
+
+    def negatives(count):
+        out = np.zeros(0, np.int64)
+        while len(out) < count:
+            a = rng.integers(0, n, 2 * count)
+            b = rng.integers(0, n, 2 * count)
+            k = np.minimum(a, b) * n + np.maximum(a, b)
+            k = np.unique(k[(a != b) & ~np.isin(k, keys)])
+            out = np.union1d(out, k)
+        return pairs(rng.permutation(out)[:count])
+
+    cut = np.cumsum([DDI["train"], DDI["valid"]])
+    train, valid, test = (pairs(k) for k in np.split(keys, cut))
+    base = os.path.join(root, "ogbl_ddi")
+    raw, split = os.path.join(base, "raw"), os.path.join(base, "split",
+                                                         "target")
+    os.makedirs(raw)
+    os.makedirs(split)
+    _write_csv_gz(os.path.join(raw, "edge.csv.gz"), train, "%d")
+    _write_csv_gz(os.path.join(raw, "num-node-list.csv.gz"), [n], "%d")
+    torch.save({"edge": torch.from_numpy(train)},
+               os.path.join(split, "train.pt"))
+    for name, e in (("valid", valid), ("test", test)):
+        torch.save({"edge": torch.from_numpy(e),
+                    "edge_neg": torch.from_numpy(negatives(
+                        DDI[f"{name}_neg"]))},
+                   os.path.join(split, f"{name}.pt"))
+    deg = np.bincount(train.ravel(), minlength=n)
+    return {"max": int(deg.max()), "median": float(np.median(deg)),
+            "mean": float(deg.mean())}
+
+
+def _ddi_run(root: str, model: str, name: str) -> tuple:
+    """One reference ddi command through ``runners.run.main``, cut by
+    DDI_CUT, with its K1 launch counts and peak memory read around it and
+    the trainer and datasets the runner built kept.  Returns (record,
+    trainer, datasets)."""
+    import math
+    import shlex
+
+    import torch
+
+    from subgraph_sketching_tpu_torch.ops import segscan
+    from subgraph_sketching_tpu_torch.runners import run as runner
+
+    ckpt = os.path.join(root, name)
+    kept = {}
+    build_trainer = runner.build_trainer
+
+    def keep(cfg, datasets, num_features, device):
+        kept.update(trainer=build_trainer(cfg, datasets, num_features,
+                                          device), datasets=datasets)
+        return kept["trainer"]
+
+    argv = shlex.split(DDI_COMMANDS[model]) + DDI_CUT + [
+        "--data_root", root, "--checkpoint_dir", ckpt]
+    if model == "BUDDY":
+        argv += ["--cache_dir", os.path.join(root, "cache")]
+    _reset_k1()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    runner.build_trainer = keep
+    try:
+        t0 = time.perf_counter()
+        results = runner.main(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        runner.build_trainer = build_trainer
+    launches = dict(segscan.launches)
+    trainer = kept["trainer"]
+    cfg = trainer.cfg
+    with open(os.path.join(ckpt, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    losses = [r["rep0_loss"] for r in rows]
+    if len(rows) != 2 or not all(map(math.isfinite, losses)) \
+            or not losses[1] < losses[0]:
+        raise AssertionError(f"ddi {name}: losses not finite and falling: "
+                             f"{losses}")
+    n_links = trainer.num_links("train")
+    steps = math.ceil(n_links / cfg.batch_size)
+    trained_steps = steps * (cfg.epochs + 2)   # + the determinism check's 2
+    adds = launches["segscan_add_f32"]
+    if adds < DDI_ADDS_PER_STEP * trained_steps:
+        raise AssertionError(f"ddi {name}: {adds} K1 add launches for "
+                             f"{trained_steps} steps, expected at least "
+                             f"{DDI_ADDS_PER_STEP} a step")
+    if "emb_plan" not in trainer._data["train"]:
+        raise AssertionError(f"ddi {name}: the trainer staged no PlanSpmm "
+                             f"for the table's diffusion")
+    metric = f"Hits@{cfg.K}"
+    record = {
+        "phase": "ddi", "part": name, "model": model,
+        "command": DDI_COMMANDS[model] + " " + " ".join(DDI_CUT),
+        "hidden_channels": cfg.hidden_channels,
+        "batch_size": cfg.batch_size, "num_negs": cfg.num_negs,
+        "sign_k": cfg.sign_k, "lr": cfg.lr, "train_links": n_links,
+        "steps_per_epoch": steps, "trained_steps": trained_steps,
+        "run_s": run_s, "get_data_s": rows[0]["rep0_get_data_time"],
+        "preprocess_s": rows[0]["rep0_preprocess_time"],
+        "epochs": [{"epoch": i, "loss": r["rep0_loss"],
+                    "train_s": r["rep0_train_time"],
+                    "eval_s": r["rep0_eval_time"],
+                    "trained_links_per_s": n_links / r["rep0_train_time"],
+                    "step_ms": 1e3 * r["rep0_train_time"] / steps,
+                    metric.lower(): {
+                        "train": r[f"rep0_Train{metric}"] / 100,
+                        "valid": r[f"rep0_tmp_val{metric}"] / 100,
+                        "test": r[f"rep0_tmp_test{metric}"] / 100}}
+                   for i, r in enumerate(rows)],
+        "results": results,
+        "determinism": "epoch 0 bit-identical on two runs",
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "k1_launches": launches,
+        "k1_add_launches_per_trained_step": adds / trained_steps,
+        "emb_plan_subruns": {
+            "forward": trainer._data["train"]["emb_plan"].fwd.num_subruns,
+            "backward": trainer._data["train"]["emb_plan"].bwd.num_subruns}}
+    return record, trainer, kept["datasets"]
+
+
+def _ddi_profile(trainer, seed: int) -> dict:
+    """The device idle share and top kernels over DDI_PROFILE_STEPS steps
+    (after 3 warm ones, ``profile_window``) of the trained model, restored
+    from the run's checkpoint, with exactly DDI_ADDS_PER_STEP K1 add
+    launches a step by the counter and in the trace."""
+    import torch
+
+    from subgraph_sketching_tpu_torch.ops import segscan
+    from subgraph_sketching_tpu_torch.train import checkpoint
+    from subgraph_sketching_tpu_torch.train.loops import make_optimizer
+
+    cfg = trainer.cfg
+    model = trainer.init_model(0)
+    opt = make_optimizer(cfg, model.parameters())
+    checkpoint.restore_into(cfg.checkpoint_dir, model, opt)
+    bs = cfg.batch_size
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    order = torch.randperm(trainer.num_links("train"), generator=g,
+                           device="cuda")
+    window_s, busy_ms, per = profile_window(
+        lambda: trainer.run_epoch(model, opt, seed, order=order[:3 * bs]),
+        lambda: trainer.run_epoch(model, opt, seed,
+                                  order=order[:DDI_PROFILE_STEPS * bs]))
+    counted = segscan.launches["segscan_add_f32"]
+    traced = sum(c for k, (_, c) in per.items() if "segscan_kernel" in k)
+    if counted != DDI_ADDS_PER_STEP * DDI_PROFILE_STEPS or traced != counted:
+        raise AssertionError(
+            f"{DDI_PROFILE_STEPS} ddi steps: {counted} K1 add launches "
+            f"counted, {traced} traced, expected {DDI_ADDS_PER_STEP} a step")
+    return {"steps": DDI_PROFILE_STEPS, "window_ms": window_s * 1e3,
+            "step_ms": window_s * 1e3 / DDI_PROFILE_STEPS,
+            "k1_add_launches": counted, "k1_add_kernels_traced": traced,
+            "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / (window_s * 1e3),
+            "top_kernels": sorted(([k, v[0], v[1]] for k, v in per.items()),
+                                  key=lambda r: -r[1])[:10]}
+
+
+def _ddi_serve(trainer, datasets, seed: int) -> dict:
+    """The run's saved checkpoint served by ``scorer_from_checkpoint``
+    (the table diffused once, by the scatter spmm): its scores for 65536
+    random links equal the trainer's ``predict`` on them (staged as a
+    split of the train message graph) within 1e-4."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from subgraph_sketching_tpu_torch.graph.container import Graph
+    from subgraph_sketching_tpu_torch.graph.preprocess import (
+        build_link_dataset,
+    )
+    from subgraph_sketching_tpu_torch.graph.splits import SplitData
+    from subgraph_sketching_tpu_torch.serving import scorer_from_checkpoint
+    from subgraph_sketching_tpu_torch.train import checkpoint
+
+    cfg = trainer.cfg
+    train = datasets["train"]
+    model = trainer.init_model(0)
+    checkpoint.restore_into(cfg.checkpoint_dir, model, step=cfg.epochs)
+    links = np.random.default_rng(seed).integers(0, train.num_nodes,
+                                                 (65536, 2))
+    query = SplitData(Graph(train.edge_index, train.num_nodes), links,
+                      np.zeros((0, 2), np.int64))
+    trainer.stage("query", build_link_dataset(
+        query, dataclasses.replace(cfg, cache_subgraph_features=False),
+        "query", reuse_from=train, device="cuda"))
+    want, _ = trainer.predict(model, "query")
+    del model
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scorer = scorer_from_checkpoint(cfg.checkpoint_dir, device="cuda")
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t0
+    got = scorer.score(links)
+    err = float(np.abs(got - want).max())
+    if scorer.restored_step != cfg.epochs or scorer.emb_table is None \
+            or not np.isfinite(got).all() or err > 1e-4:
+        raise AssertionError(f"ddi: served scores differ from the trainer's "
+                             f"predict: max |err| {err}, step "
+                             f"{scorer.restored_step}")
+    return {"serve_rebuild_s": rebuild_s, "served_links": len(links),
+            "served_max_abs_err": err}
+
+
+def _ddi_k1(trainer, seed: int) -> dict:
+    """K1 at the ddi diffusion's shape: the staged PlanSpmm's forward and
+    backward sub-run results at W = hidden_channels (256) float32, each
+    against the plain merge (ADD_TOLERANCE) and itself across two calls,
+    and timed as the kernels phase times it."""
+    import torch
+
+    ps = trainer._data["train"]["emb_plan"]
+    n, w = ps.num_nodes, trainer.cfg.hidden_channels
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    with torch.no_grad():
+        for what, plan, wts in (("forward", ps.fwd, ps._w_fwd),
+                                ("backward", ps.bwd, ps._w_bwd)):
+            x = torch.randn((n, w), generator=g, device="cuda")
+            v = plan.reduce_subruns(x, "add", wts).contiguous()
+            out[what] = {
+                "phase": "ddi", "direction": what,
+                "name": f"segscan_add_f32 (ddi diffusion {what}, W={w})",
+                **k1_record(f"ddi diffusion {what}", "add", v, x,
+                            plan.sub_ptr)}
+            del x, v
+    return out
+
+
+def phase_ddi(seed: int = 12) -> tuple:
+    """Node embeddings at ogbl-ddi's published shape: the raw tree written
+    from a seed (its seconds apart), then the reference's ddi BUDDY
+    command twice with one --cache_dir (the second run reads the subgraph
+    feature caches and equals the first: every split's features and the
+    epoch losses) and its ddi ELPH command, each cut to 2 epochs with eval
+    every epoch, --check_determinism and --save_model (_ddi_run); for the
+    first BUDDY run and the ELPH run the profiled window (_ddi_profile)
+    and the served checkpoint (_ddi_serve); K1 at the diffusion's shape
+    (_ddi_k1).  Returns ({direction: K1 record}, [run records],
+    summary)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    root = tempfile.mkdtemp(prefix="smoke_ddi_")
+    try:
+        t0 = time.perf_counter()
+        degrees = write_ddi(root)
+        write_s = time.perf_counter() - t0
+        runs, features, k1 = [], [], None
+        for model, name in (("BUDDY", "buddy"), ("BUDDY", "buddy_cached"),
+                            ("ELPH", "elph")):
+            record, trainer, datasets = _ddi_run(root, model, name)
+            if model == "BUDDY":
+                features.append({k: d.subgraph_features
+                                 for k, d in datasets.items()})
+            if name != "buddy_cached":
+                record["profile"] = _ddi_profile(trainer, seed)
+                record.update(_ddi_serve(trainer, datasets, seed))
+            if k1 is None:
+                k1 = _ddi_k1(trainer, seed)
+            runs.append(record)
+            del trainer, datasets
+            torch.cuda.empty_cache()
+        first, cached = runs[0], runs[1]
+        for split, sf in features[0].items():
+            if not np.array_equal(sf, features[1][split]):
+                raise AssertionError(f"ddi: the cached run's {split} "
+                                     f"subgraph features differ")
+        if [e["loss"] for e in first["epochs"]] \
+                != [e["loss"] for e in cached["epochs"]]:
+            raise AssertionError("ddi: the cached BUDDY run's losses differ "
+                                 "from the first run's")
+        if cached["k1_launches"]["segscan_min_i32"] \
+                or cached["k1_launches"]["segscan_max_i8"]:
+            raise AssertionError("ddi: the cached run built sketches")
+        cached_files = sorted(os.listdir(os.path.join(root, "cache")))
+        summary = {"phase": "ddi", "part": "summary", "shape": DDI,
+                   "write_s": write_s, "train_degrees": degrees,
+                   "cached_files": cached_files,
+                   "cached_run_equal": ["subgraph_features", "losses"],
+                   "k1_add_launches": sum(r["k1_launches"]["segscan_add_f32"]
+                                          for r in runs)}
+        return k1, runs, summary
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# biases of the Linear layers that feed a BatchNorm, with node embeddings:
+# the heads' and the table diffusion's lin_k (its BatchNorm runs over the
+# table's rows)
+EMB_PRE_BN_BIAS = {
+    "BUDDY": r"(buddy\.(label_lin_layer|lin_out|lin_emb_out|sign\.lin_\d+)"
+             r"|sign_embedding\.lin_\d+)\.bias",
+    "ELPH": r"(predictor\.(label_lin_layer|lin_out|lin_emb_out)"
+            r"|embedding\.sign_embedding\.lin_\d+)\.bias"}
+
+
+def phase_emb_reference(seed: int = 13) -> dict:
+    """A small BUDDY and a small ELPH with a trainable, propagated
+    node-embedding table (synth-ws, hidden 32, no node features, sign_k 2,
+    dropouts 0, the pre-BN biases frozen), each trained 2 epochs from the
+    same weights on the same explicit orders on the card (the diffusion's
+    PlanSpmm and gather_rows on K1) and on the CPU (their plain versions),
+    in float32 and in float64 (K1's float64 add); held as
+    ``hold_card_to_cpu`` holds them.  ELPH's subgraph features are built
+    on each device (within rtol 1e-5 / atol 1e-4), and both runs then
+    train on the CPU's."""
+    import re
+
+    import torch
+
+    from subgraph_sketching_tpu_torch.config import Config
+    from subgraph_sketching_tpu_torch.graph.datasets import get_data
+    from subgraph_sketching_tpu_torch.graph.preprocess import build_all_splits
+    from subgraph_sketching_tpu_torch.ops import segscan
+    from subgraph_sketching_tpu_torch.train.loops import (
+        BuddyTrainer, ElphTrainer, epoch_seed, make_optimizer,
+    )
+
+    out = {"phase": "emb_reference"}
+    for name, trainer_cls, floats in (
+            ("BUDDY", BuddyTrainer, ("rows",)),
+            ("ELPH", ElphTrainer, ("sf", "labels"))):
+        cfg = Config(dataset_name="synth-ws", model=name, hidden_channels=32,
+                     label_dropout=0.0, feature_dropout=0.0,
+                     sign_dropout=0.0, use_feature=False, sign_k=2,
+                     train_node_embedding=True, propagate_embeddings=True)
+        splits, directed, _ = get_data(cfg)
+        ds = build_all_splits(splits, cfg, directed=directed, device="cpu")
+        n = ds["train"].num_links
+        g = torch.Generator().manual_seed(seed)
+        orders = [torch.randperm(n, generator=g) for _ in range(2)]
+        trainers = {dev: trainer_cls(cfg, ds["train"], None, device=dev)
+                    for dev in ("cpu", "cuda")}
+        if name == "ELPH":
+            sf_cpu = trainers["cpu"]._data["train"]["sf"]
+            torch.testing.assert_close(
+                trainers["cuda"]._data["train"]["sf"].cpu(), sf_cpu,
+                rtol=1e-5, atol=1e-4)
+            trainers["cuda"]._data["train"]["sf"] = sf_cpu.to(
+                trainers["cuda"].device)
+        if "emb_plan" not in trainers["cuda"]._data["train"]:
+            raise AssertionError(f"emb_reference: the {name} trainer "
+                                 f"staged no PlanSpmm")
+        runs = {}
+        _reset_k1()
+        for dev, tr in trainers.items():
+            base = dict(tr._data["train"])
+            for dtype in (torch.float32, torch.float64):
+                tr._data["train"] = {k: (v.to(dtype) if k in floats else v)
+                                     for k, v in base.items()}
+                model = tr.init_model(seed).to(dtype)
+                for p_name, p in model.named_parameters():
+                    p.requires_grad_(not re.fullmatch(EMB_PRE_BN_BIAS[name],
+                                                      p_name))
+                opt = make_optimizer(cfg, model.parameters())
+                losses = torch.cat([tr.run_epoch(model, opt,
+                                                 epoch_seed(0, e),
+                                                 order=orders[e])
+                                    for e in range(2)])
+                runs[dev, dtype] = (
+                    losses.double().cpu().numpy(),
+                    {k: v.double().cpu()
+                     for k, v in model.state_dict().items()
+                     if v.is_floating_point()})
+            tr._data["train"] = base
+        launches = dict(segscan.launches)
+        steps = sum(-(-len(o) // cfg.batch_size) for o in orders)
+        if launches["segscan_add_f32"] != DDI_ADDS_PER_STEP * steps \
+                or launches["segscan_add_f64"] != DDI_ADDS_PER_STEP * steps:
+            raise AssertionError(f"emb_reference {name}: K1 add launches "
+                                 f"{launches}, expected "
+                                 f"{DDI_ADDS_PER_STEP} a step in each "
+                                 f"precision over {steps} steps")
+        out[name] = {"k1_launches": launches,
+                     **hold_card_to_cpu(runs, f"emb_reference {name}")}
+    out.update(dataset="synth-ws", hidden_channels=32, sign_k=2,
+               tolerance="float64: 1e-9; float32: losses rtol 1e-4, "
+                         "parameters rtol 1e-4 / atol 1e-5 or within 4x "
+                         "the CPU float32 run's distance from float64; "
+                         "pre-BN biases frozen")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2112,6 +2572,10 @@ def main() -> int:
     del plans, hub
     citation2, chunked = phase_datasets_citation2()
     emit(citation2)
+    ddi_k1, ddi_runs, ddi = phase_ddi()
+    for r in ddi_runs + [ddi] + list(ddi_k1.values()):
+        emit(r)
+    emit(phase_emb_reference())
 
     # each K1, K2 and K3 instance's bench_hub record, by name
     at_hub = {r["name"]: r for r in hub_records + hub_routes if "name" in r}
@@ -2167,7 +2631,20 @@ def main() -> int:
                         "all three ELPH add uses together",
          "launches_per_step_counted_in_trace":
              elph["profile"]["k1_add_launches"] / ELPH_PROFILE_STEPS}
-        for r in [*spmm_k1.values(), gather_k1]]})
+        for r in [*spmm_k1.values(), gather_k1]] + [
+        {"name": r["name"], "route": "cuda", "source": f"{CSRC}/segscan.cu",
+         "replaces": REPLACES["segscan"], "launches": ddi["k1_add_launches"],
+         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+         "graph_ms": r["graph_ms"],
+         "launches_of": "segscan_add_f32 in the three ddi runs, the "
+                        "diffusion each way, gather_rows' backward and "
+                        "eval together",
+         "launches_per_step_counted_in_trace": [
+             run["profile"]["k1_add_launches"] / DDI_PROFILE_STEPS
+             for run in ddi_runs if "profile" in run]}
+        for r in ddi_k1.values()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -7,7 +7,7 @@ from subgraph_sketching_tpu_torch.models.elph import (  # noqa: F401
     ELPH, ELPHPredictor,
 )
 from subgraph_sketching_tpu_torch.models.gnn import (  # noqa: F401
-    SIGN, GCNConv, batch_norm,
+    SIGN, GCNConv, SIGNEmbedding, batch_norm,
 )
 from subgraph_sketching_tpu_torch.models.predictor import (  # noqa: F401
     LinkPredictor,

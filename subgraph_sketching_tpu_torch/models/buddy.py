@@ -25,6 +25,8 @@ class BUDDY(nn.Module):
       node_features [B, 2, d] raw features, or [B, 2, d*(sign_k+1)] if sign_k>0
       src_degree / dst_degree [B] — for the degree-normalised feature copy
       RA            [B] resource-allocation scores (with ``use_RA``)
+      emb           [B, 2, emb_dim] node-embedding rows (with
+                    ``use_embedding``; emb_dim defaults to hidden_channels)
     Returns logits [B, 1].
     """
 
@@ -33,11 +35,8 @@ class BUDDY(nn.Module):
                  sign_k: int = 0, append_normalised: bool = False,
                  use_RA: bool = False, use_embedding: bool = False,
                  label_dropout: float = 0.5, feature_dropout: float = 0.5,
-                 sign_dropout: float = 0.5):
+                 sign_dropout: float = 0.5, emb_dim: Optional[int] = None):
         super().__init__()
-        if use_embedding:
-            raise NotImplementedError(
-                "BUDDY's node-embedding inputs are not ported yet")
         self.use_feature = use_feature and num_features is not None
         self.sign_k = sign_k
         self.append_normalised = append_normalised
@@ -45,6 +44,7 @@ class BUDDY(nn.Module):
         self.label_lin_layer = nn.Linear(dim, dim)
         self.bn_labels = batch_norm(dim)
         self.label_dropout = Dropout(label_dropout)
+        self.feature_dropout = Dropout(feature_dropout)
         out_dim = dim
         if self.use_feature:
             # (reference feature_forward, src/models/elph.py:295-311)
@@ -55,7 +55,14 @@ class BUDDY(nn.Module):
                 self.lin_feat = nn.Linear(num_features, hidden_channels)
             self.lin_out = nn.Linear(hidden_channels, hidden_channels)
             self.bn_feats = batch_norm(hidden_channels)
-            self.feature_dropout = Dropout(feature_dropout)
+            out_dim += hidden_channels
+        self.use_embedding = use_embedding
+        if use_embedding:
+            # (reference embedding_forward, src/models/elph.py:313-322)
+            self.lin_emb = nn.Linear(emb_dim or hidden_channels,
+                                     hidden_channels)
+            self.lin_emb_out = nn.Linear(hidden_channels, hidden_channels)
+            self.bn_embs = batch_norm(hidden_channels)
             out_dim += hidden_channels
         self.use_RA = use_RA
         if use_RA:
@@ -65,10 +72,12 @@ class BUDDY(nn.Module):
         self.lin = nn.Linear(out_dim, 1)
 
     @classmethod
-    def from_config(cls, cfg, num_features: Optional[int]) -> "BUDDY":
+    def from_config(cls, cfg, num_features: Optional[int],
+                    emb_dim: Optional[int] = None) -> "BUDDY":
         """The model a BUDDY run with ``cfg`` trains (as the JAX package's
         BuddyTrainer builds it).  ``num_features`` is the width of the
-        split's node features, d*(sign_k+1) when sign_k > 0."""
+        split's node features, d*(sign_k+1) when sign_k > 0; ``emb_dim``
+        the width of the embedding rows (default hidden_channels)."""
         if num_features is not None:
             num_features //= cfg.sign_k + 1
         return cls(sf_dim=cfg.sf_dim, hidden_channels=cfg.hidden_channels,
@@ -81,7 +90,7 @@ class BUDDY(nn.Module):
                                   or cfg.pretrained_node_embedding is not None),
                    label_dropout=cfg.label_dropout,
                    feature_dropout=cfg.feature_dropout,
-                   sign_dropout=cfg.sign_dropout)
+                   sign_dropout=cfg.sign_dropout, emb_dim=emb_dim)
 
     @staticmethod
     def _append_degree_normalised(x, src_degree, dst_degree):
@@ -97,6 +106,7 @@ class BUDDY(nn.Module):
                 src_degree: Optional[torch.Tensor] = None,
                 dst_degree: Optional[torch.Tensor] = None,
                 RA: Optional[torch.Tensor] = None,
+                emb: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``generator`` draws the dropout masks in training mode."""
         if self.append_normalised:
@@ -111,6 +121,11 @@ class BUDDY(nn.Module):
             h = self.lin_out(h[:, 0, :] * h[:, 1, :])
             h = self.feature_dropout(torch.relu(self.bn_feats(h)), generator)
             x = torch.cat([x, h], dim=1)
+        if self.use_embedding and emb is not None:
+            e = self.lin_emb(emb)
+            e = self.lin_emb_out(e[:, 0, :] * e[:, 1, :])
+            e = self.feature_dropout(torch.relu(self.bn_embs(e)), generator)
+            x = torch.cat([x, e], dim=1)
         if self.use_RA and RA is not None:
             x = torch.cat([x, self.bn_RA(RA[:, None].to(x.dtype))], dim=1)
         return self.lin(x)

@@ -7,7 +7,7 @@ over without the port importing jax:
 
     sd = buddy_state_dict_from_flax(
         jax.tree.map(np.asarray, state.params),
-        jax.tree.map(np.asarray, state.batch_stats))
+        jax.tree.map(np.asarray, state.batch_stats), model)
     model.load_state_dict(sd)
     optimizer.load_state_dict(adam_state_from_optax(
         jax.tree.map(np.asarray, state.opt_state), model, optimizer))
@@ -18,7 +18,7 @@ over without the port importing jax:
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -28,10 +28,41 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
-def _unwrap(params: dict) -> dict:
-    """The trainer's ``BuddyWithEmbedding`` wrapper holds the BUDDY under a
-    top-level ``buddy`` entry."""
-    return params["buddy"] if "buddy" in params else params
+# the JAX BUDDY trainer's tree: its BuddyWithEmbedding holds the BUDDY
+# under ``buddy``, the table and its diffusion beside it
+_TABLE_ENTRIES = ("node_embedding", "sign_embedding")
+
+
+def _carries_table(tree: Mapping) -> bool:
+    return any(_nonempty(tree.get(k)) for k in _TABLE_ENTRIES)
+
+
+def _nonempty(sub) -> bool:
+    return sub is not None and (not isinstance(sub, Mapping) or len(sub) > 0)
+
+
+def _is_wrapped(model: torch.nn.Module) -> bool:
+    """Whether the port's module is a ``BuddyWithEmbedding`` (a child
+    ``buddy``)."""
+    return "buddy" in dict(model.named_children())
+
+
+def _unwrap(tree: Mapping, wrapped: bool) -> Mapping:
+    """A JAX BUDDY trainer's tree (``{"buddy", "node_embedding",
+    "sign_embedding"}``; params, batch statistics or Adam moments) in the
+    layout of the port's module: whole for a ``BuddyWithEmbedding``
+    (``wrapped``), else the BUDDY alone, refusing a tree that carries a
+    table the module has no place for.  A tree with no ``buddy`` entry
+    (an ELPH tree, or a bare BUDDY's) is returned as it is."""
+    if "buddy" not in tree or wrapped:
+        return tree
+    if _carries_table(tree):
+        raise ValueError(
+            "the tree carries a node-embedding table (node_embedding / "
+            "sign_embedding) but the target BUDDY has none: build the "
+            "model with the run's embedding config (train/loops.py "
+            "build_buddy)")
+    return tree["buddy"]
 
 
 # flax's automatic submodule names -> the port's: a GCNConv's Dense
@@ -75,35 +106,39 @@ def _batch_stats_from_flax(batch_stats: dict, prefix: str = ""
     return out
 
 
-def buddy_state_dict_from_flax(params: dict, batch_stats: dict
+def buddy_state_dict_from_flax(params: dict, batch_stats: dict,
+                               model: Optional[torch.nn.Module] = None
                                ) -> Dict[str, torch.Tensor]:
-    """A ``BUDDY`` state_dict from flax ``params`` / ``batch_stats`` trees.
+    """A state_dict for ``model`` (a ``BUDDY``, or a
+    ``BuddyWithEmbedding`` with node embeddings) from the flax ``params``
+    / ``batch_stats`` trees of the JAX BUDDY trainer.
 
     Each Dense kernel [in, out] becomes a Linear weight [out, in]; each
     BatchNorm (scale, bias, mean, var), ``bn_RA`` of a ``use_RA`` model
-    included, becomes (weight, bias, running_mean, running_var).  The
-    trainer's ``BuddyWithEmbedding`` wrapper (a
-    top-level ``buddy`` entry) is unwrapped.
+    and ``sign_embedding``'s ``bn_k`` included, becomes (weight, bias,
+    running_mean, running_var); ``node_embedding`` [N, hidden] keeps its
+    layout.  The JAX tree always wraps the BUDDY (``{"buddy",
+    "node_embedding", "sign_embedding"}``); for a plain ``BUDDY`` it is
+    unwrapped, and a tree carrying a table is refused.  Without
+    ``model`` the target is a ``BuddyWithEmbedding`` exactly when the
+    tree carries a table.
     """
-    if "buddy" in params:
-        batch_stats = batch_stats.get("buddy", {})
-    return {**_parameters_from_flax(_unwrap(params)),
-            **_batch_stats_from_flax(batch_stats)}
+    wrapped = (_is_wrapped(model) if model is not None
+               else _carries_table(params))
+    return {**_parameters_from_flax(_unwrap(params, wrapped)),
+            **_batch_stats_from_flax(_unwrap(batch_stats, wrapped))}
 
 
 def elph_state_dict_from_flax(params: dict, batch_stats: dict
                               ) -> Dict[str, torch.Tensor]:
     """An ``ELPHPredictor`` state_dict from the flax ``params`` /
     ``batch_stats`` trees of the JAX ``ElphTrainer`` (``{"gnn",
-    "predictor"}``): ``gnn/conv_k/Dense_0/kernel`` (transposed) becomes
-    ``gnn.conv_k.lin.weight``, ``gnn/conv_k/bias`` ``gnn.conv_k.bias``,
-    ``gnn/feature_encoder`` and every ``predictor/*`` Dense and BatchNorm
-    map by name.  An ``embedding`` entry (node embeddings, not ported) is
-    refused."""
-    if params.get("embedding"):
-        raise NotImplementedError("ELPH's node embeddings are not ported "
-                                  "yet")
-    trees = ("gnn", "predictor")
+    "predictor", "embedding"}``): ``gnn/conv_k/Dense_0/kernel``
+    (transposed) becomes ``gnn.conv_k.lin.weight``, ``gnn/conv_k/bias``
+    ``gnn.conv_k.bias``; ``gnn/feature_encoder``, every ``predictor/*``
+    Dense and BatchNorm, ``embedding/node_embedding`` and
+    ``embedding/sign_embedding/{lin_k, bn_k, lin_out}`` map by name."""
+    trees = ("gnn", "predictor", "embedding")
     return {**_parameters_from_flax({k: params.get(k, {}) for k in trees}),
             **_batch_stats_from_flax({k: batch_stats.get(k, {})
                                       for k in trees})}
@@ -126,7 +161,8 @@ def adam_state_from_optax(opt_state, model: torch.nn.Module,
                           optimizer: torch.optim.Adam) -> dict:
     """A ``torch.optim.Adam`` state dict holding the moments of an optax
     Adam state (numpy trees), for ``optimizer`` over ``model.parameters()``
-    (a ``BUDDY`` or an ``ELPHPredictor``).
+    (a ``BUDDY``, a ``BuddyWithEmbedding`` or an ``ELPHPredictor``; a
+    trainable table's moments included, a frozen table having none).
 
     optax's ``add_decayed_weights`` then ``adam`` is torch's Adam with
     ``weight_decay`` (decay added to the gradient, eps outside the sqrt),
@@ -136,8 +172,9 @@ def adam_state_from_optax(opt_state, model: torch.nn.Module,
     adam = _find_adam_state(opt_state)
     if adam is None:
         raise ValueError("no optax ScaleByAdamState (count, mu, nu) found")
-    mu = _parameters_from_flax(_unwrap(adam.mu))
-    nu = _parameters_from_flax(_unwrap(adam.nu))
+    wrapped = _is_wrapped(model)
+    mu = _parameters_from_flax(_unwrap(adam.mu, wrapped))
+    nu = _parameters_from_flax(_unwrap(adam.nu, wrapped))
     names = [name for name, _ in model.named_parameters()]
     if sorted(names) != sorted(mu):
         raise ValueError(f"optax moments do not match the model's "

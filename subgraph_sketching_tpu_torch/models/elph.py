@@ -105,28 +105,33 @@ class ELPH(nn.Module):
 
 class ELPHPredictor(nn.Module):
     """ELPH with its LinkPredictor head in one module (children ``gnn``
-    and ``predictor``, the JAX trainer's ``{"gnn", "predictor"}`` params
-    tree), so checkpoints, the determinism check, ``models/convert.py``
-    and the optimizer see one model."""
+    and ``predictor``, and ``embedding`` with node embeddings: the JAX
+    trainer's ``{"gnn", "predictor", "embedding"}`` params tree), so
+    checkpoints, the determinism check, ``models/convert.py`` and the
+    optimizer see one model."""
 
     def __init__(self, sketch_params: SketchParams,
                  num_features: Optional[int], hidden_channels: int,
                  use_feature: bool = True, use_embedding: bool = False,
                  feature_prop: str = "gcn", label_dropout: float = 0.5,
-                 feature_dropout: float = 0.5):
+                 feature_dropout: float = 0.5, emb_dim: Optional[int] = None):
         super().__init__()
         self.sketch_params = sketch_params
         self.gnn = ELPH(sketch_params, num_features, hidden_channels,
                         use_feature, feature_prop, feature_dropout)
         self.predictor = LinkPredictor(
             sketch_params.sf_dim, hidden_channels, self.gnn.use_feature,
-            use_embedding, label_dropout, feature_dropout)
+            use_embedding, label_dropout, feature_dropout, emb_dim)
 
     @classmethod
     def from_config(cls, cfg, sketch_params: SketchParams,
-                    num_features: Optional[int]) -> "ELPHPredictor":
+                    num_features: Optional[int],
+                    emb_dim: Optional[int] = None) -> "ELPHPredictor":
         """The model an ELPH run with ``cfg`` trains (as the JAX package's
-        ElphTrainer builds it); ``num_features`` None without features."""
+        ElphTrainer builds it, less its node-embedding table, which the
+        trainer adds as the child ``embedding``); ``num_features`` None
+        without features, ``emb_dim`` the width of the embedding rows
+        (default hidden_channels)."""
         return cls(sketch_params, num_features, cfg.hidden_channels,
                    use_feature=cfg.use_feature and num_features is not None,
                    use_embedding=(cfg.train_node_embedding
@@ -134,7 +139,7 @@ class ELPHPredictor(nn.Module):
                                   is not None),
                    feature_prop=cfg.feature_prop,
                    label_dropout=cfg.label_dropout,
-                   feature_dropout=cfg.feature_dropout)
+                   feature_dropout=cfg.feature_dropout, emb_dim=emb_dim)
 
     def forward(self, x, edge_index, num_nodes, init_minhash, init_hll,
                 links, edge_weight=None, emb=None,

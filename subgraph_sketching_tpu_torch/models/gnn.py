@@ -1,5 +1,5 @@
-"""GNN building blocks of the port: batch norm, dropout, SIGN and the GCN
-convolution.
+"""GNN building blocks of the port: batch norm, dropout, SIGN, the SIGN
+embedding diffusion and the GCN convolution.
 
 BatchNorm: flax momentum 0.9 (the JAX package's ``BN_MOMENTUM``) is torch
 momentum 0.1; eps 1e-5 in both.
@@ -95,6 +95,49 @@ class SIGN(nn.Module):
             bn = getattr(self, f"bn_{k}")
             h = torch.stack([bn(h[:, 0, :]), bn(h[:, 1, :])], dim=1)
             hs.append(self.dropout(torch.relu(h), generator))
+        return self.lin_out(torch.cat(hs, dim=-1))
+
+
+class SIGNEmbedding(nn.Module):
+    """SIGN over a node table diffused on the fly (the JAX package's
+    ``SIGNEmbedding``; reference src/models/gnn.py:149-166, the ogbl-ddi
+    embeddings): for k = 0..K, ``lin_k`` -> ``bn_k`` (over the table's
+    rows) -> relu -> dropout of x_k, where x_0 is the table and
+    x_{k+1} = A x_k over the unweighted gcn_norm'd graph; the K+1 blocks
+    are concatenated and mixed by ``lin_out``.
+
+    The propagation is the staged ``PlanSpmm`` when ``plan`` is given,
+    else the scatter ``spmm`` over ``norm`` (gcn_norm(edge_index, None,
+    N), computed here when absent).  The JAX loop also computes x_{K+1},
+    which nothing reads and XLA drops; eager PyTorch would pay for it, so
+    only K propagations run.
+    """
+
+    def __init__(self, in_channels: int, hidden_channels: int,
+                 out_channels: int, K: int, dropout: float):
+        super().__init__()
+        self.K = K
+        for k in range(K + 1):
+            self.add_module(f"lin_{k}", nn.Linear(in_channels, hidden_channels))
+            self.add_module(f"bn_{k}", batch_norm(hidden_channels))
+        self.lin_out = nn.Linear(hidden_channels * (K + 1), out_channels)
+        self.dropout = Dropout(dropout)
+
+    def forward(self, x: torch.Tensor, edge_index: Optional[torch.Tensor],
+                num_nodes: int, plan=None, norm: Optional[tuple] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if plan is not None:
+            prop = plan
+        else:
+            ei, w = norm if norm is not None else gcn_norm(edge_index, None,
+                                                           num_nodes)
+            prop = lambda h: spmm(ei, w, h, num_nodes)   # noqa: E731
+        hs = []
+        for k in range(self.K + 1):
+            h = getattr(self, f"bn_{k}")(getattr(self, f"lin_{k}")(x))
+            hs.append(self.dropout(torch.relu(h), generator))
+            if k < self.K:
+                x = prop(x)
         return self.lin_out(torch.cat(hs, dim=-1))
 
 

@@ -8,7 +8,11 @@ The flags are the JAX runner's (every ``Config`` field, reference names)
 plus ``--device`` (default ``cuda``; the run raises when CUDA is absent).
 Preprocessing runs on the device through the plan and K1; ELPH's GCN
 runs in every step through the staged ``PlanSpmm`` (K1 forward and
-backward) or, under ``--use_plan false``, the scatter SpMM.
+backward) or, under ``--use_plan false``, the scatter SpMM.  Node
+embeddings (``--train_node_embedding`` or ``--pretrained_node_embedding``)
+serve both models; with ``--propagate_embeddings`` every step diffuses the
+table over the train graph the same way (the reference's ogbl-ddi
+commands).
 
 Datasets: ``synth-*``, Planetoid (Cora, Citeseer, Pubmed) and ogbl-*
 from their raw files under ``--data_root`` (default ``SKETCH_DATA_ROOT``
@@ -16,8 +20,8 @@ or ``dataset/`` in the checkout).  On ogbl-citation2 the train metric is
 taken on a small ``train_eval`` subset with its same-source negatives.
 
 Not ported yet (queued, each raises NotImplementedError): models other than
-BUDDY and ELPH (SEAL, KGE), node embeddings, ``--mesh_shape``,
-``--heartbeat_dir``, ``--profile_dir`` and ``--compilation_cache_dir``.
+BUDDY and ELPH (SEAL, KGE), ``--mesh_shape``, ``--heartbeat_dir``,
+``--profile_dir`` and ``--compilation_cache_dir``.
 """
 
 from __future__ import annotations

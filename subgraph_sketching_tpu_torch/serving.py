@@ -7,6 +7,10 @@ features straight from the sketches (the same math as preprocessing,
 including the zero-one knockout / floor) and runs the BUDDY MLP.
 ``ElphLinkScorer`` runs ELPH's full-graph GCN once at construction and
 keeps its node features resident; a query runs the LinkPredictor head.
+A model with node embeddings has its table resolved once at
+construction, in eval mode (diffused by the scatter ``spmm`` over the
+served split's graph with ``--propagate_embeddings``); a query gathers
+its rows.
 
 Checkpoints: a directory holding ``config.json`` (the ``Config``) and
 either ``step_<N>.pt`` files from a training run (``runners/run.py`` with
@@ -14,12 +18,13 @@ either ``step_<N>.pt`` files from a training run (``runners/run.py`` with
 :func:`save_buddy_checkpoint`.  Weights trained by the JAX package cross
 over through ``models/convert.py``.
 
-Not ported yet (queued): streaming edge insert/delete, the RA and
-node-embedding inputs (a ``use_RA`` config is refused).
+Not ported yet (queued): streaming edge insert/delete, the RA inputs (a
+``use_RA`` config is refused).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Optional
 
@@ -31,10 +36,11 @@ from subgraph_sketching_tpu_torch.device import resolve_device
 from subgraph_sketching_tpu_torch.graph.preprocess import (
     LinkDataset, sketch_params_from_config,
 )
-from subgraph_sketching_tpu_torch.models.buddy import BUDDY
 from subgraph_sketching_tpu_torch.sketch.elph import subgraph_features
 from subgraph_sketching_tpu_torch.sketch.params import Sketches
-from subgraph_sketching_tpu_torch.train.loops import ElphTrainer
+from subgraph_sketching_tpu_torch.train.loops import (
+    ElphTrainer, build_buddy, load_frozen_embedding,
+)
 
 CONFIG_FILE = "config.json"
 WEIGHTS_FILE = "buddy.pt"
@@ -83,15 +89,16 @@ class LinkScorer(_BucketedScorer):
     Parameters
     ----------
     cfg: the run's Config.
-    model: a BUDDY built for ``cfg`` (put in eval mode and moved to
-        ``device`` here).
+    model: the model a BUDDY run with ``cfg`` trains (``build_buddy``: a
+        BUDDY, or a BuddyWithEmbedding), put in eval mode and moved to
+        ``device`` here.
     dataset: the served split's LinkDataset — must retain ``sketches`` and
-        carry x/degrees.
+        carry x/degrees (and the edges the table diffuses over).
     min_bucket: the batch size ``warmup`` scores.
     max_bucket: larger queries are scored in chunks of this many links.
     """
 
-    def __init__(self, cfg: Config, model: BUDDY, dataset: LinkDataset,
+    def __init__(self, cfg: Config, model, dataset: LinkDataset,
                  min_bucket: int = 1024, max_bucket: int = 1 << 18,
                  device="cuda"):
         _refuse_unported(cfg)
@@ -102,6 +109,7 @@ class LinkScorer(_BucketedScorer):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = model.to(self.device).eval()
+        self.buddy = getattr(self.model, "buddy", self.model)
         self.sketch_params = sketch_params_from_config(cfg)
         # under --use_struct_feature 0 the model was trained on zeroed
         # structure features (reference train.py:58) — serve the same zeros
@@ -111,9 +119,16 @@ class LinkScorer(_BucketedScorer):
                                  for t in dataset.sketches))
         self.num_nodes = dataset.num_nodes
         self.x = (torch.from_numpy(np.asarray(dataset.x)).to(self.device)
-                  if model.use_feature and dataset.x is not None else None)
+                  if self.buddy.use_feature and dataset.x is not None
+                  else None)
         self.deg = torch.from_numpy(
             np.asarray(dataset.degrees, dtype=np.float32)).to(self.device)
+        self.emb_table = None
+        if self.buddy is not self.model:
+            ei = torch.from_numpy(np.asarray(dataset.edge_index,
+                                             dtype=np.int64)).to(self.device)
+            with torch.inference_mode():
+                self.emb_table = self.model.table(edge_index=ei)
         self.min_bucket = min_bucket
         self.max_bucket = max_bucket
 
@@ -124,10 +139,11 @@ class LinkScorer(_BucketedScorer):
         else:
             sf = torch.zeros((links.shape[0], self.sketch_params.sf_dim),
                              device=self.device)
-        out = self.model(
+        out = self.buddy(
             sf, node_features=None if self.x is None else self.x[links],
             src_degree=self.deg[links[:, 0]],
-            dst_degree=self.deg[links[:, 1]])
+            dst_degree=self.deg[links[:, 1]],
+            emb=None if self.emb_table is None else self.emb_table[links])
         return out.ravel()
 
 
@@ -138,7 +154,9 @@ class ElphLinkScorer(_BucketedScorer):
     node features stay resident; a query batch computes subgraph features
     from the sketch stacks of the split's message graph (the trainer's
     held set when it is that graph's, else built again) and runs the
-    LinkPredictor head.  Same bucketing contract as ``LinkScorer``.
+    LinkPredictor head; the node-embedding table, when the model has
+    one, is resolved once as well.  Same bucketing contract as
+    ``LinkScorer``.
     """
 
     def __init__(self, trainer, model, split: str = "train",
@@ -157,6 +175,8 @@ class ElphLinkScorer(_BucketedScorer):
         self.model = model.to(self.device).eval()
         with torch.inference_mode():
             self.feats = trainer.node_features(self.model, data)
+            self.emb_table = (trainer.embedding_table(self.model, data)
+                              if trainer.use_embedding else None)
         self.min_bucket = min_bucket
         self.max_bucket = max_bucket
 
@@ -168,11 +188,12 @@ class ElphLinkScorer(_BucketedScorer):
             sf = torch.zeros((links.shape[0], self.sketch_params.sf_dim),
                              device=self.device)
         nf = self.feats[links] if self.feats is not None else None
-        return self.model.predictor(sf, nf).ravel()
+        emb = self.emb_table[links] if self.emb_table is not None else None
+        return self.model.predictor(sf, nf, emb).ravel()
 
 
 def save_buddy_checkpoint(checkpoint_dir: str, cfg: Config,
-                          model: BUDDY) -> None:
+                          model) -> None:
     """Write ``config.json`` and ``buddy.pt`` (the model's state_dict)."""
     os.makedirs(checkpoint_dir, exist_ok=True)
     with open(os.path.join(checkpoint_dir, CONFIG_FILE), "w") as f:
@@ -215,8 +236,12 @@ def scorer_from_checkpoint(checkpoint_dir: str, cfg: Optional[Config] = None,
         raise NotImplementedError(f"serving {cfg.model} is not ported yet")
     _refuse_unported(cfg)
     splits, directed, _ = get_data(cfg)
+    # the scorer needs the sketch stacks, which a split whose subgraph
+    # features come from the run's cache would not build
     datasets = build_all_splits({k: splits[k] for k in dict.fromkeys(
-        ("train", split))}, cfg, directed=directed, device=dev)
+        ("train", split))}, dataclasses.replace(
+            cfg, cache_subgraph_features=False), directed=directed,
+        device=dev)
     x = datasets["train"].x
     num_features = None if x is None else x.shape[-1]
     step = latest_step(checkpoint_dir)
@@ -236,7 +261,9 @@ def scorer_from_checkpoint(checkpoint_dir: str, cfg: Optional[Config] = None,
         scorer = ElphLinkScorer(trainer, model, split=split,
                                 min_bucket=min_bucket, max_bucket=max_bucket)
     else:
-        model = BUDDY.from_config(cfg, num_features)
+        n = datasets["train"].num_nodes
+        model = build_buddy(cfg, num_features, n,
+                            load_frozen_embedding(cfg, n))
         model.load_state_dict(state)
         scorer = LinkScorer(cfg, model, datasets[split],
                             min_bucket=min_bucket, max_bucket=max_bucket,

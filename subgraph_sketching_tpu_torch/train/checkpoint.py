@@ -5,7 +5,9 @@
 temporary file first and moved into place with ``os.replace``, so a crash
 mid-save never leaves a partial ``step_<N>.pt``.  The sidecar
 ``meta_step_<N>.json`` carries the run's best-val tracking, as in the JAX
-package's train/checkpoint.py.
+package's train/checkpoint.py.  A trainable node-embedding table is a
+parameter and is saved with the rest; a pretrained (frozen) one is not
+in the state_dict, and the model re-reads it from the config's path.
 """
 
 from __future__ import annotations

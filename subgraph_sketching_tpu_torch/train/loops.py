@@ -23,9 +23,16 @@ the SpMM is the staged ``PlanSpmm`` (forward and backward on K1) or, under
 ``--use_plan false`` or past ``max_gather_slots``, the scatter ``spmm``;
 the sketches and subgraph features are built once at staging.
 
-Not ported yet (queued): node embeddings (``BuddyWithEmbedding``,
-``ElphEmbedding``), the data-parallel mesh and the memory-sharded mode,
-``dtype`` other than float32.
+Node embeddings (``--train_node_embedding`` or
+``--pretrained_node_embedding``, :class:`ElphEmbedding`, BUDDY's
+:class:`BuddyWithEmbedding`): with ``--propagate_embeddings`` every step
+diffuses the whole table ``sign_k`` times over the unweighted gcn_norm'd
+train graph, through a staged ``PlanSpmm`` (K1 each way) or the scatter
+``spmm``, and looks the batch's rows up by ``gather_rows``; eval diffuses
+once by the scatter ``spmm``.
+
+Not ported yet (queued): the data-parallel mesh and the memory-sharded
+mode, ``dtype`` other than float32.
 """
 
 from __future__ import annotations
@@ -44,7 +51,7 @@ from subgraph_sketching_tpu_torch.graph.preprocess import (
 )
 from subgraph_sketching_tpu_torch.models.buddy import BUDDY
 from subgraph_sketching_tpu_torch.models.elph import ELPHPredictor
-from subgraph_sketching_tpu_torch.models.gnn import GCNConv
+from subgraph_sketching_tpu_torch.models.gnn import GCNConv, SIGNEmbedding
 from subgraph_sketching_tpu_torch.ops.graph_ops import gcn_norm
 from subgraph_sketching_tpu_torch.ops.segment_scan import (
     PlanSpmm, gather_rows, make_auto_plan,
@@ -53,6 +60,7 @@ from subgraph_sketching_tpu_torch.sketch.elph import (
     build_hash_tables, subgraph_features_batched,
 )
 from subgraph_sketching_tpu_torch.train.losses import get_loss
+from subgraph_sketching_tpu_torch.utils import load_pretrained_embedding
 
 
 def make_optimizer(cfg: Config, params) -> torch.optim.Adam:
@@ -137,11 +145,17 @@ def _init_like_flax(model: nn.Module, generator: torch.Generator) -> None:
     """flax's initialisers: every Linear weight lecun-normal (a normal
     truncated at two standard deviations, scaled to variance 1/fan_in) and
     bias zero, except a GCNConv's, which is glorot-uniform (uniform in
-    +-sqrt(6 / (fan_in + fan_out))) with the conv's bias zero; BatchNorm
-    at scale 1, bias 0 and unit running statistics."""
+    +-sqrt(6 / (fan_in + fan_out))) with the conv's bias zero; a
+    trainable node-embedding table xavier-uniform, flax's glorot with
+    fan_in = num_nodes and fan_out = hidden; BatchNorm at scale 1, bias 0
+    and unit running statistics."""
     glorot = {id(m.lin) for m in model.modules() if isinstance(m, GCNConv)}
     with torch.no_grad():
         for m in model.modules():
+            if isinstance(m, ElphEmbedding) and m.trainable:
+                a = (6.0 / sum(m.node_embedding.shape)) ** 0.5
+                nn.init.uniform_(m.node_embedding, -a, a,
+                                 generator=generator)
             if isinstance(m, nn.Linear) and id(m) in glorot:
                 a = (6.0 / (m.in_features + m.out_features)) ** 0.5
                 nn.init.uniform_(m.weight, -a, a, generator=generator)
@@ -175,8 +189,6 @@ def _epoch_order(num_links: int, cfg: Config, g: torch.Generator,
 
 
 def _refuse_unported(cfg: Config) -> None:
-    if cfg.train_node_embedding or cfg.pretrained_node_embedding:
-        raise NotImplementedError("node embeddings are not ported yet")
     if cfg.mesh_shape:
         raise NotImplementedError("the data-parallel mesh is not ported "
                                   "yet")
@@ -185,12 +197,162 @@ def _refuse_unported(cfg: Config) -> None:
                                   f"yet (float32 only)")
 
 
+# ------------------------------------------------------ node embeddings --
+
+def uses_embedding(cfg: Config) -> bool:
+    return bool(cfg.train_node_embedding
+                or cfg.pretrained_node_embedding is not None)
+
+
+def load_frozen_embedding(cfg: Config,
+                           num_nodes: int) -> Optional[torch.Tensor]:
+    """The pretrained (frozen) node-embedding table on the CPU, or None
+    (reference select_embedding, utils.py:57-60)."""
+    if cfg.pretrained_node_embedding is None:
+        return None
+    return torch.from_numpy(load_pretrained_embedding(
+        cfg.pretrained_node_embedding, num_nodes))
+
+
+class ElphEmbedding(nn.Module):
+    """A run's node-embedding table (the JAX package's ``ElphEmbedding``
+    and ``_node_embedding_table``): a trainable ``node_embedding``
+    [num_nodes, hidden] or a pretrained ``frozen_table``, SIGN-diffused by
+    ``sign_embedding`` with ``propagate`` (reference
+    propagate_embeddings_func, models/elph.py:148-151).
+
+    A frozen table is a non-persistent buffer: no gradient, no Adam
+    state, not in the state_dict (a checkpoint re-reads it from the
+    config's path).  ELPH holds this module as its child ``embedding``;
+    :class:`BuddyWithEmbedding` extends it, so the parameter names follow
+    the JAX trees (``node_embedding``, ``sign_embedding/...``).
+    """
+
+    def __init__(self, num_nodes: int, hidden_channels: int,
+                 propagate: bool = False, sign_k: int = 1,
+                 sign_dropout: float = 0.5,
+                 frozen_table: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.trainable = frozen_table is None
+        if self.trainable:
+            self.node_embedding = nn.Parameter(
+                torch.empty(num_nodes, hidden_channels))
+            width = hidden_channels
+        else:
+            self.register_buffer("frozen_table", frozen_table,
+                                 persistent=False)
+            width = frozen_table.shape[1]
+        self.propagate = propagate
+        if propagate:
+            self.sign_embedding = SIGNEmbedding(
+                width, hidden_channels, hidden_channels, sign_k,
+                sign_dropout)
+
+    def table(self, plan: Optional[PlanSpmm] = None,
+              norm: Optional[tuple] = None,
+              edge_index: Optional[torch.Tensor] = None,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The [num_nodes, W] table, diffused with ``propagate``
+        by ``plan`` or the scatter ``spmm`` over ``norm`` (from
+        ``edge_index`` when absent)."""
+        t = self.node_embedding if self.trainable else self.frozen_table
+        if self.propagate:
+            t = self.sign_embedding(t, edge_index, t.shape[0], plan=plan,
+                                    norm=norm, generator=generator)
+        return t
+
+
+class BuddyWithEmbedding(ElphEmbedding):
+    """BUDDY with its node-embedding table (the JAX package's
+    ``BuddyWithEmbedding``): the table's entries beside the child
+    ``buddy``.  The BUDDY trainer builds one only with embeddings on, so
+    a run without them keeps a plain ``BUDDY``."""
+
+    def __init__(self, buddy: BUDDY, num_nodes: int, hidden_channels: int,
+                 propagate: bool = False, sign_k: int = 1,
+                 sign_dropout: float = 0.5,
+                 frozen_table: Optional[torch.Tensor] = None):
+        super().__init__(num_nodes, hidden_channels, propagate, sign_k,
+                         sign_dropout, frozen_table)
+        self.buddy = buddy
+
+
+def _embedding_width(cfg: Config, frozen: Optional[torch.Tensor]) -> int:
+    """The width of the embedding rows the head reads: hidden_channels
+    when the table is diffused (``sign_embedding``'s ``lin_out``) or
+    trained, else the pretrained table's own width."""
+    if cfg.propagate_embeddings or frozen is None:
+        return cfg.hidden_channels
+    return int(frozen.shape[1])
+
+
+def _embedding_args(cfg: Config, num_nodes: int,
+                    frozen: Optional[torch.Tensor]) -> dict:
+    return dict(num_nodes=num_nodes, hidden_channels=cfg.hidden_channels,
+                propagate=cfg.propagate_embeddings,
+                sign_k=max(cfg.sign_k, 1), sign_dropout=cfg.sign_dropout,
+                frozen_table=frozen)
+
+
+def build_buddy(cfg: Config, num_features: Optional[int], num_nodes: int,
+                frozen: Optional[torch.Tensor] = None) -> nn.Module:
+    """The model a BUDDY run trains, on the CPU and not initialised: a
+    ``BUDDY``, wrapped in :class:`BuddyWithEmbedding` with node
+    embeddings (``frozen``: the pretrained table, see
+    :func:`load_frozen_embedding`)."""
+    if not uses_embedding(cfg):
+        return BUDDY.from_config(cfg, num_features)
+    buddy = BUDDY.from_config(cfg, num_features,
+                              emb_dim=_embedding_width(cfg, frozen))
+    return BuddyWithEmbedding(buddy, **_embedding_args(cfg, num_nodes,
+                                                       frozen))
+
+
 class _Trainer:
     """What the BUDDY and ELPH trainers share: the staged splits'
-    (``_data``) link counts and the epoch loss."""
+    (``_data``) link counts, the epoch loss and the node-embedding
+    table."""
 
     cfg: Config
     _data: Dict[str, Dict[str, torch.Tensor]]
+
+    def _init_embedding(self, dataset: LinkDataset) -> None:
+        self.use_embedding = uses_embedding(self.cfg)
+        self.num_nodes = dataset.num_nodes
+        self.frozen_emb = load_frozen_embedding(self.cfg, dataset.num_nodes)
+
+    def _stage_embedding(self, split: str, ds: LinkDataset) -> dict:
+        """The embedding diffusion's SpMM for one split, with
+        ``--propagate_embeddings``: ``emb_norm``, the unweighted
+        gcn_norm'd edges for the scatter ``spmm``, and for the train split
+        under ``use_plan`` ``emb_plan``, a ``PlanSpmm`` over them where
+        ``try_build`` admits one (the JAX package stages the plan for
+        train only: eval diffuses once, by the scatter route)."""
+        cfg = self.cfg
+        if not (self.use_embedding and cfg.propagate_embeddings):
+            return {}
+        ei = torch.from_numpy(np.asarray(ds.edge_index, dtype=np.int64))
+        ein, wn = gcn_norm(ei.to(self.device), None, ds.num_nodes)
+        d = {"emb_norm": (ein, wn)}
+        if split == "train" and cfg.use_plan:
+            plan = PlanSpmm.try_build(ein.cpu().numpy(), wn.cpu().numpy(),
+                                      ds.num_nodes,
+                                      max_slots=cfg.max_gather_slots,
+                                      device=self.device)
+            if plan is not None:
+                d["emb_plan"] = plan
+        return d
+
+    def embedding_table(self, model: nn.Module, data: dict,
+                        generator: Optional[torch.Generator] = None
+                        ) -> torch.Tensor:
+        """The node-embedding table for a staged split: in training mode
+        by the split's staged ``PlanSpmm`` where there is one, in eval
+        mode (and without a plan) by the scatter ``spmm``."""
+        emb = getattr(model, "embedding", model)
+        plan = data.get("emb_plan") if model.training else None
+        return emb.table(plan=plan, norm=data.get("emb_norm"),
+                         generator=generator)
 
     def num_links(self, split: str) -> int:
         return int(self._data[split]["links"].shape[0])
@@ -219,6 +381,7 @@ class BuddyTrainer(_Trainer):
         self.device = resolve_device(device)
         self.use_feature = cfg.use_feature and dataset.x is not None
         self.num_features = num_features if self.use_feature else None
+        self._init_embedding(dataset)
         self.loss_fn = get_loss(cfg.loss)
         self._data: Dict[str, Dict[str, torch.Tensor]] = {}
         self._num_pos: Dict[str, int] = {}
@@ -228,8 +391,9 @@ class BuddyTrainer(_Trainer):
     def stage(self, split: str, ds: LinkDataset) -> None:
         """Put one split's per-link data on the device: ``links``, ``rows``
         (sf ‖ label ‖ src degree ‖ dst degree ‖ RA with ``use_RA``, one
-        [L, F] float32 array, so a batch is one row gather) and the node
-        features ``x``."""
+        [L, F] float32 array, so a batch is one row gather), the node
+        features ``x`` and the embedding diffusion's SpMM
+        (``_stage_embedding``)."""
         sf = np.asarray(ds.subgraph_features, dtype=np.float32)
         labels = np.asarray(ds.labels, dtype=np.float32)[:, None]
         deg = np.asarray(ds.degrees, dtype=np.float32)
@@ -244,6 +408,7 @@ class BuddyTrainer(_Trainer):
         if self.use_feature:
             d["x"] = torch.from_numpy(
                 np.asarray(ds.x, dtype=np.float32)).to(self.device)
+        d.update(self._stage_embedding(split, ds))
         self._sf_dim = sf.shape[1]
         self._data[split] = d
         # positive count, for pos/neg-aligned eval subsampling (citation2)
@@ -258,7 +423,8 @@ class BuddyTrainer(_Trainer):
         rows = data["rows"][safe]
         c = self._sf_dim
         batch = {"sf": rows[:, :c], "labels": rows[:, c], "mask": idx >= 0,
-                 "src_degree": rows[:, c + 1], "dst_degree": rows[:, c + 2],
+                 "links": links, "src_degree": rows[:, c + 1],
+                 "dst_degree": rows[:, c + 2],
                  "node_features": data["x"][links] if self.use_feature
                  else None,
                  "RA": rows[:, c + 3] if self.cfg.use_RA else None}
@@ -267,30 +433,38 @@ class BuddyTrainer(_Trainer):
         return batch
 
     @staticmethod
-    def _apply(model: BUDDY, batch, generator=None) -> torch.Tensor:
-        return model(batch["sf"], node_features=batch["node_features"],
+    def _apply(model: nn.Module, batch, generator=None,
+               emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The BUDDY (``model`` or its ``buddy``) on one batch, with the
+        batch's embedding rows ``emb``."""
+        buddy = getattr(model, "buddy", model)
+        return buddy(batch["sf"], node_features=batch["node_features"],
                      src_degree=batch["src_degree"],
                      dst_degree=batch["dst_degree"], RA=batch["RA"],
-                     generator=generator)
+                     emb=emb, generator=generator)
 
     # -- model --------------------------------------------------------------
-    def init_model(self, seed: int) -> BUDDY:
-        """A BUDDY for this run on the trainer's device, initialised as flax
+    def init_model(self, seed: int) -> nn.Module:
+        """The run's model (:func:`build_buddy`: a BUDDY, or a
+        BuddyWithEmbedding) on the trainer's device, initialised as flax
         initialises it, from a CPU generator seeded with ``seed`` (so the
         same seed gives the same weights on every device)."""
-        model = BUDDY.from_config(self.cfg, self.num_features)
+        model = build_buddy(self.cfg, self.num_features, self.num_nodes,
+                            self.frozen_emb)
         _init_like_flax(model, torch.Generator().manual_seed(seed))
         return model.to(self.device)
 
     # -- public API ---------------------------------------------------------
-    def run_epoch(self, model: BUDDY, optimizer: torch.optim.Optimizer,
+    def run_epoch(self, model: nn.Module, optimizer: torch.optim.Optimizer,
                   seed: int, order: Optional[torch.Tensor] = None
                   ) -> torch.Tensor:
         """One epoch; returns the [steps] step losses, on the device.
 
         The generator seeded with ``seed`` draws the permutation (unless
         ``order``, a [n_used] index tensor, gives it) and then every dropout
-        mask, step by step."""
+        mask, step by step.  With node embeddings each step first builds
+        the (diffused) table and gathers the batch's rows by
+        ``gather_rows``, whose backward sums in a fixed order."""
         data = self._data["train"]
         g = torch.Generator(device=self.device).manual_seed(seed)
         perm = _epoch_order(self.num_links("train"), self.cfg, g, order,
@@ -300,7 +474,10 @@ class BuddyTrainer(_Trainer):
         losses = torch.empty(steps, device=self.device)
         for step in range(steps):
             batch = self._batch(data, perm[step])
-            logits = self._apply(model, batch, g)
+            emb = (gather_rows(self.embedding_table(model, data, g),
+                               batch["links"])
+                   if self.use_embedding else None)
+            logits = self._apply(model, batch, g, emb)
             loss = self.loss_fn(logits, batch["labels"], batch["mask"])
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
@@ -309,20 +486,24 @@ class BuddyTrainer(_Trainer):
         return losses
 
     @torch.inference_mode()
-    def predict(self, model: BUDDY, split: str,
+    def predict(self, model: nn.Module, split: str,
                 n_samples: Optional[int] = None
                 ) -> Tuple[np.ndarray, np.ndarray]:
         """(pred, labels) over the split's links in order, batched at
-        eval_batch_size (reference get_buddy_preds, inference.py:99-140)."""
+        eval_batch_size (reference get_buddy_preds, inference.py:99-140);
+        the embedding table is diffused once, by the scatter ``spmm``."""
         model.eval()
         data = self._data[split]
         total = self.num_links(split)
         sel = eval_subset(total, n_samples, self.cfg.dataset_name,
                           self._num_pos.get(split))
+        table = (self.embedding_table(model, data) if self.use_embedding
+                 else None)
 
         def score(idx: np.ndarray) -> torch.Tensor:
             batch = self._batch(data, torch.from_numpy(idx).to(self.device))
-            return self._apply(model, batch).ravel()
+            emb = table[batch["links"]] if table is not None else None
+            return self._apply(model, batch, emb=emb).ravel()
 
         # pad with -1: _batch reads link 0 for it, and the pads are sliced off
         pred = batched_predict(score, sel, self.cfg.eval_batch_size,
@@ -333,13 +514,14 @@ class BuddyTrainer(_Trainer):
 
 class ElphTrainer(_Trainer):
     """Owns the device-resident split data and the ELPH step (the JAX
-    package's ``ElphTrainer`` without its mesh, memory-sharded and
-    embedding branches).
+    package's ``ElphTrainer`` without its mesh and memory-sharded
+    branches).
 
     The full-graph GCN runs inside every step, as in the reference
     (train.py:188-204); the sketch side is built once at staging (the same
     values, gradient-free).  The model is one ``ELPHPredictor`` (children
-    ``gnn`` and ``predictor``), the caller's, as for ``BuddyTrainer``.
+    ``gnn``, ``predictor`` and, with node embeddings, ``embedding``, an
+    :class:`ElphEmbedding`), the caller's, as for ``BuddyTrainer``.
     """
 
     def __init__(self, cfg: Config, dataset: LinkDataset,
@@ -350,6 +532,7 @@ class ElphTrainer(_Trainer):
         self.sketch_params = sketch_params_from_config(cfg)
         self.use_feature = cfg.use_feature and dataset.x is not None
         self.num_features = num_features if self.use_feature else None
+        self._init_embedding(dataset)
         self.loss_fn = get_loss(cfg.loss)
         self._data: Dict[str, Dict[str, torch.Tensor]] = {}
         self._num_pos: Dict[str, int] = {}
@@ -390,7 +573,8 @@ class ElphTrainer(_Trainer):
         gcn_norm'd edges (``plan``) where ``try_build`` admits one, else
         the gcn_norm'd edges for the scatter ``spmm`` (``norm``).  A split
         whose edges and weights equal another staged split's reuses its
-        SpMM."""
+        SpMM; and the embedding diffusion's SpMM (``_stage_embedding``,
+        apart from the GCN's)."""
         dev = self.device
         if self.cfg.use_struct_feature is False:
             sf = torch.zeros((len(ds.links), self.sketch_params.sf_dim),
@@ -412,6 +596,7 @@ class ElphTrainer(_Trainer):
             d["x"] = torch.from_numpy(
                 np.asarray(ds.x, dtype=np.float32)).to(dev)
             d.update(self._stage_spmm(split, ds, d))
+        d.update(self._stage_embedding(split, ds))
         self._data[split] = d
         # positive count, for pos/neg-aligned eval subsampling (citation2)
         self._num_pos[split] = int(np.asarray(ds.labels).sum())
@@ -441,11 +626,16 @@ class ElphTrainer(_Trainer):
 
     # -- model --------------------------------------------------------------
     def init_model(self, seed: int) -> ELPHPredictor:
-        """An ELPHPredictor for this run on the trainer's device,
-        initialised as flax initialises it (glorot-uniform GCN kernels),
-        from a CPU generator seeded with ``seed``."""
-        model = ELPHPredictor.from_config(self.cfg, self.sketch_params,
-                                          self.num_features)
+        """An ELPHPredictor for this run on the trainer's device (with its
+        ``embedding`` child under node embeddings), initialised as flax
+        initialises it (glorot-uniform GCN kernels, a xavier-uniform
+        table), from a CPU generator seeded with ``seed``."""
+        model = ELPHPredictor.from_config(
+            self.cfg, self.sketch_params, self.num_features,
+            emb_dim=_embedding_width(self.cfg, self.frozen_emb))
+        if self.use_embedding:
+            model.embedding = ElphEmbedding(**_embedding_args(
+                self.cfg, self.num_nodes, self.frozen_emb))
         _init_like_flax(model, torch.Generator().manual_seed(seed))
         return model.to(self.device)
 
@@ -468,10 +658,11 @@ class ElphTrainer(_Trainer):
         """One epoch; returns the [steps] step losses, on the device.  Each
         step runs the full-graph GCN with dropout, gathers the batch's
         node-feature rows (``gather_rows``: a backward that is the same
-        from run to run), runs the head, the BCE loss, the backward
-        through ``PlanSpmm`` and the Adam step.  The generator seeded with
-        ``seed`` draws the permutation (unless ``order`` gives it) and
-        every dropout mask."""
+        from run to run), builds the (diffused) embedding table and
+        gathers its rows the same way, runs the head, the BCE loss, the
+        backward through ``PlanSpmm`` and the Adam step.  The generator
+        seeded with ``seed`` draws the permutation (unless ``order``
+        gives it) and every dropout mask."""
         data = self._data["train"]
         g = torch.Generator(device=self.device).manual_seed(seed)
         perm = _epoch_order(self.num_links("train"), self.cfg, g, order,
@@ -480,10 +671,12 @@ class ElphTrainer(_Trainer):
         losses = torch.empty(perm.shape[0], device=self.device)
         for step, idx in enumerate(perm):
             safe = idx.clamp(min=0)   # -1 padding reads link 0, masked
+            links = data["links"][safe]
             feats = self.node_features(model, data, g)
-            nf = (gather_rows(feats, data["links"][safe])
-                  if feats is not None else None)
-            logits = model.predictor(data["sf"][safe], nf, generator=g)
+            nf = gather_rows(feats, links) if feats is not None else None
+            emb = (gather_rows(self.embedding_table(model, data, g), links)
+                   if self.use_embedding else None)
+            logits = model.predictor(data["sf"][safe], nf, emb, generator=g)
             loss = self.loss_fn(logits, data["labels"][safe], idx >= 0)
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
@@ -496,18 +689,23 @@ class ElphTrainer(_Trainer):
                 n_samples: Optional[int] = None
                 ) -> Tuple[np.ndarray, np.ndarray]:
         """(pred, labels) over the split's links in order: the full-graph
-        forward once, then the head in eval_batch_size batches (reference
+        forward and the embedding diffusion (by the scatter ``spmm``) once,
+        then the head in eval_batch_size batches (reference
         get_elph_preds, inference.py:167-205)."""
         model.eval()
         data = self._data[split]
         feats = self.node_features(model, data)
+        table = (self.embedding_table(model, data) if self.use_embedding
+                 else None)
         sel = eval_subset(self.num_links(split), n_samples,
                           self.cfg.dataset_name, self._num_pos.get(split))
 
         def score(idx: np.ndarray) -> torch.Tensor:
             j = torch.from_numpy(idx).to(self.device)
-            nf = feats[data["links"][j]] if feats is not None else None
-            return model.predictor(data["sf"][j], nf).ravel()
+            links = data["links"][j]
+            nf = feats[links] if feats is not None else None
+            emb = table[links] if table is not None else None
+            return model.predictor(data["sf"][j], nf, emb).ravel()
 
         pred = batched_predict(score, sel, self.cfg.eval_batch_size)
         labels = data["labels"].cpu().numpy()[sel]

@@ -1,4 +1,5 @@
-"""Misc utilities (reference src/utils.py); the port's own copies."""
+"""Misc utilities (reference src/utils.py); the port's own copies of the
+JAX package's utils.py."""
 
 from __future__ import annotations
 
@@ -17,3 +18,27 @@ def str2bool(x) -> bool:
             return False
         raise ValueError(f"unrecognised boolean string {x!r}")
     raise ValueError(f"unrecognised type {type(x)}")
+
+
+def load_pretrained_embedding(path: str, num_nodes=None):
+    """A frozen node-embedding table as a float32 numpy array (reference
+    utils.py:57-60 loads a torch-saved weight and freezes it; the JAX
+    package's ``utils.load_pretrained_embedding``).  Accepts .npy, .npz
+    (its first array) or a torch-saved tensor."""
+    import numpy as np
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            w = z[z.files[0]]
+    elif path.endswith(".npy"):
+        w = np.load(path)
+    else:
+        import torch
+        w = torch.load(path, map_location="cpu", weights_only=True)
+        w = w.detach().numpy() if hasattr(w, "detach") else np.asarray(w)
+    w = np.asarray(w, dtype=np.float32)
+    if w.ndim != 2:
+        raise ValueError(f"embedding table must be 2-D, got {w.shape}")
+    if num_nodes is not None and w.shape[0] != num_nodes:
+        raise ValueError(f"embedding table has {w.shape[0]} rows for "
+                         f"{num_nodes} nodes ({path})")
+    return w

@@ -16,7 +16,10 @@ held at its widths (float32 add at W = 1024 and 32, the float64 add of
 the reference runs): ``PlanSpmm`` forward and backward, one launch each
 way, ``gather_rows``' backward and the scatter ``spmm`` (K1's add each
 way), the same bit for bit on two runs, and two ELPH epochs by the
-scatter route trained twice bit for bit.
+scatter route trained twice bit for bit.  The node embeddings' ddi
+diffusion holds K1's add at W = 256 on a dense graph (hundreds of
+sub-runs a row), its PlanSpmm each way, and two embedding epochs of BUDDY
+and ELPH trained twice bit for bit.
 They skip without a CUDA device.
 
 This file imports no jax, so it also runs where jax is not installed:
@@ -675,6 +678,107 @@ def test_elph_scatter_route_trains_the_same_twice_on_the_card(cuda):
         model = tr.init_model(0)
         opt = make_optimizer(cfg, model.parameters())
         losses = [tr.run_epoch(model, opt, seed) for seed in (3, 4)]
+        runs.append((torch.cat(losses), model.state_dict()))
+    assert torch.equal(runs[0][0], runs[1][0])
+    for k, v in runs[0][1].items():
+        assert torch.equal(v, runs[1][1][k]), k
+
+
+# ---- node embeddings: the ddi diffusion at W = 256 ------------------------
+
+def _dense_graph(n=3000, mean_degree=400, seed=21):
+    """A dense graph of the ddi kind: distinct unordered pairs with skewed
+    degrees, both directions (hundreds of sub-runs a row)."""
+    rng = np.random.default_rng(seed)
+    p = np.arange(1, n + 1, dtype=np.float64) ** -0.45
+    p = p[rng.permutation(n)] / p.sum()
+    k = n * mean_degree // 2
+    a, b = rng.choice(n, k, p=p), rng.choice(n, k, p=p)
+    keep = a != b
+    key = np.unique(np.minimum(a, b)[keep] * n + np.maximum(a, b)[keep])
+    lo, hi = key // n, key % n
+    ei = np.stack([np.concatenate([lo, hi]), np.concatenate([hi, lo])])
+    return ei.astype(np.int32), n
+
+
+def _diffusion_plan():
+    """The ddi diffusion's PlanSpmm: unweighted gcn_norm'd edges of
+    ``_dense_graph``."""
+    from subgraph_sketching_tpu_torch.ops.graph_ops import gcn_norm
+    from subgraph_sketching_tpu_torch.ops.segment_scan import PlanSpmm
+    ei, n = _dense_graph()
+    nei, nw = gcn_norm(torch.from_numpy(ei.astype(np.int64)).cuda(), None, n)
+    return PlanSpmm(nei.cpu().numpy(), nw.cpu().numpy(), n,
+                    device="cuda"), n
+
+
+def test_segscan_add_at_the_ddi_diffusion_shape(cuda):
+    """K1's float32 add at W = 256 on the diffusion plan of a dense graph
+    (a few thousand rows, hundreds of sub-runs each): dyadic inputs,
+    bit-equal to the plain version and to itself across two calls."""
+    ps, n = _diffusion_plan()
+    ptr = ps.fwd.sub_ptr
+    assert int(ptr.diff().max()) >= 100
+    g = torch.Generator(device="cuda").manual_seed(22)
+    v = torch.randint(-32, 32, (int(ptr[-1]), 256), generator=g,
+                      device="cuda").float() / 4
+    x = torch.empty((n, 256), device=cuda)
+    first = segscan.segment_combine(v, x, "add", ptr)
+    second = segscan.segment_combine(v, x, "add", ptr)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(first, segscan.segment_combine_plain(v, x, "add", ptr))
+
+
+def test_diffusion_plan_spmm_on_the_kernel(cuda):
+    """The diffusion's PlanSpmm at W = 256: one K1 add launch each way,
+    each against the plain merge of the same sub-run results."""
+    ps, n = _diffusion_plan()
+    g = torch.Generator(device="cuda").manual_seed(23)
+    x = torch.randn((n, 256), generator=g, device="cuda", requires_grad=True)
+    t = torch.randn((n, 256), generator=g, device="cuda")
+    before = segscan.launches["segscan_add_f32"]
+    out = ps(x)
+    (grad,) = torch.autograd.grad((out * t).sum(), x)
+    torch.cuda.synchronize()
+    assert segscan.launches["segscan_add_f32"] == before + 2
+    with torch.no_grad():
+        for plan, w, inp, got in ((ps.fwd, ps._w_fwd, x, out),
+                                  (ps.bwd, ps._w_bwd, t, grad)):
+            v = plan.reduce_subruns(inp, "add", w).contiguous()
+            want = segscan.segment_combine_plain(v, inp, "add", plan.sub_ptr)
+            scale = segscan.segment_combine_plain(v.abs(), inp, "add",
+                                                  plan.sub_ptr)
+            assert bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+@pytest.mark.parametrize("model_name", ["BUDDY", "ELPH"])
+def test_embedding_epochs_train_the_same_twice_on_the_card(cuda, model_name):
+    """Two epochs with a trainable table diffused in every step (the ddi
+    shape, dropouts on) from one init and one seed give the same losses
+    and parameters bit for bit, with 5 K1 add launches a step."""
+    from subgraph_sketching_tpu_torch.config import Config
+    from subgraph_sketching_tpu_torch.graph.datasets import get_data
+    from subgraph_sketching_tpu_torch.graph.preprocess import build_all_splits
+    from subgraph_sketching_tpu_torch.train import loops
+    cfg = Config(dataset_name="synth-ws", model=model_name,
+                 hidden_channels=32, use_feature=False,
+                 train_node_embedding=True, propagate_embeddings=True,
+                 sign_k=2)
+    splits, directed, _ = get_data(cfg)
+    ds = build_all_splits(splits, cfg, directed=directed, device=cuda)
+    trainer = {"BUDDY": loops.BuddyTrainer, "ELPH": loops.ElphTrainer}
+    tr = trainer[model_name](cfg, ds["train"], None, device=cuda)
+    assert "emb_plan" in tr._data["train"]
+    steps = -(-tr.num_links("train") // cfg.batch_size)
+    runs = []
+    for _ in range(2):
+        model = tr.init_model(0)
+        opt = loops.make_optimizer(cfg, model.parameters())
+        before = segscan.launches["segscan_add_f32"]
+        losses = [tr.run_epoch(model, opt, seed) for seed in (3, 4)]
+        torch.cuda.synchronize()
+        assert segscan.launches["segscan_add_f32"] - before == 5 * 2 * steps
         runs.append((torch.cat(losses), model.state_dict()))
     assert torch.equal(runs[0][0], runs[1][0])
     for k, v in runs[0][1].items():

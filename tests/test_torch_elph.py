@@ -222,9 +222,20 @@ def test_elph_state_dict_from_flax_maps_every_entry():
     np.testing.assert_array_equal(
         sd["predictor.bn_labels.running_var"].numpy(),
         np.asarray(variables["batch_stats"]["predictor"]["bn_labels"]["var"]))
-    with pytest.raises(NotImplementedError):
-        elph_state_dict_from_flax({**_np_tree(variables["params"]),
-                                   "embedding": {"w": np.zeros(2)}}, {})
+    # a node-embedding table and its diffusion map into ``embedding``
+    table = np.arange(8, dtype=np.float32).reshape(4, 2)
+    kernel = np.ones((2, 3), np.float32)
+    sd = elph_state_dict_from_flax(
+        {**_np_tree(variables["params"]), "embedding": {
+            "node_embedding": table,
+            "sign_embedding": {"lin_0": {"kernel": kernel,
+                                         "bias": np.zeros(3)}}}},
+        {"embedding": {"sign_embedding": {"bn_0": {"mean": np.ones(3),
+                                                   "var": np.ones(3)}}}})
+    np.testing.assert_array_equal(sd["embedding.node_embedding"].numpy(),
+                                  table)
+    assert sd["embedding.sign_embedding.lin_0.weight"].shape == (3, 2)
+    assert "embedding.sign_embedding.bn_0.running_var" in sd
 
 
 # -------------------------------------------------------- LinkPredictor --

@@ -27,14 +27,15 @@ print(" ".join(names))
 """
 
 # the training slice's modules, the dataset slice's (loading, LCC, RA
-# and the plan builder's build) and ELPH's, which must be among those
-# imported
+# and the plan builder's build), ELPH's and the node embeddings', which
+# must be among those imported
 REQUIRED = {"train", "train.losses", "train.evaluation", "train.inference",
             "train.loops", "train.checkpoint", "train.determinism",
             "runners.run", "metrics_logging", "utils",
             "graph.datasets", "graph.lcc", "heuristics", "ops.cuda_build",
             "ops.segment_scan", "graph.preprocess", "models.elph",
-            "models.predictor"}
+            "models.predictor", "models.gnn", "models.buddy",
+            "models.convert", "serving"}
 
 
 def test_port_imports_no_jax():

@@ -44,6 +44,10 @@ SMALL = ["--dataset_name", "synth-ba", "--model", "BUDDY", "--epochs", "2",
          "--eval_batch_size", "1024", "--lr", "0.01",
          "--label_dropout", "0", "--feature_dropout", "0"]
 SMALL_ELPH = [("ELPH" if a == "BUDDY" else a) for a in SMALL]
+# the ogbl-ddi shape: a trainable table diffused in every step, no
+# features; a larger batch, as each step diffuses the whole table
+EMB = ["--train_node_embedding", "--propagate_embeddings", "--use_feature",
+       "0", "--sign_k", "2", "--batch_size", "1024"]
 
 
 # ---------------------------------------------------------------- parser --
@@ -83,7 +87,7 @@ def test_main_without_device_needs_cuda():
 @pytest.mark.parametrize("extra", [
     ["--model", "transE"], ["--model", "SEALGCN"], ["--mesh_shape", "2"],
     ["--profile_dir", "p"], ["--heartbeat_dir", "h"],
-    ["--compilation_cache_dir", "c"], ["--train_node_embedding"]])
+    ["--compilation_cache_dir", "c"]])
 def test_unported_options_raise(extra):
     with pytest.raises(NotImplementedError):
         run.main(SMALL + extra + ["--device", "cpu"])
@@ -134,6 +138,21 @@ def elph_runs(tmp_path_factory):
     return _runs(tmp_path_factory.mktemp("elph_runs"), SMALL_ELPH)
 
 
+@pytest.fixture(scope="module")
+def emb_runs(tmp_path_factory):
+    return _runs(tmp_path_factory.mktemp("emb_runs"), SMALL + EMB)
+
+
+@pytest.fixture(scope="module")
+def elph_emb_runs(tmp_path_factory):
+    return _runs(tmp_path_factory.mktemp("elph_emb_runs"), SMALL_ELPH + EMB)
+
+
+# model -> the fixture of its runs ("emb": with node embeddings)
+RUNS = {"BUDDY": "runs", "ELPH": "elph_runs", "BUDDY emb": "emb_runs",
+        "ELPH emb": "elph_emb_runs"}
+
+
 def _assert_hits_within_band_of_jax(runs):
     want = jrun.main(runs["small"] + ["--platform", "cpu"])
     got = runs["first"]
@@ -162,14 +181,18 @@ def test_metrics_log_carries_the_reference_keys(runs):
         assert Config(**{k: v for k, v in json.load(f).items()}) is not None
 
 
-@pytest.mark.parametrize("model", ["BUDDY", "ELPH"])
-def test_resume_is_bit_equal_to_a_straight_run(runs, elph_runs, model):
-    runs = runs if model == "BUDDY" else elph_runs
+@pytest.mark.parametrize("model", list(RUNS))
+def test_resume_is_bit_equal_to_a_straight_run(request, model):
+    runs = request.getfixturevalue(RUNS[model])
     assert checkpoint.latest_step(runs["straight"]) == 2
     assert checkpoint.latest_step(runs["resumed"]) == 2
     a, _ = checkpoint.load_checkpoint(runs["straight"], 2)
     b, _ = checkpoint.load_checkpoint(runs["resumed"], 2)
     assert a["model"].keys() == b["model"].keys()
+    if model.endswith("emb"):   # the table and its diffusion's BN stats
+        assert any(k.endswith("node_embedding") for k in a["model"])
+        assert any(k.endswith("sign_embedding.bn_2.running_var")
+                   for k in a["model"])
     for k, v in a["model"].items():
         assert torch.equal(v, b["model"][k]), k
     sa, sb = a["optimizer"]["state"], b["optimizer"]["state"]
@@ -198,9 +221,9 @@ def test_latest_step_skips_partial_files(tmp_path):
     assert checkpoint.latest_step(str(tmp_path / "missing")) is None
 
 
-@pytest.mark.parametrize("model", ["BUDDY", "ELPH"])
-def test_serving_a_trained_checkpoint_matches_predict(runs, elph_runs, model):
-    d = (runs if model == "BUDDY" else elph_runs)["straight"]
+@pytest.mark.parametrize("model", list(RUNS))
+def test_serving_a_trained_checkpoint_matches_predict(request, model):
+    d = request.getfixturevalue(RUNS[model])["straight"]
     scorer = scorer_from_checkpoint(d, split="valid", device="cpu")
     assert scorer.restored_step == 2
     with open(os.path.join(d, "config.json")) as f:
@@ -215,16 +238,73 @@ def test_serving_a_trained_checkpoint_matches_predict(runs, elph_runs, model):
     got = scorer.score(datasets["valid"].links)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     assert type(scorer).__name__ == {"BUDDY": "LinkScorer",
-                                     "ELPH": "ElphLinkScorer"}[model]
+                                     "ELPH": "ElphLinkScorer"}[
+        model.split()[0]]
+    assert (scorer.emb_table is not None) == model.endswith("emb")
+
+
+def test_serving_a_run_that_cached_its_features(tmp_path):
+    """A BUDDY run with --cache_subgraph_features (the reference's ddi and
+    collab commands) serves: the rebuild builds the sketch stacks the
+    cached per-link features stand in for during training."""
+    d = str(tmp_path / "run")
+    run.main(SMALL + EMB + ["--epochs", "1", "--device", "cpu",
+                            "--cache_subgraph_features", "--cache_dir",
+                            str(tmp_path / "cache"), "--checkpoint_dir", d,
+                            "--save_model"])
+    assert os.listdir(tmp_path / "cache")
+    scorer = scorer_from_checkpoint(d, device="cpu")
+    with open(os.path.join(d, "config.json")) as f:
+        cfg = Config.from_json(f.read())
+    datasets = build_all_splits(get_data(cfg)[0], cfg, device="cpu")
+    trainer = run.build_trainer(cfg, datasets, None, "cpu")
+    trained = trainer.init_model(0)
+    checkpoint.restore_into(d, trained)
+    want, _ = trainer.predict(trained, "train")
+    got = scorer.score(datasets["train"].links)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_pretrained_table_is_reread_not_saved(tmp_path):
+    """--pretrained_node_embedding (wider than hidden_channels, diffused):
+    the checkpoint holds no table, and serving reads it again from the
+    config's path and scores as the trainer's predict does."""
+    cfg = Config(dataset_name="synth-ba")
+    splits, _, _ = get_data(cfg)
+    n = splits["train"].graph.num_nodes
+    path = str(tmp_path / "table.npy")
+    np.save(path, np.random.default_rng(0).normal(size=(n, 40)).astype(
+        np.float32))
+    d = str(tmp_path / "run")
+    run.main(SMALL + ["--pretrained_node_embedding", path,
+                      "--propagate_embeddings", "--use_feature", "0",
+                      "--batch_size", "1024", "--epochs", "1",
+                      "--device", "cpu",
+                      "--checkpoint_dir", d, "--save_model"])
+    saved, _ = checkpoint.load_checkpoint(d)
+    assert not any("node_embedding" in k or "frozen" in k
+                   for k in saved["model"])
+    assert "sign_embedding.lin_0.weight" in saved["model"]
+    scorer = scorer_from_checkpoint(d, split="valid", device="cpu")
+    with open(os.path.join(d, "config.json")) as f:
+        cfg = Config.from_json(f.read())
+    datasets = build_all_splits(get_data(cfg)[0], cfg, device="cpu")
+    trainer = run.build_trainer(cfg, datasets, None, "cpu")
+    trained = trainer.init_model(0)
+    checkpoint.restore_into(d, trained)
+    want, _ = trainer.predict(trained, "valid")
+    got = scorer.score(datasets["valid"].links)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
 # ------------------------------------------- the reference's datasets ----
 
 # the reference README's BUDDY commands (tests/test_cli.py) on the fixtures
-# of tests/test_torch_datasets.py, cut to one epoch; ogbl-ddi's needs the
-# node embeddings, which are not ported yet.  citation2's batch sizes
-# (261424 / 522848) are cut to the fixture's size: a batch pads to its
-# full size, and the command's would cost the CPU seconds for 240 links.
+# of tests/test_torch_datasets.py, cut to one epoch, and its two ogbl-ddi
+# commands (BUDDY and ELPH: node embeddings diffused in every step).
+# citation2's and ddi's batch sizes (261424 / 522848, 131072) are cut to
+# the fixture's size: a batch pads to its full size, and the command's
+# would cost the CPU seconds for a few hundred links.
 # name -> (fixture, command, extra flags, the metric it logs)
 DATASET_COMMANDS = {
     "Cora": ("cora", REFERENCE_COMMANDS[1], [], "Hits@100"),
@@ -239,6 +319,10 @@ DATASET_COMMANDS = {
                  "--hidden_channels 256 --cache_subgraph_features "
                  "--add_normed_features 1 --use_zero_one 1 --model BUDDY",
                  [], "Hits@100"),
+    "ogbl-ddi": ("ddi", REFERENCE_COMMANDS[9], ["--batch_size", "256"],
+                 "Hits@20"),
+    "ogbl-ddi ELPH": ("ddi", REFERENCE_COMMANDS[8], ["--batch_size", "256"],
+                      "Hits@20"),
 }
 
 
@@ -251,7 +335,7 @@ def test_reference_buddy_commands_reach_training(tmp_path, name):
         _write(tmp_path, family)
     else:
         _write_planetoid(str(tmp_path), name, family, gap=name == "Citeseer")
-    assert name in cmd
+    assert all(word in cmd for word in name.split())
     ckpt = str(tmp_path / "run")
     result = run.main(shlex.split(cmd) + extra + [
         "--epochs", "1", "--device", "cpu", "--data_root", str(tmp_path),
@@ -268,7 +352,7 @@ def test_reference_buddy_commands_reach_training(tmp_path, name):
 
 # the reference README's ELPH commands (tests/test_cli.py) on the same
 # fixtures, cut to one epoch and to hidden 32 (the GCN runs over the whole
-# graph in every step); ogbl-ddi's needs the node embeddings
+# graph in every step); ogbl-ddi's runs with DATASET_COMMANDS
 ELPH_COMMANDS = {
     "Cora": ("cora", REFERENCE_COMMANDS[0], "Hits@100"),
     "Citeseer": ("citeseer", REFERENCE_COMMANDS[2], "Hits@100"),

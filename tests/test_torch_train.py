@@ -382,7 +382,6 @@ def test_optimizer_state_carries_across():
 
 @pytest.mark.parametrize("trainer", ["BuddyTrainer", "ElphTrainer"])
 @pytest.mark.parametrize("overrides", [
-    {"pretrained_node_embedding": "emb.pt"}, {"train_node_embedding": True},
     {"mesh_shape": [2]},
     {"memory_sharded": True, "mesh_shape": [2], "mesh_axes": ["graph"]},
     {"dtype": "bfloat16"}])
