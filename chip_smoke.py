@@ -142,6 +142,30 @@ Phases, each printing one JSON line:
              propagated table (synth-ws, hidden 32, sign_k 2, dropouts 0)
              trained 2 epochs on the card and on the CPU, float32 and
              float64
+  streaming  exact streaming edge updates at full width: 1,000 undirected
+             train edges of synth-ws-200000 held out of the message graph,
+             a LinkScorer at Config defaults on the rest, the pairs
+             inserted in batches of 1, 100 and 899 and deleted again in
+             the same batches; after each pass the MinHash and HLL stacks
+             bit-equal (cards rtol 1e-6) to build_hash_tables on that
+             graph by the plan route (K1) and the scores within 1e-5 of a
+             rebuilt scorer's; on full and on hops-only stacks; per batch
+             wall, host, dispatch and device ms and the rows rebuilt per
+             hop, the rebuild's seconds beside them; K1's launches read
+             around the phase
+  serve_ra   a use_RA BUDDY at Config defaults on synth-ws-200000: served
+             scores equal predict on the valid split (max |err| <= 1e-5),
+             request ms at 1024, 65536 and 262144 links with the host RA
+             share, one weighted insert + delete round with the RA CSR
+             equal to a rebuilt one after each; K1's launches read around
+             the rebuild
+  heuristics runners.run_heuristics.run with RA, CN and AA on the card over
+             the collab tree of the datasets phase (one rep): seconds,
+             links per bucket width, Hits@50 and AUC per heuristic; a
+             seeded sample of 100,000 valid/test links held to the host
+             functions (rtol 1e-4, atol 1e-5); the four heuristics, PPR
+             among them, through the runner on synth-ba; one call over
+             16,384 hub pairs of the ddi tree (bucket 4096), timed
 
 then the per-kernel summary line (each K1, K2 and K3 entry also carries
 its ``bench_hub`` time, bound and yardstick: ``hub_ms``, ``hub_bound_ms``,
@@ -152,7 +176,9 @@ K1 add instances of the ELPH step at W=1024, PlanSpmm forward and
 backward and gather_rows' backward, each with the add launches of the
 train_elph run, which the three share, and the launches a step counted in
 the profiled window; and the two K1 add instances of the ddi diffusion at
-W=256, forward and backward, with the add launches of the ddi runs), the
+W=256, forward and backward, with the add launches of the ddi runs; each
+K1 entry of the main path also its launches in the streaming and serve_ra
+phases, ``streaming_launches`` and ``serve_ra_launches``), the
 nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises: the run exits
 non-zero and prints no last line.  Without a CUDA device it exits 2 at once.
@@ -160,11 +186,13 @@ non-zero and prints no last line.  Without a CUDA device it exits 2 at once.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
@@ -1681,15 +1709,15 @@ def write_collab(root: str, seed: int = 6) -> None:
                    os.path.join(split, f"{name}.pt"))
 
 
-def phase_datasets_collab() -> dict:
-    """(a) ogbl-collab at its published shape through the runner: the
+def phase_datasets_collab(root: str) -> dict:
+    """(a) ogbl-collab at its published shape through the runner: the tree
+    written under ``root`` (which the caller removes), then the
     reference's collab BUDDY command, cut to one epoch, run twice with one
     --cache_dir.  The second run reads the caches (the train negatives and
     every split's subgraph features: no sketch is built, so no min/max K1
     launch), and its subgraph features, SIGN features and epoch-0 loss
     equal the first run's."""
     import shlex
-    import tempfile
 
     import numpy as np
     import torch
@@ -1697,85 +1725,81 @@ def phase_datasets_collab() -> dict:
     from subgraph_sketching_tpu_torch.ops import segscan
     from subgraph_sketching_tpu_torch.runners import run as runner
 
-    root = tempfile.mkdtemp(prefix="smoke_collab_")
+    t0 = time.perf_counter()
+    write_collab(root)
+    write_s = time.perf_counter() - t0
+    built = []   # each run's datasets, seen through the runner's call
+    build_all_splits = runner.build_all_splits
+
+    def keep(*args, **kwargs):
+        built.append(build_all_splits(*args, **kwargs))
+        return built[-1]
+
+    runs = []
+    runner.build_all_splits = keep
     try:
-        t0 = time.perf_counter()
-        write_collab(root)
-        write_s = time.perf_counter() - t0
-        built = []   # each run's datasets, seen through the runner's call
-        build_all_splits = runner.build_all_splits
-
-        def keep(*args, **kwargs):
-            built.append(build_all_splits(*args, **kwargs))
-            return built[-1]
-
-        runs = []
-        runner.build_all_splits = keep
-        try:
-            for i in range(2):
-                ckpt = os.path.join(root, f"run{i}")
-                for k in segscan.launches:
-                    segscan.launches[k] = 0
-                torch.cuda.reset_peak_memory_stats()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                results = runner.main(shlex.split(COLLAB_COMMAND) + [
-                    "--epochs", "1", "--device", "cuda", "--data_root", root,
-                    "--cache_dir", os.path.join(root, "cache"),
-                    "--checkpoint_dir", ckpt])
-                torch.cuda.synchronize()
-                run_s = time.perf_counter() - t0
-                with open(os.path.join(ckpt, "metrics.jsonl")) as f:
-                    (row,) = [json.loads(line) for line in f]
-                runs.append({
-                    "run_s": run_s, "get_data_s": row["rep0_get_data_time"],
-                    "preprocess_s": row["rep0_preprocess_time"],
-                    "epoch_s": row["rep0_train_time"],
-                    "eval_s": row["rep0_eval_time"], "loss": row["rep0_loss"],
-                    "hits@50": {"train": row["rep0_TrainHits@50"] / 100,
-                                "valid": row["rep0_tmp_valHits@50"] / 100,
-                                "test": row["rep0_tmp_testHits@50"] / 100},
-                    "results": results,
-                    "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-                    "k1_launches": dict(segscan.launches)})
-        finally:
-            runner.build_all_splits = build_all_splits
-        first, second = built
-        for split in first:
-            for what in ("subgraph_features", "x"):
-                if not np.array_equal(getattr(first[split], what),
-                                      getattr(second[split], what)):
-                    raise AssertionError(f"collab: the second run's {what} "
-                                         f"({split}) differ from the first's")
-        if runs[1]["loss"] != runs[0]["loss"]:
-            raise AssertionError(f"collab: epoch-0 loss {runs[1]['loss']} "
-                                 f"on the cached run, {runs[0]['loss']} "
-                                 f"before")
-        l0, l1 = runs[0]["k1_launches"], runs[1]["k1_launches"]
-        if l0["segscan_min_i32"] < 4 or l0["segscan_max_i8"] < 4 \
-                or l0["segscan_add_f32"] < 2:
-            raise AssertionError(f"collab: the first run did not build its "
-                                 f"two message graphs through K1: {l0}")
-        if l1["segscan_min_i32"] or l1["segscan_max_i8"]:
-            raise AssertionError(f"collab: the second run built sketches "
-                                 f"despite the caches: {l1}")
-        cached = sorted(os.listdir(os.path.join(root, "cache")))
-        if sum(f.endswith("subgraph_features.npz") for f in cached) != 3 \
-                or not any("negative_samples" in f for f in cached):
-            raise AssertionError(f"collab: caches missing: {cached}")
-        train = first["train"]
-        return {"phase": "datasets", "part": "collab",
-                "dataset": "ogbl-collab", "shape": COLLAB,
-                "command": COLLAB_COMMAND + " --epochs 1",
-                "write_s": write_s, "nodes": train.num_nodes,
-                "train_message_edges": int(train.edge_index.shape[1]),
-                "train_links": int(train.num_links),
-                "links": {k: int(d.num_links) for k, d in first.items()},
-                "runs": runs, "cached_files": cached,
-                "second_run_equal": ["subgraph_features", "x",
-                                     "epoch-0 loss"]}
+        for i in range(2):
+            ckpt = os.path.join(root, f"run{i}")
+            for k in segscan.launches:
+                segscan.launches[k] = 0
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = runner.main(shlex.split(COLLAB_COMMAND) + [
+                "--epochs", "1", "--device", "cuda", "--data_root", root,
+                "--cache_dir", os.path.join(root, "cache"),
+                "--checkpoint_dir", ckpt])
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            with open(os.path.join(ckpt, "metrics.jsonl")) as f:
+                (row,) = [json.loads(line) for line in f]
+            runs.append({
+                "run_s": run_s, "get_data_s": row["rep0_get_data_time"],
+                "preprocess_s": row["rep0_preprocess_time"],
+                "epoch_s": row["rep0_train_time"],
+                "eval_s": row["rep0_eval_time"], "loss": row["rep0_loss"],
+                "hits@50": {"train": row["rep0_TrainHits@50"] / 100,
+                            "valid": row["rep0_tmp_valHits@50"] / 100,
+                            "test": row["rep0_tmp_testHits@50"] / 100},
+                "results": results,
+                "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                "k1_launches": dict(segscan.launches)})
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        runner.build_all_splits = build_all_splits
+    first, second = built
+    for split in first:
+        for what in ("subgraph_features", "x"):
+            if not np.array_equal(getattr(first[split], what),
+                                  getattr(second[split], what)):
+                raise AssertionError(f"collab: the second run's {what} "
+                                     f"({split}) differ from the first's")
+    if runs[1]["loss"] != runs[0]["loss"]:
+        raise AssertionError(f"collab: epoch-0 loss {runs[1]['loss']} "
+                             f"on the cached run, {runs[0]['loss']} "
+                             f"before")
+    l0, l1 = runs[0]["k1_launches"], runs[1]["k1_launches"]
+    if l0["segscan_min_i32"] < 4 or l0["segscan_max_i8"] < 4 \
+            or l0["segscan_add_f32"] < 2:
+        raise AssertionError(f"collab: the first run did not build its "
+                             f"two message graphs through K1: {l0}")
+    if l1["segscan_min_i32"] or l1["segscan_max_i8"]:
+        raise AssertionError(f"collab: the second run built sketches "
+                             f"despite the caches: {l1}")
+    cached = sorted(os.listdir(os.path.join(root, "cache")))
+    if sum(f.endswith("subgraph_features.npz") for f in cached) != 3 \
+            or not any("negative_samples" in f for f in cached):
+        raise AssertionError(f"collab: caches missing: {cached}")
+    train = first["train"]
+    return {"phase": "datasets", "part": "collab",
+            "dataset": "ogbl-collab", "shape": COLLAB,
+            "command": COLLAB_COMMAND + " --epochs 1",
+            "write_s": write_s, "nodes": train.num_nodes,
+            "train_message_edges": int(train.edge_index.shape[1]),
+            "train_links": int(train.num_links),
+            "links": {k: int(d.num_links) for k, d in first.items()},
+            "runs": runs, "cached_files": cached,
+            "second_run_equal": ["subgraph_features", "x",
+                                 "epoch-0 loss"]}
 
 
 def _reset_k1() -> None:
@@ -2355,9 +2379,10 @@ def _ddi_k1(trainer, seed: int) -> dict:
     return out
 
 
-def phase_ddi(seed: int = 12) -> tuple:
+def phase_ddi(root: str, seed: int = 12) -> tuple:
     """Node embeddings at ogbl-ddi's published shape: the raw tree written
-    from a seed (its seconds apart), then the reference's ddi BUDDY
+    from a seed under ``root`` (which the caller removes; its seconds
+    apart), then the reference's ddi BUDDY
     command twice with one --cache_dir (the second run reads the subgraph
     feature caches and equals the first: every split's features and the
     epoch losses) and its ddi ELPH command, each cut to 2 epochs with eval
@@ -2366,53 +2391,47 @@ def phase_ddi(seed: int = 12) -> tuple:
     and the served checkpoint (_ddi_serve); K1 at the diffusion's shape
     (_ddi_k1).  Returns ({direction: K1 record}, [run records],
     summary)."""
-    import tempfile
-
     import numpy as np
     import torch
 
-    root = tempfile.mkdtemp(prefix="smoke_ddi_")
-    try:
-        t0 = time.perf_counter()
-        degrees = write_ddi(root)
-        write_s = time.perf_counter() - t0
-        runs, features, k1 = [], [], None
-        for model, name in (("BUDDY", "buddy"), ("BUDDY", "buddy_cached"),
-                            ("ELPH", "elph")):
-            record, trainer, datasets = _ddi_run(root, model, name)
-            if model == "BUDDY":
-                features.append({k: d.subgraph_features
-                                 for k, d in datasets.items()})
-            if name != "buddy_cached":
-                record["profile"] = _ddi_profile(trainer, seed)
-                record.update(_ddi_serve(trainer, datasets, seed))
-            if k1 is None:
-                k1 = _ddi_k1(trainer, seed)
-            runs.append(record)
-            del trainer, datasets
-            torch.cuda.empty_cache()
-        first, cached = runs[0], runs[1]
-        for split, sf in features[0].items():
-            if not np.array_equal(sf, features[1][split]):
-                raise AssertionError(f"ddi: the cached run's {split} "
-                                     f"subgraph features differ")
-        if [e["loss"] for e in first["epochs"]] \
-                != [e["loss"] for e in cached["epochs"]]:
-            raise AssertionError("ddi: the cached BUDDY run's losses differ "
-                                 "from the first run's")
-        if cached["k1_launches"]["segscan_min_i32"] \
-                or cached["k1_launches"]["segscan_max_i8"]:
-            raise AssertionError("ddi: the cached run built sketches")
-        cached_files = sorted(os.listdir(os.path.join(root, "cache")))
-        summary = {"phase": "ddi", "part": "summary", "shape": DDI,
-                   "write_s": write_s, "train_degrees": degrees,
-                   "cached_files": cached_files,
-                   "cached_run_equal": ["subgraph_features", "losses"],
-                   "k1_add_launches": sum(r["k1_launches"]["segscan_add_f32"]
-                                          for r in runs)}
-        return k1, runs, summary
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    degrees = write_ddi(root)
+    write_s = time.perf_counter() - t0
+    runs, features, k1 = [], [], None
+    for model, name in (("BUDDY", "buddy"), ("BUDDY", "buddy_cached"),
+                        ("ELPH", "elph")):
+        record, trainer, datasets = _ddi_run(root, model, name)
+        if model == "BUDDY":
+            features.append({k: d.subgraph_features
+                             for k, d in datasets.items()})
+        if name != "buddy_cached":
+            record["profile"] = _ddi_profile(trainer, seed)
+            record.update(_ddi_serve(trainer, datasets, seed))
+        if k1 is None:
+            k1 = _ddi_k1(trainer, seed)
+        runs.append(record)
+        del trainer, datasets
+        torch.cuda.empty_cache()
+    first, cached = runs[0], runs[1]
+    for split, sf in features[0].items():
+        if not np.array_equal(sf, features[1][split]):
+            raise AssertionError(f"ddi: the cached run's {split} "
+                                 f"subgraph features differ")
+    if [e["loss"] for e in first["epochs"]] \
+            != [e["loss"] for e in cached["epochs"]]:
+        raise AssertionError("ddi: the cached BUDDY run's losses differ "
+                             "from the first run's")
+    if cached["k1_launches"]["segscan_min_i32"] \
+            or cached["k1_launches"]["segscan_max_i8"]:
+        raise AssertionError("ddi: the cached run built sketches")
+    cached_files = sorted(os.listdir(os.path.join(root, "cache")))
+    summary = {"phase": "ddi", "part": "summary", "shape": DDI,
+               "write_s": write_s, "train_degrees": degrees,
+               "cached_files": cached_files,
+               "cached_run_equal": ["subgraph_features", "losses"],
+               "k1_add_launches": sum(r["k1_launches"]["segscan_add_f32"]
+                                      for r in runs)}
+    return k1, runs, summary
 
 
 # biases of the Linear layers that feed a BatchNorm, with node embeddings:
@@ -2512,6 +2531,472 @@ def phase_emb_reference(seed: int = 13) -> dict:
     return out
 
 
+# ------------------------------------------ streaming, RA serving, heuristics
+
+STREAM_HELD_OUT = 1000                 # undirected train edges held out
+STREAM_BATCHES = (1, 100, 899)         # inserted, then deleted, in turn
+RA_REQUEST_SIZES = (1024, 65536, 262144)
+HEURISTIC_SAMPLE = 100_000             # valid/test links held to the host
+HUB_LINKS = 16_384                     # ddi hub pairs in one timed call
+
+
+def _sym(pairs):
+    """[2, 2M] edge index of both directions of the pairs [M, 2]."""
+    import numpy as np
+    return np.concatenate([pairs.T, pairs.T[::-1]], axis=1)
+
+
+def _timed_merges(scorer) -> list:
+    """Record CUDA events around each per-hop merge of ``scorer``'s
+    streaming updates; returns the list the (start, end) pairs go to."""
+    import torch
+    events, merge = [], scorer._merge
+
+    def timed(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        merge(*args, **kwargs)
+        end.record()
+        events.append((start, end))
+
+    scorer._merge = timed
+    return events
+
+
+def _hold_stacks(got, want, what: str) -> None:
+    """MinHash and HLL stacks bit-equal, cards to rtol 1e-6."""
+    import torch
+    if not (torch.equal(got.minhash, want.minhash)
+            and torch.equal(got.hll, want.hll)):
+        raise AssertionError(f"{what}: the streamed stacks differ from the "
+                             f"rebuild's")
+    torch.testing.assert_close(got.cards, want.cards, rtol=1e-6, atol=0,
+                               msg=f"{what}: cards")
+
+
+def _stream_pass(scorer, events: list, pairs, op: str) -> list:
+    """``op`` ('insert' or 'delete') the pairs [M, 2] in STREAM_BATCHES
+    batches; one record per batch."""
+    import torch
+    records, s = [], 0
+    for size in STREAM_BATCHES:
+        batch = pairs[s:s + size]
+        s += size
+        events.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        getattr(scorer, f"{op}_edges")(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        stats = scorer.last_update_stats
+        records.append({
+            "op": op, "pairs": int(len(batch)), "wall_ms": wall_ms,
+            "host_ms": stats["host_ms"], "dispatch_ms": stats["dispatch_ms"],
+            "device_ms": sum(a.elapsed_time(b) for a, b in events),
+            "rows_per_hop": stats["rows"]})
+    return records
+
+
+def phase_streaming(cfg, splits, seed: int = 14) -> dict:
+    """Exact streaming edge updates at full width: STREAM_HELD_OUT
+    undirected train edges of synth-ws-200000 held out of the message
+    graph, a LinkScorer (Config defaults, seeded weights) served on the
+    rest, then the held-out pairs inserted in STREAM_BATCHES batches and
+    deleted again in the same batches.  After each pass the scorer's
+    MinHash and HLL stacks are bit-equal, and its cards within rtol 1e-6,
+    to build_hash_tables on that graph by the plan route (K1), and its
+    scores within 1e-5 of a scorer rebuilt on that graph (with the served
+    node features, which the updates leave as precomputed).  Then once
+    more on hops-only stacks.  Per batch: wall, host (the update's own
+    ``host_ms``) and dispatch ms, the device ms (CUDA events around each
+    hop's merge, so the host's enqueue gaps inside a merge count) and the
+    rows rebuilt per hop; the rebuild's seconds for contrast; then the
+    largest batch inserted and deleted once more on the full stacks under
+    torch.profiler, for the device's busy ms.  K1's launch counts are
+    read around the rebuilds."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from subgraph_sketching_tpu_torch.graph.container import Graph
+    from subgraph_sketching_tpu_torch.graph.preprocess import (
+        build_link_dataset, sketch_params_from_config,
+    )
+    from subgraph_sketching_tpu_torch.graph.splits import SplitData
+    from subgraph_sketching_tpu_torch.ops import segscan
+    from subgraph_sketching_tpu_torch.ops.segment_scan import make_auto_plan
+    from subgraph_sketching_tpu_torch.serving import LinkScorer
+    from subgraph_sketching_tpu_torch.sketch.elph import build_hash_tables
+    from subgraph_sketching_tpu_torch.sketch.params import Sketches
+
+    rng = np.random.default_rng(seed)
+    g = splits["train"].graph
+    n = g.num_nodes
+    und = g.edge_index[:, g.edge_index[0] < g.edge_index[1]].T.astype(
+        np.int64)
+    drop = rng.choice(len(und), STREAM_HELD_OUT, replace=False)
+    keep = np.ones(len(und), bool)
+    keep[drop] = False
+    held = und[drop]
+    graphs = {"small": _sym(und[keep]), "full": _sym(und)}
+    params = sketch_params_from_config(cfg)
+    valid = splits["valid"]
+    _reset_k1()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = build_link_dataset(SplitData(Graph(graphs["small"], n, x=g.x),
+                                      valid.pos_edges, valid.neg_edges),
+                            cfg, "train", device="cuda")
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t0
+    ds = dataclasses.replace(ds, sketches=None)
+    full_ds = dataclasses.replace(
+        ds, edge_index=graphs["full"],
+        edge_weight=np.ones(graphs["full"].shape[1], np.float32),
+        degrees=Graph(graphs["full"], n).degrees())
+    plans = {k: make_auto_plan(ei, n, max_slots=cfg.max_gather_slots,
+                               device="cuda") for k, ei in graphs.items()}
+    model = seeded_buddy(cfg, 128, seed)
+    queries = np.concatenate([held, rng.integers(0, n, (4096, 2))])
+    layouts = []
+    for hops_only in (False, True):
+        c = dataclasses.replace(cfg, hops_only_sketches=hops_only)
+        ref, sketch_s = {}, {}
+        for name, ei in graphs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref[name] = build_hash_tables(ei, n, params, plan=plans[name],
+                                          hops_only=hops_only)
+            torch.cuda.synchronize()
+            sketch_s[name] = time.perf_counter() - t0
+        scorer = LinkScorer(c, model, dataclasses.replace(
+            ds, sketches=Sketches(*(t.clone() for t in ref["small"]))),
+            device="cuda")
+        events = _timed_merges(scorer)
+        rebuilt = {
+            "insert": LinkScorer(c, model, dataclasses.replace(
+                full_ds, sketches=ref["full"]), device="cuda"),
+            "delete": LinkScorer(c, model, dataclasses.replace(
+                ds, sketches=ref["small"]), device="cuda")}
+        passes = []
+        for op, other in rebuilt.items():
+            batches = _stream_pass(scorer, events, held, op)
+            what = f"streaming (hops_only={hops_only}) after the {op}s"
+            _hold_stacks(scorer.sk, other.sk, what)
+            if not torch.equal(scorer.deg, other.deg):
+                raise AssertionError(f"{what}: degrees differ")
+            got, want = scorer.score(queries), other.score(queries)
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5,
+                                       err_msg=what)
+            passes.append({"op": op, "batches": batches,
+                           "max_abs_score_diff": float(
+                               np.abs(got - want).max())})
+        layouts.append({"hops_only": hops_only,
+                        "stack_bytes": sum(t.numel() * t.element_size()
+                                           for t in ref["small"][:2]),
+                        "rebuild_sketches_s": sketch_s, "passes": passes})
+        if not hops_only:
+            kept = scorer, rebuilt
+        del scorer, rebuilt, ref
+    launches = dict(segscan.launches)
+    if not (launches["segscan_min_i32"] and launches["segscan_max_i8"]
+            and launches["segscan_add_f32"]):
+        raise AssertionError(f"streaming: the rebuilds did not run on K1: "
+                             f"{launches}")
+    # the largest batch again on the full stacks, each way, under the
+    # profiler: the device's busy time, which the events above overstate
+    # by the host's enqueue gaps
+    scorer, rebuilt = kept
+    batch = held[-STREAM_BATCHES[-1]:]
+    profiled = {}
+    for op in ("insert", "delete"):
+        host_s, busy_ms, kernels = profile_window(
+            lambda: scorer.score(queries[:1024]),
+            lambda: getattr(scorer, f"{op}_edges")(batch))
+        profiled[op] = {"pairs": int(len(batch)), "wall_ms": host_s * 1e3,
+                        "device_busy_ms": busy_ms,
+                        "kernels": sum(c for _, c in kernels.values())}
+    _hold_stacks(scorer.sk, rebuilt["delete"].sk,
+                 f"streaming, the profiled insert and delete of {len(batch)} "
+                 f"pairs")
+    del kept, scorer, rebuilt
+    return {"phase": "streaming", "dataset": cfg.dataset_name, "nodes": n,
+            "train_message_edges": int(g.num_edges),
+            "held_out_pairs": STREAM_HELD_OUT,
+            "batches": list(STREAM_BATCHES),
+            "hidden_channels": cfg.hidden_channels,
+            "minhash_num_perm": cfg.minhash_num_perm, "hll_p": cfg.hll_p,
+            "max_hash_hops": cfg.max_hash_hops,
+            "rebuild_s": rebuild_s, "layouts": layouts,
+            "profiled_largest_batch": profiled, "k1_launches": launches,
+            "tolerance": "stacks bit-equal to build_hash_tables by the plan "
+                         "route, cards rtol 1e-6, degrees equal, scores "
+                         "1e-5"}
+
+
+def phase_serve_ra(cfg, splits, seed: int = 15) -> dict:
+    """A use_RA BUDDY at Config defaults on synth-ws-200000 with seeded
+    weights, served over the valid split's message graph: the scores of
+    the split's links equal the trainer's predict (max |err| <= 1e-5);
+    request ms at RA_REQUEST_SIZES with the host's RA share (the same
+    ``resource_allocation`` call timed alone on the request's links); one
+    weighted insert + delete round, after each of which the RA CSR and
+    the degrees equal a rebuilt graph's, and after which the scores are
+    those of before.  K1's launch counts are read around the rebuild."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from subgraph_sketching_tpu_torch.graph.container import Graph
+    from subgraph_sketching_tpu_torch.graph.preprocess import (
+        build_link_dataset,
+    )
+    from subgraph_sketching_tpu_torch.heuristics import resource_allocation
+    from subgraph_sketching_tpu_torch.ops import segscan
+    from subgraph_sketching_tpu_torch.serving import LinkScorer
+    from subgraph_sketching_tpu_torch.train.loops import BuddyTrainer
+
+    cfg = dataclasses.replace(cfg, use_RA=True)
+    _reset_k1()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = build_link_dataset(splits["valid"], cfg, "valid", device="cuda")
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t0
+    launches = dict(segscan.launches)
+    if not (launches["segscan_min_i32"] and launches["segscan_max_i8"]
+            and launches["segscan_add_f32"]):
+        raise AssertionError(f"serve_ra: the rebuild did not run on K1: "
+                             f"{launches}")
+    scorer = LinkScorer(cfg, seeded_buddy(cfg, 128, seed), ds,
+                        device="cuda")
+    trainer = BuddyTrainer(cfg, ds, ds.x.shape[-1], device="cuda")
+    want, _ = trainer.predict(scorer.model, "train")
+    got = scorer.score(ds.links)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5,
+                               err_msg="serve_ra: scorer against predict")
+    del trainer
+    rng = np.random.default_rng(seed)
+    scorer.warmup()
+    requests = []
+    for size in RA_REQUEST_SIZES:
+        links = rng.integers(0, scorer.num_nodes, (size, 2))
+        ms = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scores = scorer.score(links)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if scores.shape != (size,) or not np.isfinite(scores).all():
+                raise AssertionError(f"serve_ra: bad scores at {size}")
+        t0 = time.perf_counter()
+        resource_allocation(scorer.ra_csr, links)
+        ra_ms = (time.perf_counter() - t0) * 1e3
+        requests.append({"links": size, "ms": ms[0], "repeat_ms": ms[1],
+                         "ra_host_ms": ra_ms, "ra_share": ra_ms / ms[1]})
+    # one weighted insert + delete round of pairs not in the graph
+    n = scorer.num_nodes
+    have = set((ds.edge_index[0].astype(np.int64) * n
+                + ds.edge_index[1]).tolist())
+    pairs = []
+    while len(pairs) < 100:
+        u, v = sorted(rng.integers(0, n, 2).tolist())
+        if u != v and u * n + v not in have:
+            have.add(u * n + v)
+            pairs.append((u, v))
+    pairs = np.array(pairs, np.int64)
+    w = rng.integers(1, 4, len(pairs)).astype(np.float32)
+    q = rng.integers(0, n, (4096, 2))
+    before = scorer.score(q)
+    base_csr = scorer.ra_csr.copy()
+    base_deg = scorer.deg.clone()
+    scorer.insert_edges(pairs, weights=w)
+    grown = Graph(np.concatenate([ds.edge_index, _sym(pairs)], axis=1), n,
+                  np.concatenate([ds.edge_weight, w, w]))
+    for what, csr, deg in (
+            ("insert", grown.csr(), torch.from_numpy(grown.degrees())),
+            ("delete", None, None)):
+        if csr is None:
+            scorer.delete_edges(pairs, weights=w)
+            csr, deg = base_csr, base_deg
+        if abs(scorer.ra_csr - csr).max() != 0 \
+                or scorer.ra_csr.nnz != csr.nnz:
+            raise AssertionError(f"serve_ra: the RA CSR after the {what} "
+                                 f"differs from the rebuilt one")
+        if not torch.equal(scorer.deg, deg.to(scorer.deg.device)):
+            raise AssertionError(f"serve_ra: degrees after the {what}")
+    after = scorer.score(q)
+    if not np.array_equal(after, before):
+        raise AssertionError("serve_ra: scores changed by the insert + "
+                             "delete round")
+    return {"phase": "serve_ra", "dataset": cfg.dataset_name,
+            "split": "valid", "nodes": n,
+            "message_edges": int(ds.edge_index.shape[1]),
+            "hidden_channels": cfg.hidden_channels, "use_RA": True,
+            "rebuild_s": rebuild_s, "k1_launches": launches,
+            "links_held_to_predict": int(len(ds.links)),
+            "max_abs_err_vs_predict": float(np.abs(got - want).max()),
+            "requests": requests,
+            "update_round": {"pairs": int(len(pairs)),
+                             "weights": "integers 1-3",
+                             "ra_csr_equal_rebuilt": ["insert", "delete"],
+                             "scores_restored": True}}
+
+
+@contextlib.contextmanager
+def _timed_heuristics(records: dict):
+    """Within the block, each ``DeviceHeuristics.scores`` call's seconds
+    (the call returns host arrays, so the card is done), its links per
+    bucket width and the chunks they take add up in ``records`` by
+    kind."""
+    import numpy as np
+
+    from subgraph_sketching_tpu_torch.heuristics import DeviceHeuristics
+    scores = DeviceHeuristics.scores
+
+    def timed(self, links, kind="CN"):
+        t0 = time.perf_counter()
+        out = scores(self, links, kind)
+        seconds = time.perf_counter() - t0
+        rec = records.setdefault(kind, {"seconds": 0.0, "links": 0,
+                                        "buckets": {}})
+        rec["seconds"] += seconds
+        rec["links"] += len(links)
+        counts = np.bincount(self.bucket_of(np.asarray(links)),
+                             minlength=len(self.buckets))
+        for D, c in zip(self.buckets, counts.tolist()):
+            b = rec["buckets"].setdefault(str(D), {"links": 0, "chunks": 0})
+            b["links"] += c
+            if c:
+                b["chunks"] += -(-c // max(1, min(
+                    c, self.chunk_elems // (D * D))))
+        return out
+
+    DeviceHeuristics.scores = timed
+    try:
+        yield
+    finally:
+        DeviceHeuristics.scores = scores
+
+
+def phase_heuristics(collab_root: str, ddi_root: str, seed: int = 16) -> dict:
+    """The heuristics tier on the card: ``runners.run_heuristics.run`` with
+    RA, CN and AA on the ogbl-collab tree of the datasets phase (one rep),
+    each heuristic's seconds of DeviceHeuristics scoring, its links per
+    bucket width, Hits@50 and AUC (random data: these measure nothing);
+    the card's scores of a seeded sample of HEURISTIC_SAMPLE valid and
+    test links against the host functions (rtol 1e-4, atol 1e-5); PPR
+    (and the other three) through the runner on synth-ba only, since its
+    host power iteration, one solve per unique source, takes hours at
+    collab scale; and one call over HUB_LINKS hub pairs of the ddi tree
+    (largest degree 2,269: bucket 4096, 2 links a chunk), the compare-all's
+    worst case, timed."""
+    import numpy as np
+    import torch
+
+    from subgraph_sketching_tpu_torch.config import Config
+    from subgraph_sketching_tpu_torch.graph.container import Graph
+    from subgraph_sketching_tpu_torch.heuristics import (
+        DeviceHeuristics, adamic_adar, common_neighbours, resource_allocation,
+    )
+    from subgraph_sketching_tpu_torch.runners import run_heuristics
+
+    host = {"RA": resource_allocation, "CN": common_neighbours,
+            "AA": adamic_adar}
+    kept, records = {}, {}
+    get_data = run_heuristics.get_data
+
+    def keep(cfg):
+        kept["data"] = get_data(cfg)
+        return kept["data"]
+
+    run_heuristics.get_data = keep
+    try:
+        with _timed_heuristics(records):
+            t0 = time.perf_counter()
+            summary = run_heuristics.run(
+                Config(dataset_name="ogbl-collab", data_root=collab_root),
+                tuple(host), device="cuda")
+            run_s = time.perf_counter() - t0
+    finally:
+        run_heuristics.get_data = get_data
+    ba_records = {}
+    with _timed_heuristics(ba_records):
+        t0 = time.perf_counter()
+        ba = run_heuristics.run(Config(dataset_name="synth-ba"),
+                                ("RA", "CN", "AA", "PPR"), device="cuda")
+        ba_s = time.perf_counter() - t0
+    for name, s in list(summary.items()) + list(ba.items()):
+        if not all(np.isfinite(v) for v in s.values()):
+            raise AssertionError(f"heuristics: {name} summary not finite: "
+                                 f"{s}")
+    # the card against the host functions on a seeded sample
+    splits = kept["data"][0]
+    rng = np.random.default_rng(seed)
+    sample = {}
+    for split, graph in (("valid", "train"), ("test", "test")):
+        links = splits[split].links
+        sel = rng.choice(len(links), HEURISTIC_SAMPLE // 2, replace=False)
+        sample[split] = (splits[graph].graph.csr(), links[sel])
+    held = {}
+    for split, (A, links) in sample.items():
+        dev = DeviceHeuristics(A, device="cuda")
+        for kind, fn in host.items():
+            got, want = dev.scores(links, kind), fn(A, links)
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5,
+                                       err_msg=f"heuristics {kind} {split}")
+            held[f"{kind}_{split}"] = float(np.abs(got - want).max())
+    # the ddi tree's hub pairs: the widest bucket's compare-all
+    edges = torch.load(os.path.join(ddi_root, "ogbl_ddi", "split", "target",
+                                    "train.pt"))["edge"].numpy()
+    A = Graph(_sym(edges), DDI["nodes"]).csr()
+    dev = DeviceHeuristics(A, device="cuda")
+    wide = dev.buckets[-1]
+    hubs = np.nonzero(dev.deg > dev.buckets[-2])[0]
+    top = np.argsort(-dev.deg, kind="stable")[:512]
+    links = np.stack([rng.choice(hubs, HUB_LINKS),
+                      rng.choice(top, HUB_LINKS)], axis=1)
+    links[links[:, 0] == links[:, 1], 1] = top[-1]
+    if not (dev.bucket_of(links) == len(dev.buckets) - 1).all():
+        raise AssertionError("heuristics: a hub pair outside the widest "
+                             "bucket")
+    dev.scores(links[:4], "CN")     # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = dev.scores(links, "CN")
+    hub_s = time.perf_counter() - t0
+    np.testing.assert_allclose(got, common_neighbours(A, links), rtol=1e-4,
+                               atol=1e-5, err_msg="heuristics: ddi hub pairs")
+    per_chunk = max(1, dev.chunk_elems // (wide * wide))
+    return {"phase": "heuristics", "dataset": "ogbl-collab",
+            "shape": COLLAB, "heuristics": list(host), "reps": 1,
+            "device": "cuda", "run_s": run_s,
+            "device_scoring": records, "summary": summary,
+            "hits@50_test": {k: summary[k][f"{k}_test_mean"] / 100
+                             for k in host},
+            "auc_test": {k: summary[k][f"{k}_test_auc_mean"] / 100
+                         for k in host},
+            "held_to_host": {"links": HEURISTIC_SAMPLE,
+                             "tolerance": "rtol 1e-4, atol 1e-5",
+                             "max_abs_err": held},
+            "synth_ba": {"heuristics": ["RA", "CN", "AA", "PPR"],
+                         "run_s": ba_s, "summary": ba,
+                         "device_scoring": ba_records},
+            "ppr_at_collab": "not run: the host power iteration, one solve "
+                             "per unique source, takes hours at this scale",
+            "ddi_hub_pairs": {"links": HUB_LINKS, "buckets": dev.buckets,
+                              "max_degree": int(dev.deg.max()),
+                              "width": wide, "links_per_chunk": per_chunk,
+                              "chunks": -(-HUB_LINKS // per_chunk),
+                              "seconds": hub_s,
+                              "ms_per_chunk": hub_s * 1e3
+                              / -(-HUB_LINKS // per_chunk)}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2567,15 +3052,26 @@ def main() -> int:
     emit(elph)
     emit(gather_k1)
     emit(phase_elph_reference())
-    emit(phase_datasets_collab())
-    emit(phase_datasets_chunked(plans))
-    del plans, hub
-    citation2, chunked = phase_datasets_citation2()
-    emit(citation2)
-    ddi_k1, ddi_runs, ddi = phase_ddi()
-    for r in ddi_runs + [ddi] + list(ddi_k1.values()):
-        emit(r)
-    emit(phase_emb_reference())
+    collab_root = tempfile.mkdtemp(prefix="smoke_collab_")
+    ddi_root = tempfile.mkdtemp(prefix="smoke_ddi_")
+    try:
+        emit(phase_datasets_collab(collab_root))
+        emit(phase_datasets_chunked(plans))
+        del plans, hub
+        citation2, chunked = phase_datasets_citation2()
+        emit(citation2)
+        ddi_k1, ddi_runs, ddi = phase_ddi(ddi_root)
+        for r in ddi_runs + [ddi] + list(ddi_k1.values()):
+            emit(r)
+        emit(phase_emb_reference())
+        streaming = phase_streaming(cfg, splits)
+        emit(streaming)
+        serve_ra = phase_serve_ra(cfg, splits)
+        emit(serve_ra)
+        emit(phase_heuristics(collab_root, ddi_root))
+    finally:
+        shutil.rmtree(collab_root, ignore_errors=True)
+        shutil.rmtree(ddi_root, ignore_errors=True)
 
     # each K1, K2 and K3 instance's bench_hub record, by name
     at_hub = {r["name"]: r for r in hub_records + hub_routes if "name" in r}
@@ -2590,6 +3086,8 @@ def main() -> int:
         if lib == "segscan":
             rec["graph_ms"] = r["graph_ms"]
             rec["train_launches"] = train["k1_launches"][r["name"]]
+            rec["streaming_launches"] = streaming["k1_launches"][r["name"]]
+            rec["serve_ra_launches"] = serve_ra["k1_launches"][r["name"]]
         if lib == "block_prop":
             rec["fold_launches"] = r["fold_launches"]
         if lib in ("segscan", "gather_reduce", "block_prop"):

@@ -19,7 +19,11 @@ way), the same bit for bit on two runs, and two ELPH epochs by the
 scatter route trained twice bit for bit.  The node embeddings' ddi
 diffusion holds K1's add at W = 256 on a dense graph (hundreds of
 sub-runs a row), its PlanSpmm each way, and two embedding epochs of BUDDY
-and ELPH trained twice bit for bit.
+and ELPH trained twice bit for bit.  The streaming updates' merges
+(int8 amax and biased-int32 amin by ``scatter_reduce_``) equal the CPU's;
+weighted inserts and deletes with RA leave the stacks bit-equal to a
+rebuild on the card and to the CPU's updates; ``DeviceHeuristics`` on
+the card agrees with the host functions.
 They skip without a CUDA device.
 
 This file imports no jax, so it also runs where jax is not installed:
@@ -783,3 +787,118 @@ def test_embedding_epochs_train_the_same_twice_on_the_card(cuda, model_name):
     assert torch.equal(runs[0][0], runs[1][0])
     for k, v in runs[0][1].items():
         assert torch.equal(v, runs[1][1][k]), k
+
+
+def _streaming_scorer(device, n, ei, w=None, use_RA=False,
+                      hops_only=False):
+    """A small LinkScorer (no node features) over ``ei`` on ``device``."""
+    from subgraph_sketching_tpu_torch.config import Config
+    from subgraph_sketching_tpu_torch.graph.container import Graph
+    from subgraph_sketching_tpu_torch.graph.preprocess import (
+        build_link_dataset,
+    )
+    from subgraph_sketching_tpu_torch.graph.splits import SplitData
+    from subgraph_sketching_tpu_torch.serving import LinkScorer
+    from subgraph_sketching_tpu_torch.train.loops import BuddyTrainer
+    cfg = Config(dataset_name="synth-ws", hidden_channels=16,
+                 use_feature=False, use_RA=use_RA,
+                 hops_only_sketches=hops_only)
+    links = np.random.default_rng(0).integers(0, n, (64, 2))
+    sd = SplitData(graph=Graph(ei, n, w), pos_edges=links[:32],
+                   neg_edges=links[32:])
+    ds = build_link_dataset(sd, cfg, "train", device=device)
+    model = BuddyTrainer(cfg, ds, None, device=device).init_model(0)
+    return LinkScorer(cfg, model, ds, device=device)
+
+
+def test_scatter_reduce_merges_run_on_the_card(cuda):
+    """The streaming merge's in-place ops on the card: int8 amax and
+    biased-int32 amin by scatter_reduce_, with duplicate destinations,
+    equal to the CPU's."""
+    g = torch.Generator().manual_seed(3)
+    for dtype, op, hi in ((torch.int8, "amax", 60),
+                          (torch.int32, "amin", 1 << 30)):
+        base = torch.randint(0, hi, (500, 64), generator=g, dtype=dtype)
+        src = torch.randint(0, hi, (3000, 64), generator=g, dtype=dtype)
+        idx = torch.randint(0, 500, (3000, 1), generator=g).expand_as(src)
+        want = base.clone().scatter_reduce_(0, idx, src, op,
+                                            include_self=True)
+        got = base.to(cuda).scatter_reduce_(0, idx.to(cuda), src.to(cuda),
+                                            op, include_self=True)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("hops_only", [False, True])
+def test_streaming_updates_on_the_card_are_exact(cuda, hops_only):
+    """Weighted inserts and deletes with use_RA on the card: the stacks
+    bit-equal to a rebuild on the card and to the same updates on the
+    CPU, degrees and the RA CSR equal, scores within 1e-5."""
+    from subgraph_sketching_tpu_torch.graph.synthetic import (
+        watts_strogatz_graph,
+    )
+    n = 400
+    ei = watts_strogatz_graph(n, 8, 0.1, seed=5)
+    und = ei[:, ei[0] < ei[1]]
+    rng = np.random.default_rng(1)
+    w_und = rng.integers(1, 4, und.shape[1]).astype(np.float32)
+    drop = rng.choice(und.shape[1], 40, replace=False)
+    keep = np.ones(und.shape[1], bool)
+    keep[drop] = False
+
+    def graph(mask):
+        e = und[:, mask]
+        return (np.concatenate([e, e[::-1]], axis=1),
+                np.concatenate([w_und[mask], w_und[mask]]))
+
+    kw = dict(use_RA=True, hops_only=hops_only)
+    card = _streaming_scorer(cuda, n, *graph(keep), **kw)
+    cpu = _streaming_scorer("cpu", n, *graph(keep), **kw)
+    full = _streaming_scorer(cuda, n, *graph(np.ones_like(keep)), **kw)
+    small = _streaming_scorer(cuda, n, *graph(keep), **kw)
+    q = rng.integers(0, n, (500, 2))
+    for op, goal in (("insert", full), ("delete", small)):
+        for s in (card, cpu):
+            for batch in (drop[:1], drop[1:15], drop[15:]):
+                getattr(s, f"{op}_edges")(und[:, batch].T,
+                                          weights=w_und[batch])
+        for a, b in zip(card.sk, goal.sk):
+            if a.dtype == torch.float32:
+                torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-4)
+            else:
+                assert torch.equal(a, b), op
+        for a, b in zip(card.sk, cpu.sk):
+            if a.dtype != torch.float32:
+                assert torch.equal(a.cpu(), b), op
+        assert torch.equal(card.deg, goal.deg)
+        assert abs(card.ra_csr - goal.ra_csr).sum() == 0
+        np.testing.assert_allclose(card.score(q), goal.score(q), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_device_heuristics_on_the_card_match_the_host(cuda):
+    """CN/AA/RA by DeviceHeuristics on the card within rtol 1e-4 /
+    atol 1e-5 of the host functions, on a weighted graph with a hub
+    (several buckets, partial chunks)."""
+    import scipy.sparse as ssp
+
+    from subgraph_sketching_tpu_torch.graph.synthetic import (
+        barabasi_albert_graph,
+    )
+    from subgraph_sketching_tpu_torch.heuristics import (
+        DeviceHeuristics, adamic_adar, common_neighbours, resource_allocation,
+    )
+    n = 3000
+    ei = barabasi_albert_graph(n, 8, seed=4)
+    rng = np.random.default_rng(2)
+    key = np.minimum(ei[0], ei[1]) * n + np.maximum(ei[0], ei[1])
+    uniq, inv = np.unique(key, return_inverse=True)
+    w = rng.integers(1, 5, len(uniq)).astype(np.float32)[inv]
+    A = ssp.csr_matrix((w, (ei[0], ei[1])), shape=(n, n))
+    links = rng.integers(0, n, (20000, 2))
+    links[:300, 0] = 0
+    dev = DeviceHeuristics(A, chunk_elems=1 << 20, device=cuda)
+    assert len(dev.buckets) > 1
+    for kind, fn in (("CN", common_neighbours), ("AA", adamic_adar),
+                     ("RA", resource_allocation)):
+        np.testing.assert_allclose(dev.scores(links, kind), fn(A, links),
+                                   rtol=1e-4, atol=1e-5, err_msg=kind)

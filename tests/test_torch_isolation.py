@@ -27,15 +27,16 @@ print(" ".join(names))
 """
 
 # the training slice's modules, the dataset slice's (loading, LCC, RA
-# and the plan builder's build), ELPH's and the node embeddings', which
-# must be among those imported
+# and the plan builder's build), ELPH's, the node embeddings' and the
+# heuristics tier's, which must be among those imported
 REQUIRED = {"train", "train.losses", "train.evaluation", "train.inference",
             "train.loops", "train.checkpoint", "train.determinism",
             "runners.run", "metrics_logging", "utils",
             "graph.datasets", "graph.lcc", "heuristics", "ops.cuda_build",
             "ops.segment_scan", "graph.preprocess", "models.elph",
             "models.predictor", "models.gnn", "models.buddy",
-            "models.convert", "serving"}
+            "models.convert", "serving", "runners.run_heuristics",
+            "runners.serve"}
 
 
 def test_port_imports_no_jax():

@@ -13,7 +13,10 @@ BUDDY and ELPH, checkpoints and serving from a training run, on the CPU.
     trainer's ``predict`` does, within 1e-5;
   * the same for ELPH (``SMALL_ELPH``): Hits@100 within 0.05 of the JAX
     runner's, resume bit-equal, the served checkpoint equal to
-    ``predict``, and the reference's ELPH commands reach training.
+    ``predict``, and the reference's ELPH commands reach training;
+  * a ``--use_RA`` run serves (the ogbl-ppa command on its fixture, and
+    ELPH, whose model reads no RA), by ``scorer_from_checkpoint`` and the
+    serve CLI, equal to ``predict`` within 1e-5.
 """
 
 import dataclasses
@@ -382,13 +385,56 @@ def test_reference_elph_commands_reach_training(tmp_path, name):
     assert all(0.0 <= r <= 1.0 for r in result[0])
 
 
-def test_serving_refuses_an_RA_model(tmp_path):
-    cfg = Config(dataset_name="synth-ba", use_RA=True, hidden_channels=32)
-    with open(tmp_path / "config.json", "w") as f:
-        f.write(cfg.to_json())
-    with pytest.raises(NotImplementedError, match="use_RA"):
-        scorer_from_checkpoint(str(tmp_path), device="cpu")
-    from subgraph_sketching_tpu_torch.models import BUDDY
-    from subgraph_sketching_tpu_torch.serving import LinkScorer
-    with pytest.raises(NotImplementedError, match="use_RA"):
-        LinkScorer(cfg, BUDDY.from_config(cfg, 128), None, device="cpu")
+def _served_equals_predict(ckpt, split="valid", cli=True):
+    """The checkpoint served by scorer_from_checkpoint (and by the serve
+    CLI, with ``cli``) scores the split's links as the restored trainer's
+    predict does, within 1e-5; returns the scorer."""
+    from subgraph_sketching_tpu_torch.runners import serve
+    scorer = scorer_from_checkpoint(ckpt, split=split, device="cpu")
+    with open(os.path.join(ckpt, "config.json")) as f:
+        cfg = Config.from_json(f.read())
+    datasets = build_all_splits(get_data(cfg)[0], cfg, device="cpu")
+    x = datasets["train"].x
+    trainer = run.build_trainer(cfg, datasets,
+                                None if x is None else x.shape[-1], "cpu")
+    trained = trainer.init_model(0)
+    checkpoint.restore_into(ckpt, trained)
+    want, _ = trainer.predict(trained, split)
+    links = datasets[split].links
+    np.testing.assert_allclose(scorer.score(links), want, rtol=1e-5,
+                               atol=1e-5)
+    if not cli:
+        return scorer
+    q = os.path.join(ckpt, "q.npy")
+    np.save(q, links[:300])
+    got = serve.main(["--checkpoint_dir", ckpt, "--links", q, "--split",
+                      split, "--device", "cpu"])
+    np.testing.assert_allclose(got, want[:300], rtol=1e-5, atol=1e-5)
+    return scorer
+
+
+def test_ppa_RA_command_trains_and_serves(tmp_path):
+    """The reference's ogbl-ppa command (--use_RA 1) on the ppa_RA fixture
+    trains one epoch and serves: scorer_from_checkpoint and the serve CLI
+    score RA per query from the message graph's CSR and equal predict."""
+    from test_torch_preprocess import _write
+    _write(tmp_path, "ppa_RA")
+    _, cmd, extra, _ = DATASET_COMMANDS["ogbl-ppa"]
+    ckpt = str(tmp_path / "run")
+    run.main(shlex.split(cmd) + extra + [
+        "--epochs", "1", "--device", "cpu", "--data_root", str(tmp_path),
+        "--cache_dir", str(tmp_path / "cache"), "--checkpoint_dir", ckpt,
+        "--save_model"])
+    scorer = _served_equals_predict(ckpt)
+    assert scorer.cfg.use_RA and scorer.ra_csr is not None
+
+
+def test_elph_RA_run_serves(tmp_path):
+    """An ELPH run with --use_RA 1 serves as the JAX package serves it:
+    ELPH's model reads no RA column, and the scorer equals predict (the
+    serve CLI's path is the BUDDY test's)."""
+    ckpt = str(tmp_path / "run")
+    run.main(SMALL_ELPH + ["--use_RA", "1", "--epochs", "1", "--device",
+                           "cpu", "--checkpoint_dir", ckpt, "--save_model"])
+    scorer = _served_equals_predict(ckpt, cli=False)
+    assert scorer.cfg.use_RA and type(scorer).__name__ == "ElphLinkScorer"

@@ -256,3 +256,50 @@ def test_elph_scorer_matches_jax():
                                rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="link ids"):
         scorer.score(np.array([[0, ds["valid"].num_nodes]]))
+
+
+def test_ra_scorer_matches_predict_and_jax():
+    """A use_RA BUDDY served (the counterpart of tests/test_serving.py's
+    test_scorer_with_use_RA): each query chunk's RA comes from the host
+    CSR of the message graph, as preprocessing scored it, so the scorer
+    equals the trainer's predict within 1e-5; and the JAX scorer on the
+    same (perturbed) weights within 1e-4."""
+    from subgraph_sketching_tpu_torch.train.loops import (
+        BuddyTrainer as TBuddyTrainer,
+    )
+
+    kw = {**CFG, "hidden_channels": 16, "use_RA": True}
+    jcfg, cfg = JConfig(**kw), Config(**kw)
+    jsplits, jdirected, _ = jget_data(jcfg)
+    jds = jbuild_all_splits(jsplits, jcfg, directed=jdirected)
+    splits, directed, _ = get_data(cfg)
+    ds = build_all_splits(splits, cfg, directed=directed, device="cpu")
+    np.testing.assert_array_equal(ds["valid"].RA, jds["valid"].RA)
+    width = ds["train"].x.shape[-1]
+    jtr = BuddyTrainer(jcfg, jds["train"], width)
+    jtr.stage("valid", jds["valid"])
+    state = jtr.init_state(jax.random.PRNGKey(0))
+    rng = np.random.default_rng(5)
+    state = state._replace(params=_perturbed(state.params, rng, 0.05),
+                           batch_stats=_perturbed(state.batch_stats, rng,
+                                                  0.25))
+    jscorer = JLinkScorer(jtr, jds["valid"], state, min_bucket=64)
+    model = BUDDY.from_config(cfg, width)
+    model.load_state_dict(buddy_state_dict_from_flax(
+        _numpy_tree(state.params), _numpy_tree(state.batch_stats)))
+    assert model.use_RA
+    scorer = LinkScorer(cfg, model, ds["valid"], max_bucket=500,
+                        device="cpu")
+    tr = TBuddyTrainer(cfg, ds["train"], width, device="cpu")
+    tr.stage("valid", ds["valid"])
+    want, _ = tr.predict(scorer.model, "valid")
+    got = scorer.score(ds["valid"].links)          # several chunks
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    links = _queries(ds["valid"].num_nodes, ds["valid"].links)
+    np.testing.assert_allclose(scorer.score(links), jscorer.score(links),
+                               rtol=1e-4, atol=1e-4)
+    # the RA column moves the scores: zeroing it changes them
+    saved = scorer.ra_csr
+    scorer.ra_csr = saved.multiply(0).tocsr()
+    assert not np.allclose(scorer.score(ds["valid"].links), got)
+    scorer.ra_csr = saved
