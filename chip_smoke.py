@@ -8,7 +8,8 @@ Phases, each printing one JSON line:
   device     the card's name and power limit (nvidia-smi)
   build      nvcc of every kernel source (csrc/segscan.cu, gather_reduce.cu,
              block_prop.cu, dma_gather.cu) and g++ of the plan builder
-             (csrc/plan_build.cpp), one compiler each, all at once; each
+             (csrc/plan_build.cpp) and the SEAL extractor
+             (csrc/seal_extract.cpp), one compiler each, all at once; each
              one's seconds
   kernels    each K1 instance (ops/segscan.py), held against its plain
              torch version on the card and against itself across two
@@ -166,6 +167,34 @@ Phases, each printing one JSON line:
              functions (rtol 1e-4, atol 1e-5); the four heuristics, PPR
              among them, through the runner on synth-ba; one call over
              16,384 hub pairs of the ddi tree (bucket 4096), timed
+  seal       the SEAL tier at full width on the collab tree: SEALDGCNN at
+             Config defaults (hidden 1024, 3 layers, sortpool_k 0.6, DRNL,
+             batch 1024) through runners.run with --dynamic_train/val/test,
+             65,536 train and 16,384 valid and test links, 1 epoch,
+             --check_determinism, --save_model: k, loss (finite), the
+             host's extraction seconds, epoch and eval seconds, trained
+             links/s, Hits@50, peak memory, K1's launches; 50 steps of the
+             trained model under torch.profiler (step ms on the host and
+             the device, extraction ms a batch, idle share, top kernels,
+             exactly 10 K1 add launches a step by counter and trace); then
+             K1 on the label embedding's backward (one step's real ids
+             and gradient, held against indexing's backward too) and on
+             one batch's disjoint union at W = 1024 and at DGCNN's W = 1
+             (one line each, held and timed as in the kernels phase);
+             SEALGCN, SEALSAGE, SEALGIN and SEALMLP through the
+             runner at 8,192 train links, 1 epoch each
+  seal_reference  small SEALGCN, SEALGIN and SEALDGCNN (synth-ba, hidden
+             32, dropout 0) trained 3 steps on the card and on the CPU,
+             float32 and float64
+  kge        transE, distmult, complEx and rotatE at Config defaults
+             (hidden 1024) on the collab tree, 1 epoch each through the
+             runner (--check_determinism on transE): epoch seconds,
+             steps/s, loss, Hits@50, peak memory, K1 add launches (2 a
+             step); one step of transE and of rotatE on the card against
+             the CPU's from one init (loss, gradients, tables); K1 on
+             that step's real gather_rows backward inputs: the entity
+             rows at W = 1024 (transE) and 2048 (rotatE), the relation
+             row (transE), one line each
 
 then the per-kernel summary line (each K1, K2 and K3 entry also carries
 its ``bench_hub`` time, bound and yardstick: ``hub_ms``, ``hub_bound_ms``,
@@ -178,7 +207,12 @@ train_elph run, which the three share, and the launches a step counted in
 the profiled window; and the two K1 add instances of the ddi diffusion at
 W=256, forward and backward, with the add launches of the ddi runs; each
 K1 entry of the main path also its launches in the streaming and serve_ra
-phases, ``streaming_launches`` and ``serve_ra_launches``), the
+phases, ``streaming_launches`` and ``serve_ra_launches``, and in the
+seal and kge phases, ``seal_launches`` and ``kge_launches``; and the two
+K1 add instances of the SEAL step's union, at W = 1024 and W = 1, with
+the add launches of the SEALDGCNN run but the label embedding's; and the
+four gather_rows backward instances, SEAL's label embedding and KGE's
+three, each with its own launches in its run), the
 nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises: the run exits
 non-zero and prints no last line.  Without a CUDA device it exits 2 at once.
@@ -200,6 +234,7 @@ VECTOR_OPS_PER_S = 67e12       # float32 outside the tensor cores, same sheet
 CSRC = "subgraph_sketching_tpu_torch/csrc"
 KERNEL_LIBS = ("segscan", "gather_reduce", "block_prop", "dma_gather")
 PLAN_BUILDER = "plan_build"    # csrc/plan_build.cpp: host code, built by g++
+SEAL_EXTRACTOR = "seal_extract"   # csrc/seal_extract.cpp: host code, g++
 # library name -> the TPU kernel it replaces (file:line of the pallas_call's
 # function)
 REPLACES = {"segscan": "subgraph_sketching_tpu/ops/pallas_segscan.py:103",
@@ -264,7 +299,7 @@ def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
 
 def phase_build() -> dict:
     from subgraph_sketching_tpu_torch.ops import cuda_build
-    libs = KERNEL_LIBS + (PLAN_BUILDER,)
+    libs = KERNEL_LIBS + (PLAN_BUILDER, SEAL_EXTRACTOR)
     t0 = time.perf_counter()
     seconds = cuda_build.load_all(libs)
     wall = time.perf_counter() - t0
@@ -2997,6 +3032,504 @@ def phase_heuristics(collab_root: str, ddi_root: str, seed: int = 16) -> dict:
                               / -(-HUB_LINKS // per_chunk)}}
 
 
+# ----------------------------------------------------- SEAL and KGE tiers --
+
+# the SEAL baseline at Config defaults (hidden 1024, 3 layers, sortpool_k
+# 0.6, 1 hop, DRNL, max_dist 4, max_z 1000, batch 1024, lr 1e-4) on the
+# collab tree, extracting per batch
+SEAL_COMMAND = ("--dataset_name ogbl-collab --model SEALDGCNN --K 50 "
+                "--dynamic_train true --dynamic_val true --dynamic_test true "
+                "--train_samples 65536 --val_samples 16384 "
+                "--test_samples 16384 --epochs 1")
+SEAL_SMALL = ["--train_samples", "8192", "--val_samples", "4096",
+              "--test_samples", "4096"]
+SEAL_PROFILE_STEPS = 50
+# K1 add launches of a SEALDGCNN training step: the four union SpMMs each
+# way, the gcn_norm degrees and the label embedding's backward
+SEAL_DGCNN_ADDS_PER_STEP = 10
+KGE_MODELS = ("transE", "distmult", "complEx", "rotatE")
+
+
+@contextlib.contextmanager
+def _patched(obj, name: str, value):
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def _run_row(ckpt: str) -> dict:
+    """The metrics row of a one-epoch runner run (its metrics.jsonl)."""
+    with open(os.path.join(ckpt, "metrics.jsonl")) as f:
+        (row,) = [json.loads(line) for line in f]
+    return row
+
+
+def _runner_run(root: str, name: str, args: list, splits_memo: dict
+                ) -> tuple:
+    """``runners.run.main`` with ``args`` on the collab tree under
+    ``root``, its get_data answered from ``splits_memo`` after the first
+    read (one parse of the raw tree for every run of the phase), the
+    trainer it built kept; returns (trainer, metrics row, run seconds,
+    peak memory, K1 launches)."""
+    import torch
+
+    from subgraph_sketching_tpu_torch.ops import segscan
+    from subgraph_sketching_tpu_torch.runners import run as runner
+
+    read = runner.get_data
+
+    def get_data(cfg):
+        if "splits" not in splits_memo:
+            splits_memo["splits"] = read(cfg)
+        return splits_memo["splits"]
+
+    kept = []
+
+    def keep(build):
+        def wrapped(*a, **k):
+            kept.append(build(*a, **k))
+            return kept[-1]
+        return wrapped
+
+    ckpt = os.path.join(root, name)
+    _reset_k1()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _patched(runner, "get_data", get_data), \
+            _patched(runner, "build_seal_trainer",
+                     keep(runner.build_seal_trainer)), \
+            _patched(runner, "KgeTrainer", keep(runner.KgeTrainer)):
+        runner.main(args + ["--device", "cuda", "--data_root", root,
+                            "--checkpoint_dir", ckpt])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    row = _run_row(ckpt)
+    if not all(v == v and abs(v) != float("inf") for v in row.values()
+               if isinstance(v, float)):
+        raise AssertionError(f"{name}: a metric is not finite: {row}")
+    return (kept[-1], row, run_s, torch.cuda.max_memory_allocated(),
+            dict(segscan.launches))
+
+
+@contextlib.contextmanager
+def _gather_backward_watch(counts: dict, stash: dict = None):
+    """``gather_rows``' backward watched: ``counts[(table rows, W)]``
+    gains the K1 add launches of each call (K1's counter read around it),
+    and with ``stash`` the first call of each (table rows, W) leaves its
+    real inputs there, (flat ids, gradient), for ``gather_k1_record``."""
+    from subgraph_sketching_tpu_torch.ops import segscan
+    from subgraph_sketching_tpu_torch.ops.segment_scan import _RowGather
+    backward = _RowGather.backward
+
+    def watched(ctx, g):
+        key = (ctx.num_rows, g.shape[-1])
+        if stash is not None and key not in stash:
+            stash[key] = (ctx.saved_tensors[0].clone(), g.detach().clone())
+        before = segscan.launches["segscan_add_f32"]
+        out = backward(ctx, g)
+        counts[key] = (counts.get(key, 0)
+                       + segscan.launches["segscan_add_f32"] - before)
+        return out
+
+    with _patched(_RowGather, "backward", staticmethod(watched)):
+        yield
+
+
+def gather_k1_record(phase: str, name: str, inputs: tuple, table_rows: int,
+                     launches: int) -> dict:
+    """K1 on the real inputs of one ``gather_rows`` backward (the ids and
+    the gradient a training step gave it): the rows grouped as the
+    backward groups them, their sum held against indexing's backward
+    (``index_add_``) within ADD_TOLERANCE, then held and timed by
+    ``k1_record``.  ``launches``: that backward's K1 adds in the run."""
+    import torch
+
+    from subgraph_sketching_tpu_torch.ops.segment_scan import (
+        ordered_segment_add, segment_order,
+    )
+    flat, g = inputs
+    width = g.shape[-1]
+    g = g.reshape(-1, width)
+    with torch.no_grad():
+        perm, ptr = segment_order(flat, table_rows)
+        v = g.index_select(0, perm).contiguous()
+        x = torch.empty((table_rows, width), dtype=g.dtype, device=g.device)
+        got = ordered_segment_add(v, ptr, table_rows)
+        want = torch.zeros_like(got).index_add_(0, flat, g)
+        check_add(got, want, v, x, ptr, f"{name} against indexing's "
+                                        f"backward")
+        err = float((got - want).abs().max())
+        del got, want, g
+        return {"phase": phase, "name": name, "launches": launches,
+                "rows": int(flat.numel()), "table_rows": table_rows,
+                "max_abs_err_vs_index_backward": err,
+                **k1_record(name, "add", v, x, ptr)}
+
+
+def _hits(row: dict) -> dict:
+    return {"train": row["rep0_TrainHits@50"] / 100,
+            "valid": row["rep0_tmp_valHits@50"] / 100,
+            "test": row["rep0_tmp_testHits@50"] / 100}
+
+
+def phase_seal(root: str, splits_memo: dict, seed: int = 17) -> tuple:
+    """The SEAL tier at full width on the collab tree: SEALDGCNN through
+    the runner (SEAL_COMMAND, --check_determinism, --save_model), its
+    host extraction clocked; 50 steps of the trained model under
+    torch.profiler (idle share, top kernels, exactly 10 K1 add launches
+    a step by counter and trace); K1 at the step's shapes (the label
+    embedding's backward on one step's real inputs, one batch's disjoint
+    union at W = 1024 and DGCNN's W = 1) held and timed as the kernels
+    phase holds and times it; SEALGCN, SEALSAGE, SEALGIN and
+    SEALMLP through the runner at 8,192 train links."""
+    import shlex
+
+    import numpy as np
+    import torch
+
+    from subgraph_sketching_tpu_torch.graph.seal import SEALDataset
+    from subgraph_sketching_tpu_torch.ops import segscan
+    from subgraph_sketching_tpu_torch.train import checkpoint
+    from subgraph_sketching_tpu_torch.train.loops import make_optimizer
+
+    clock = {"s": 0.0, "batches": 0}
+    extract = SEALDataset.extract_batch
+
+    def timed(self, indices):
+        t = time.perf_counter()
+        out = extract(self, indices)
+        clock["s"] += time.perf_counter() - t
+        clock["batches"] += 1
+        return out
+
+    gathers = {}   # gather_rows' backward K1 adds by (table rows, W)
+    with _patched(SEALDataset, "extract_batch", timed), \
+            _gather_backward_watch(gathers):
+        trainer, row, run_s, peak, k1 = _runner_run(
+            root, "seal_dgcnn", shlex.split(SEAL_COMMAND)
+            + ["--check_determinism", "--save_model"], splits_memo)
+    extraction = dict(clock)
+    cfg, k = trainer.cfg, trainer.k
+    # the trained model, from the checkpoint --save_model wrote
+    model = trainer.init_model(seed)
+    checkpoint.restore_into(os.path.join(root, "seal_dgcnn"), model, step=1)
+    if not np.isfinite(row["rep0_loss"]):
+        raise AssertionError(f"seal: loss {row['rep0_loss']}")
+
+    # the device's share over 50 steps of the trained model
+    ds, bs = trainer.datasets["train"], cfg.batch_size
+    order = np.random.default_rng(seed).permutation(len(ds))
+    opt = make_optimizer(cfg, model.parameters())
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    full = np.ones(bs, bool)
+
+    def steps(lo: int, k: int) -> None:
+        for i in range(lo, lo + k):
+            trainer.step(model, opt, ds.batch(order[i * bs:(i + 1) * bs]),
+                         full, g)
+
+    clock.update(s=0.0, batches=0)
+    with _patched(SEALDataset, "extract_batch", timed):
+        window_s, busy_ms, per = profile_window(
+            lambda: steps(0, 2), lambda: steps(2, SEAL_PROFILE_STEPS))
+    window_adds = segscan.launches["segscan_add_f32"]
+    traced_adds = sum(c for k, (_, c) in per.items()
+                      if "segscan_kernel" in k)
+    if window_adds != SEAL_DGCNN_ADDS_PER_STEP * SEAL_PROFILE_STEPS \
+            or traced_adds != window_adds:
+        raise AssertionError(
+            f"seal: {SEAL_PROFILE_STEPS} steps, {window_adds} K1 add "
+            f"launches counted, {traced_adds} traced, expected "
+            f"{SEAL_DGCNN_ADDS_PER_STEP} a step")
+    profile = {"steps": SEAL_PROFILE_STEPS, "window_ms": window_s * 1e3,
+               "step_ms": window_s * 1e3 / SEAL_PROFILE_STEPS,
+               "device_busy_ms": busy_ms,
+               "device_step_ms": busy_ms / SEAL_PROFILE_STEPS,
+               "extract_ms_per_batch": clock["s"] * 1e3 / max(
+                   clock["batches"], 1),
+               "device_idle_share": 1 - busy_ms / (window_s * 1e3),
+               "k1_add_launches": window_adds,
+               "k1_add_kernels_traced": traced_adds,
+               "top_kernels": sorted(([k, v[0], v[1]]
+                                      for k, v in per.items()),
+                                     key=lambda r: -r[1])[:10]}
+
+    # K1 at the step's shapes: the label embedding's backward on one
+    # step's real ids and gradient, and one batch's union graph
+    z_key = (cfg.max_z, cfg.hidden_channels)
+    if set(gathers) != {z_key} or gathers[z_key] <= 0:
+        raise AssertionError(f"seal: gather_rows' backward launches "
+                             f"{gathers}, expected the label embedding's")
+    raw = ds.batch(order[:bs])
+    stash = {}
+    with _gather_backward_watch({}, stash):
+        trainer.step(model, opt, raw, full, g)
+    k1_seal = [gather_k1_record(
+        "seal", f"segscan_add_f32 (SEAL z_embedding backward, "
+                f"W={cfg.hidden_channels})", stash.pop(z_key), cfg.max_z,
+        gathers[z_key])]
+    batch, _ = trainer.to_device(raw)
+    ei, w, ((perm, ptr), _) = batch["graph"].gcn()
+    n = batch["graph"].num_nodes
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for width in (cfg.hidden_channels, 1):
+        x = torch.randn((n, width), generator=gen, device="cuda")
+        v = (x.index_select(0, ei[0][perm]) * w[perm, None]).contiguous()
+        k1_seal.append({"phase": "seal", "part": "k1",
+                        "name": f"segscan_add_f32 (SEAL union, W={width})",
+                        "edges_with_self_loops": int(ei.shape[1]),
+                        **k1_record(f"SEAL union W={width}", "add", v, x,
+                                    ptr)})
+        del x, v
+    del batch, raw, trainer, model, opt
+
+    small = []
+    for name in ("SEALGCN", "SEALSAGE", "SEALGIN", "SEALMLP"):
+        args = shlex.split(SEAL_COMMAND.replace("SEALDGCNN", name)) \
+            + SEAL_SMALL
+        _, r, s, p, launches = _runner_run(root, f"seal_{name}", args,
+                                           splits_memo)
+        if not np.isfinite(r["rep0_loss"]):
+            raise AssertionError(f"seal: {name} loss {r['rep0_loss']}")
+        small.append({"model": name, "run_s": s,
+                      "epoch_s": r["rep0_train_time"],
+                      "eval_s": r["rep0_eval_time"], "loss": r["rep0_loss"],
+                      "hits@50": _hits(r), "peak_memory_bytes": p,
+                      "k1_add_launches": launches["segscan_add_f32"]})
+    train_links = int(cfg.train_samples)
+    record = {
+        "phase": "seal", "dataset": "ogbl-collab",
+        "command": SEAL_COMMAND + " --check_determinism --save_model",
+        "k": k,
+        "run_s": run_s, "get_data_s": row["rep0_get_data_time"],
+        "preprocess_s": row["rep0_preprocess_time"],
+        "epoch_s": row["rep0_train_time"], "eval_s": row["rep0_eval_time"],
+        "loss": row["rep0_loss"], "hits@50": _hits(row),
+        "train_links_per_s": train_links / row["rep0_train_time"],
+        "host_extraction_s": extraction["s"],
+        "extracted_batches": extraction["batches"],
+        "peak_memory_bytes": peak, "k1_launches": k1,
+        "z_embedding_backward_launches": gathers[z_key],
+        "determinism": "passed", "profile": profile, "small_models": small}
+    return record, k1_seal
+
+
+ADAM_TOLERANCE = ("loss rtol 1e-5; tables rtol 1e-4 / atol 1e-6 on all "
+                  "but 0.1% of elements, every element within 2 lr a step")
+
+
+def adam_close(got: dict, want: dict, lr: float, steps: int,
+               what: str) -> dict:
+    """Hold two state dicts after ``steps`` Adam steps from one init:
+    every element within rtol 1e-4 / atol 1e-6 but at most 0.1% of them,
+    and those within 2 lr a step (Adam's first steps move an element by
+    about lr whatever its gradient's size, so a gradient within float32
+    rounding of 0, transE's L1 sign at a difference within rounding of
+    0, moves it by up to lr either way on either device)."""
+    beyond, total, worst = 0, 0, 0.0
+    for k, v in want.items():
+        d = (got[k].double() - v.double()).abs()
+        beyond += int((d > 1e-6 + 1e-4 * v.double().abs()).sum())
+        total += d.numel()
+        worst = max(worst, float(d.max()))
+    if beyond > 1e-3 * total or worst > 2 * lr * steps:
+        raise AssertionError(f"{what}: {beyond} of {total} elements beyond "
+                             f"rtol 1e-4 / atol 1e-6, max |diff| {worst}")
+    return {"elements_beyond_rtol_1e-4_atol_1e-6": beyond,
+            "elements": total, "max_param_abs_diff": worst}
+
+
+GRAD_TOLERANCE = ("each table within 1e-5 of its norm (||card - cpu|| / "
+                  "||cpu||), every element within rtol 1e-4 / atol 1e-4 "
+                  "* max|grad|")
+
+
+def grads_close(got: dict, want: dict, what: str) -> dict:
+    """Hold two steps' gradients from one init, table by table, within
+    GRAD_TOLERANCE, where Adam's update would hide a gradient of the
+    wrong size.  float32 sums in another order, and terms that cancel to
+    near 0 keep their rounding: rotatE's cos/sin differ by an ulp between
+    the devices, and at collab's 67,584 rows a step a few elements of
+    483 M land up to 1.5e-5 of the largest gradient apart, so the table's
+    norm carries the tight bound."""
+    import torch
+
+    rel = {}
+    for k, v in want.items():
+        v64 = v.double()
+        rel[k] = float((got[k].double() - v64).norm()
+                       / v64.norm().clamp_min(1e-300))
+        if rel[k] > 1e-5:
+            raise AssertionError(f"{what} {k}: gradients {rel[k]} of the "
+                                 f"norm apart")
+        torch.testing.assert_close(got[k], v, rtol=1e-4,
+                                   atol=1e-4 * float(v.abs().max()),
+                                   msg=lambda m, k=k: f"{what} {k}: {m}")
+        del v64
+    return {"grad_diff_over_norm": rel}
+
+
+def phase_seal_reference(seed: int = 18) -> dict:
+    """Small SEALGCN, SEALGIN and SEALDGCNN (synth-ba, hidden 32, 2
+    layers, dropout 0: DGCNN's fixed dropout set to 0 on both) trained 3
+    steps (a padded last batch) from the same weights on the same
+    batches on the card and on the CPU, in float32 and float64, each held
+    as ``hold_card_to_cpu`` holds them."""
+    import numpy as np
+    import torch
+
+    from subgraph_sketching_tpu_torch.config import Config
+    from subgraph_sketching_tpu_torch.graph.datasets import get_data
+    from subgraph_sketching_tpu_torch.train.loops import make_optimizer
+    from subgraph_sketching_tpu_torch.train.seal_loop import (
+        build_seal_trainer,
+    )
+
+    held = {}
+    for name in ("SEALGCN", "SEALGIN", "SEALDGCNN"):
+        cfg = Config(dataset_name="synth-ba", model=name, hidden_channels=32,
+                     num_seal_layers=2, dropout=0.0, batch_size=128,
+                     sortpool_k=20)
+        splits, _, _ = get_data(cfg)
+        order = np.random.default_rng(seed).permutation(
+            len(splits["train"].links))[:3 * 128 - 40]
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            tr = build_seal_trainer(cfg, splits, device=dev)
+            for dtype in (torch.float32, torch.float64):
+                model = tr.init_model(seed).to(dtype)
+                if hasattr(model, "drop"):
+                    model.drop.p = 0.0
+                to_device = tr.to_device
+
+                def cast(raw, to_device=to_device, dtype=dtype):
+                    batch, y = to_device(raw)
+                    return ({k: v.to(dtype) if torch.is_tensor(v)
+                             and v.is_floating_point() else v
+                             for k, v in batch.items()}, y.to(dtype))
+
+                tr.to_device = cast
+                opt = make_optimizer(cfg, model.parameters())
+                losses = []
+                for s in range(0, len(order), cfg.batch_size):
+                    idx = order[s:s + cfg.batch_size]
+                    mask = np.arange(cfg.batch_size) < len(idx)
+                    idx = np.concatenate([idx, np.zeros(
+                        cfg.batch_size - len(idx), np.int64)])
+                    losses.append(float(tr.step(
+                        model, opt, tr.datasets["train"].batch(idx), mask)))
+                tr.to_device = to_device
+                runs[dev, dtype] = (
+                    np.asarray(losses, np.float64),
+                    {k: v.double().cpu() for k, v in
+                     model.state_dict().items() if v.is_floating_point()})
+        held[name] = hold_card_to_cpu(runs, f"seal_reference {name}")
+    return {"phase": "seal_reference", "dataset": "synth-ba",
+            "hidden_channels": 32, "models": held,
+            "tolerance": "float64: 1e-9; float32: losses rtol 1e-4, "
+                         "parameters rtol 1e-4 / atol 1e-5 or within 4x "
+                         "the CPU float32 run's distance from float64"}
+
+
+def phase_kge(root: str, splits_memo: dict, seed: int = 19) -> dict:
+    """The KGE tier at full width on the collab tree: each of transE,
+    distmult, complEx and rotatE at Config defaults (hidden 1024, batch
+    1024, 64 negatives a positive) one epoch through the runner
+    (--check_determinism on transE): epoch seconds, steps/s, loss, Hits@50,
+    peak memory, K1 add launches (2 a step: the entity and relation
+    rows' backward, each counted by ``_gather_backward_watch``); then one
+    step on the card against the CPU's from the same init, positives and
+    negatives, for transE and rotatE (loss, gradients, tables), whose
+    gather_rows backward inputs K1 is held and timed on: the entity rows
+    at W = 1024 and 2048, the relation row at W = 1024."""
+    import numpy as np
+    import torch
+
+    from subgraph_sketching_tpu_torch.train.kge_loop import KgeTrainer
+    from subgraph_sketching_tpu_torch.train.loops import make_optimizer
+
+    runs, trainers, gathers = [], {}, {}
+    for name in KGE_MODELS:
+        args = ["--dataset_name", "ogbl-collab", "--model", name, "--K",
+                "50", "--epochs", "1"]
+        if name == "transE":
+            args.append("--check_determinism")
+        gathers[name] = {}   # gather_rows' backward adds by (rows, W)
+        with _gather_backward_watch(gathers[name]):
+            tr, row, run_s, peak, k1 = _runner_run(root, f"kge_{name}",
+                                                   args, splits_memo)
+        if not np.isfinite(row["rep0_loss"]):
+            raise AssertionError(f"kge: {name} loss {row['rep0_loss']}")
+        epochs_run = 3 if name == "transE" else 1
+        if k1["segscan_add_f32"] != 2 * tr.steps * epochs_run \
+                or sorted(gathers[name].values()) != [tr.steps * epochs_run
+                                                      ] * 2:
+            raise AssertionError(f"kge: {name} launched {k1} K1 adds "
+                                 f"({gathers[name]} by table) for "
+                                 f"{tr.steps} steps an epoch")
+        runs.append({"model": name, "run_s": run_s,
+                     "epoch_s": row["rep0_train_time"], "steps": tr.steps,
+                     "steps_per_s": tr.steps / row["rep0_train_time"],
+                     "eval_s": row["rep0_eval_time"],
+                     "loss": row["rep0_loss"], "hits@50": _hits(row),
+                     "peak_memory_bytes": peak,
+                     "k1_add_launches": k1["segscan_add_f32"],
+                     "determinism": "passed" if name == "transE" else None})
+        trainers[name] = tr
+
+    # one step on the card against the CPU's, from one init: the loss,
+    # the gradients, the tables after Adam; the card's step leaves its
+    # gather_rows backward inputs for the K1 records
+    rng = np.random.default_rng(seed)
+    step_check, stash = {}, {}
+    for name in ("transE", "rotatE"):
+        card = trainers[name]
+        cpu = KgeTrainer(card.cfg, splits_memo["splits"][0], device="cpu")
+        pos = card._pos[:card.batch].cpu()
+        negs = torch.from_numpy(rng.integers(0, card.num_nodes,
+                                             (card.batch, card.NUM_NEGS)))
+        out = {}
+        for tr in (cpu, card):
+            model = tr.init_model(seed)
+            opt = make_optimizer(tr.cfg, model.parameters())
+            stash[name] = {}
+            with _gather_backward_watch({}, stash[name]):
+                loss = tr.step(model, opt, pos.to(tr.device),
+                               negs.to(tr.device), "head-batch")
+            out[tr.device.type] = (
+                float(loss),
+                {k: p.grad.cpu() for k, p in model.named_parameters()},
+                {k: v.detach().cpu() for k, v in model.state_dict().items()})
+            del model, opt
+        (l_cpu, g_cpu, s_cpu), (l_card, g_card, s_card) = (out["cpu"],
+                                                           out["cuda"])
+        np.testing.assert_allclose(l_card, l_cpu, rtol=1e-5)
+        step_check[name] = {"loss_cpu": l_cpu, "loss_card": l_card,
+                            **grads_close(g_card, g_cpu, f"kge {name}"),
+                            **adam_close(s_card, s_cpu, card.cfg.lr, 1,
+                                         f"kge {name}")}
+        del cpu, out
+    trainers.clear()
+    n, h = card.num_nodes, card.cfg.hidden_channels
+    k1_kge = [
+        gather_k1_record("kge", f"segscan_add_f32 (KGE {name} {table} "
+                                f"backward, W={width})",
+                         stash[name].pop((rows, width)), rows,
+                         gathers[name][rows, width])
+        for name, table, rows, width in (
+            ("transE", "entity", n, h), ("rotatE", "entity", n, 2 * h),
+            ("transE", "relation", 1, h))]
+    stash.clear()
+    return {"phase": "kge", "dataset": "ogbl-collab", "runs": runs,
+            "card_vs_cpu_step": step_check,
+            "tolerance": f"gradients: {GRAD_TOLERANCE}; tables: "
+                         f"{ADAM_TOLERANCE}"}, k1_kge
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3069,6 +3602,17 @@ def main() -> int:
         serve_ra = phase_serve_ra(cfg, splits)
         emit(serve_ra)
         emit(phase_heuristics(collab_root, ddi_root))
+        splits_memo = {}   # the collab splits, read once for both tiers
+        seal, k1_seal = phase_seal(collab_root, splits_memo)
+        emit(seal)
+        for r in k1_seal:
+            emit(r)
+        emit(phase_seal_reference())
+        kge, k1_kge = phase_kge(collab_root, splits_memo)
+        emit(kge)
+        for r in k1_kge:
+            emit(r)
+        del splits_memo
     finally:
         shutil.rmtree(collab_root, ignore_errors=True)
         shutil.rmtree(ddi_root, ignore_errors=True)
@@ -3088,6 +3632,8 @@ def main() -> int:
             rec["train_launches"] = train["k1_launches"][r["name"]]
             rec["streaming_launches"] = streaming["k1_launches"][r["name"]]
             rec["serve_ra_launches"] = serve_ra["k1_launches"][r["name"]]
+            rec["seal_launches"] = seal["k1_launches"][r["name"]]
+            rec["kge_launches"] = kge_launches[r["name"]]
         if lib == "block_prop":
             rec["fold_launches"] = r["fold_launches"]
         if lib in ("segscan", "gather_reduce", "block_prop"):
@@ -3096,6 +3642,10 @@ def main() -> int:
                        hub_library_ms=h["library_ms"])
         return rec
 
+    # K1 in the four KGE runs: the add alone (the rows' backward)
+    kge_launches = {name: 0 for name, *_ in INSTANCES}
+    kge_launches["segscan_add_f32"] = sum(r["k1_add_launches"]
+                                          for r in kge["runs"])
     # the ELPH run's K1 add launches: each convolution's PlanSpmm forward
     # and backward and gather_rows' backward a step, and the eval forwards,
     # on one counter
@@ -3142,7 +3692,30 @@ def main() -> int:
          "launches_per_step_counted_in_trace": [
              run["profile"]["k1_add_launches"] / DDI_PROFILE_STEPS
              for run in ddi_runs if "profile" in run]}
-        for r in ddi_k1.values()]})
+        for r in ddi_k1.values()] + [
+        {"name": r["name"], "route": "cuda", "source": f"{CSRC}/segscan.cu",
+         "replaces": REPLACES["segscan"],
+         "launches": seal["k1_launches"]["segscan_add_f32"]
+         - seal["z_embedding_backward_launches"],
+         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+         "graph_ms": r["graph_ms"],
+         "launches_of": "segscan_add_f32 in the SEALDGCNN run but the "
+                        "label embedding's backward: the union SpMMs each "
+                        "way and the degrees, both widths together",
+         "launches_per_step_counted_in_trace":
+             seal["profile"]["k1_add_launches"] / SEAL_PROFILE_STEPS}
+        for r in k1_seal if "union" in r["name"]] + [
+        {"name": r["name"], "route": "cuda", "source": f"{CSRC}/segscan.cu",
+         "replaces": REPLACES["segscan"], "launches": r["launches"],
+         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+         "graph_ms": r["graph_ms"],
+         "launches_of": "this gather_rows backward's K1 adds in its run "
+                        "(SEALDGCNN; KGE: that model's)"}
+        for r in k1_seal + k1_kge if "backward" in r["name"]]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

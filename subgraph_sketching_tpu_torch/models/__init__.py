@@ -1,7 +1,7 @@
 from subgraph_sketching_tpu_torch.models.buddy import BUDDY  # noqa: F401
 from subgraph_sketching_tpu_torch.models.convert import (  # noqa: F401
     adam_state_from_optax, buddy_state_dict_from_flax,
-    elph_state_dict_from_flax,
+    elph_state_dict_from_flax, seal_state_dict_from_flax,
 )
 from subgraph_sketching_tpu_torch.models.elph import (  # noqa: F401
     ELPH, ELPHPredictor,

@@ -12,7 +12,8 @@ over without the port importing jax:
     optimizer.load_state_dict(adam_state_from_optax(
         jax.tree.map(np.asarray, state.opt_state), model, optimizer))
 
-(``elph_state_dict_from_flax`` for an ELPH trainer's state.)
+(``elph_state_dict_from_flax`` for an ELPH trainer's state,
+``seal_state_dict_from_flax`` for a SEAL model's.)
 """
 
 from __future__ import annotations
@@ -142,6 +143,34 @@ def elph_state_dict_from_flax(params: dict, batch_stats: dict
     return {**_parameters_from_flax({k: params.get(k, {}) for k in trees}),
             **_batch_stats_from_flax({k: batch_stats.get(k, {})
                                       for k in trees})}
+
+
+def seal_state_dict_from_flax(params: dict,
+                              batch_stats: Optional[dict] = None
+                              ) -> Dict[str, torch.Tensor]:
+    """A state_dict for one of the port's five SEAL models
+    (``models/seal.py``) from the flax ``params`` / ``batch_stats`` trees
+    of the JAX model: Dense kernels transposed; the ``Embed`` tables
+    (``z_embedding``, ``node_embedding``) as ``<name>.weight``; DGCNN's
+    ``nn.Conv`` kernel [5, 16, 32] (width, in, out) as the
+    ``Conv1d`` weight [32, 16, 5]; SEALGIN's BatchNorms (``gin_bn_<i>``:
+    scale, bias, mean, var) and, with ``train_eps``, its ``eps_<i>``;
+    SEALMLP's automatic ``Dense_0`` / ``Dense_1`` as ``lin1`` / ``lin2``."""
+    tree = dict(params)
+    if "Dense_0" in tree:
+        tree["lin1"], tree["lin2"] = tree.pop("Dense_0"), tree.pop("Dense_1")
+    out: Dict[str, torch.Tensor] = {}
+    for name in ("z_embedding", "node_embedding"):
+        if name in tree:
+            out[f"{name}.weight"] = _tensor(tree.pop(name)["embedding"])
+    conv2 = tree.pop("conv2", None)
+    if conv2 is not None:
+        out["conv2.weight"] = _tensor(conv2["kernel"]).permute(
+            2, 1, 0).contiguous()
+        out["conv2.bias"] = _tensor(conv2["bias"])
+    out.update(_parameters_from_flax(tree))
+    out.update(_batch_stats_from_flax(batch_stats or {}))
+    return out
 
 
 def _find_adam_state(opt_state):

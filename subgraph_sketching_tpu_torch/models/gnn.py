@@ -28,11 +28,22 @@ class BatchNorm(nn.BatchNorm1d):
     running mean and variance from the biased variance, so the running
     statistics follow the JAX package's.  Eval mode and the state_dict
     (parameter and buffer names) are ``BatchNorm1d``'s.
+
+    With ``mask`` ([rows] bool, training mode only) the statistics are
+    taken over the rows where it is set, as flax's masked BatchNorm takes
+    them (SEALGIN's real nodes): the mean, and the variance as
+    max(0, E[x²] − E[x]²), differentiable in both; every row is
+    normalised by them.  Against a two-pass variance this costs float32
+    cancellation of order eps·E[x²] where the mean is large beside the
+    spread.  Eval mode ignores the mask, as flax does.
     """
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if mask is not None:
+            return self._masked(x, mask.reshape(-1, 1))
         out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                            self.eps)
         with torch.no_grad():
@@ -40,6 +51,21 @@ class BatchNorm(nn.BatchNorm1d):
             m = self.momentum
             self.running_mean.mul_(1 - m).add_(mean, alpha=m)
             self.running_var.mul_(1 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        return out
+
+    def _masked(self, x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+        count = m.sum().to(x.dtype)
+        zero = x.new_zeros(())
+        mean = torch.where(m, x, zero).sum(0) / count
+        mean2 = torch.where(m, x * x, zero).sum(0) / count
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        out = (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
+            + self.bias
+        with torch.no_grad():
+            mo = self.momentum
+            self.running_mean.mul_(1 - mo).add_(mean.detach(), alpha=mo)
+            self.running_var.mul_(1 - mo).add_(var.detach(), alpha=mo)
             self.num_batches_tracked.add_(1)
         return out
 

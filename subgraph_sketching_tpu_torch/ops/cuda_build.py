@@ -3,7 +3,8 @@ and the C++ plan builder.
 
 ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a``, and
 ``csrc/<name>.cpp`` (host code: ``plan_build.cpp``, the plan tables of
-``ops/segment_scan.py``) by ``g++ -O3 -fopenmp``, each into a shared
+``ops/segment_scan.py``, and ``seal_extract.cpp``, the SEAL extractor of
+``graph/native.py``) by ``g++ -O3 -fopenmp``, each into a shared
 library with a plain C interface, loaded with ctypes.  The build runs at
 first use, from the sources in this package only, into ``_build/`` beside
 it; the library's file name carries a hash of its source, the shared
@@ -56,8 +57,9 @@ def _gxx() -> str:
     found = shutil.which("g++")
     if found:
         return found
-    raise RuntimeError("g++ not found: the plan builder (csrc/plan_build.cpp) "
-                       "is built with a C++ compiler")
+    raise RuntimeError("g++ not found: the host code of csrc/*.cpp (the "
+                       "plan builder, the SEAL extractor) is built with a "
+                       "C++ compiler")
 
 
 def _is_host(name: str) -> bool:

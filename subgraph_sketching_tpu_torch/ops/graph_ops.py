@@ -82,24 +82,36 @@ def gcn_norm(edge_index: torch.Tensor, edge_weight: Optional[torch.Tensor],
     return edge_index, norm_weight
 
 
+def edge_orders(edge_index: torch.Tensor, num_nodes: int) -> tuple:
+    """The groupings ``spmm`` sums by: ``segment_order`` of the targets
+    (the forward) and of the sources (the backward), for a caller that
+    runs several ``spmm`` over one graph and sorts its edges once."""
+    return (segment_order(edge_index[1].long(), num_nodes),
+            segment_order(edge_index[0].long(), num_nodes))
+
+
 def spmm(edge_index: torch.Tensor, edge_weight: torch.Tensor,
-         x: torch.Tensor, num_nodes: int) -> torch.Tensor:
+         x: torch.Tensor, num_nodes: int,
+         orders: Optional[tuple] = None) -> torch.Tensor:
     """out[v] = sum over edges (u, v) of w_uv * x[u], by the scatter route:
     a row gather, the weight product and a sum at the destinations (the
     JAX package's ``spmm``; the reference's ``torch_sparse.spmm``,
     src/datasets/elph.py:103-107).  Differentiable in ``x``; the weights
     are data and get no gradient.  Each way the edges are grouped by a
     stable sort of their targets and summed by K1's add, so neither the
-    result nor the gradient depends on the order atomics land in."""
+    result nor the gradient depends on the order atomics land in;
+    ``orders`` (from ``edge_orders``) are those sorts made once, else
+    each way sorts in the call."""
     return _ScatterSpmm.apply(x, edge_index[0].long(), edge_index[1].long(),
-                              edge_weight.to(x.dtype), num_nodes)
+                              edge_weight.to(x.dtype), num_nodes, orders)
 
 
 def _pull(x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
-          w: torch.Tensor, n: int) -> torch.Tensor:
+          w: torch.Tensor, n: int,
+          order: Optional[tuple] = None) -> torch.Tensor:
     """out[v] = sum over e with dst[e] = v of w[e] x[src[e]], in edge
-    order."""
-    perm, ptr = segment_order(dst, n)
+    order (``order``: ``segment_order(dst, n)``, made here if None)."""
+    perm, ptr = order if order is not None else segment_order(dst, n)
     v = x.index_select(0, src[perm]) * w[perm, None]
     return ordered_segment_add(v, ptr, n)
 
@@ -109,13 +121,15 @@ class _ScatterSpmm(torch.autograd.Function):
     edges (dL/dx = A^T g)."""
 
     @staticmethod
-    def forward(ctx, x, src, dst, w, n):
+    def forward(ctx, x, src, dst, w, n, orders):
         ctx.save_for_backward(src, dst, w)
         ctx.n = n
-        return _pull(x, src, dst, w, n)
+        ctx.bwd_order = None if orders is None else orders[1]
+        return _pull(x, src, dst, w, n,
+                     None if orders is None else orders[0])
 
     @staticmethod
     def backward(ctx, g):
         src, dst, w = ctx.saved_tensors
-        grad = _pull(g.contiguous(), dst, src, w, ctx.n)
-        return grad, None, None, None, None
+        grad = _pull(g.contiguous(), dst, src, w, ctx.n, ctx.bwd_order)
+        return grad, None, None, None, None, None

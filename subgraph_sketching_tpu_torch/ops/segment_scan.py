@@ -36,6 +36,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from subgraph_sketching_tpu_torch.device import resolve_device
 from subgraph_sketching_tpu_torch.ops import cuda_build
@@ -460,19 +461,29 @@ def segment_order(seg: torch.Tensor, n: int) -> tuple:
     [0, n)) and the [n + 1] int64 pointer of its runs, so that
     ``rows[perm]`` lists each segment's rows in their original order and
     K1's add sums them in that order: the same sums from run to run,
-    where a scatter adds with atomics on the card."""
+    where a scatter adds with atomics on the card.  The pointer is a
+    search of the sorted ids (``bincount`` would read their maximum back
+    to the host, a sync in every call on the card), so an id outside [0,
+    n) would drop its row silently: the bounds are asserted on the
+    device instead, without a sync."""
     s, perm = torch.sort(seg, stable=True)
-    ptr = torch.zeros(n + 1, dtype=torch.int64, device=seg.device)
-    ptr[1:] = torch.cumsum(torch.bincount(s, minlength=n), 0)
+    if s.numel():
+        torch._assert_async((s[0] >= 0) & (s[-1] < n))
+    ptr = torch.searchsorted(s, torch.arange(n + 1, dtype=s.dtype,
+                                             device=s.device))
     return perm, ptr
 
 
 def ordered_segment_add(v: torch.Tensor, ptr: torch.Tensor,
                         n: int) -> torch.Tensor:
     """[n, W]: the sum of each segment's rows of ``v`` ([E, W], grouped by
-    ``segment_order``), by K1's add."""
+    ``segment_order``), by K1's add.  K1's float64 add reads 16-byte
+    units, so an odd float64 width (DGCNN's one channel in a float64
+    run) is summed with one zero column added."""
     if v.shape[0] == 0:
         return v.new_zeros((n, v.shape[1]))
+    if v.dtype == torch.float64 and v.shape[1] % 2:
+        return ordered_segment_add(F.pad(v, (0, 1)), ptr, n)[:, :-1]
     # K1's add reads x for its shape only
     return segment_combine(v.contiguous(), v.new_empty((n, v.shape[1])),
                            "add", ptr)

@@ -1,5 +1,6 @@
-"""Experiment driver of the port: BUDDY and ELPH training and evaluation
-(the JAX package's runners/run.py, reference src/runners/run.py).
+"""Experiment runner of the port: BUDDY, ELPH and the SEAL and KGE
+baseline tiers, training and evaluation (the JAX package's
+runners/run.py, reference src/runners/run.py).
 
     python -m subgraph_sketching_tpu_torch.runners.run \
         --dataset_name synth-ba --model BUDDY --epochs 2 --device cpu
@@ -12,16 +13,19 @@ backward) or, under ``--use_plan false``, the scatter SpMM.  Node
 embeddings (``--train_node_embedding`` or ``--pretrained_node_embedding``)
 serve both models; with ``--propagate_embeddings`` every step diffuses the
 table over the train graph the same way (the reference's ogbl-ddi
-commands).
+commands).  ``--model`` SEALDGCNN, SEALGCN, SEALSAGE, SEALGIN or
+SEALMLP trains on per-link enclosing subgraphs extracted on the host
+(``train/seal_loop.py``; ``--dynamic_train/val/test`` extract per
+batch), and transE, distmult, complEx or rotatE on the links alone
+(``train/kge_loop.py``): neither tier builds sketches.
 
 Datasets: ``synth-*``, Planetoid (Cora, Citeseer, Pubmed) and ogbl-*
 from their raw files under ``--data_root`` (default ``SKETCH_DATA_ROOT``
 or ``dataset/`` in the checkout).  On ogbl-citation2 the train metric is
 taken on a small ``train_eval`` subset with its same-source negatives.
 
-Not ported yet (queued, each raises NotImplementedError): models other than
-BUDDY and ELPH (SEAL, KGE), ``--mesh_shape``, ``--heartbeat_dir``,
-``--profile_dir`` and ``--compilation_cache_dir``.
+Not ported yet (queued, each raises NotImplementedError): ``--mesh_shape``,
+``--heartbeat_dir``, ``--profile_dir`` and ``--compilation_cache_dir``.
 """
 
 from __future__ import annotations
@@ -49,8 +53,12 @@ from subgraph_sketching_tpu_torch.train.determinism import (
     check_epoch_determinism,
 )
 from subgraph_sketching_tpu_torch.train.inference import test
+from subgraph_sketching_tpu_torch.train.kge_loop import KGE_MODELS, KgeTrainer
 from subgraph_sketching_tpu_torch.train.loops import (
     BuddyTrainer, ElphTrainer, epoch_seed, make_optimizer,
+)
+from subgraph_sketching_tpu_torch.train.seal_loop import (
+    SEAL_MODELS, build_seal_trainer,
 )
 from subgraph_sketching_tpu_torch.utils import str2bool
 
@@ -66,11 +74,10 @@ TRAINERS = {"BUDDY": BuddyTrainer, "ELPH": ElphTrainer}
 
 
 def _refuse_unported(cfg: Config) -> None:
-    if cfg.model not in TRAINERS:
+    if cfg.model not in (*TRAINERS, *SEAL_MODELS, *KGE_MODELS):
         raise NotImplementedError(
-            f"model {cfg.model} is not ported yet (BUDDY and ELPH only; the "
-            f"heuristics, SEAL and KGE are queued in ROADMAP.md §1, items "
-            f"5, 7 and 8)")
+            f"model {cfg.model} is not wired into the runner (available: "
+            f"{', '.join((*TRAINERS, *SEAL_MODELS, *KGE_MODELS))})")
     for flag in ("mesh_shape", "heartbeat_dir", "profile_dir",
                  "compilation_cache_dir"):
         if getattr(cfg, flag):
@@ -122,11 +129,16 @@ def run(cfg: Config, device="cuda"):
         if cfg.eval_metric != "hits":
             eval_metric = cfg.eval_metric
         t0 = time.time()
-        datasets = build_all_splits(splits, cfg, directed=directed,
-                                    device=dev)
-        num_features = (None if datasets["train"].x is None
-                        else datasets["train"].x.shape[-1])
-        trainer = build_trainer(cfg, datasets, num_features, dev)
+        if cfg.model in SEAL_MODELS:
+            trainer = build_seal_trainer(cfg, splits, dev)
+        elif cfg.model in KGE_MODELS:
+            trainer = KgeTrainer(cfg, splits, device=dev)
+        else:
+            datasets = build_all_splits(splits, cfg, directed=directed,
+                                        device=dev)
+            num_features = (None if datasets["train"].x is None
+                            else datasets["train"].x.shape[-1])
+            trainer = build_trainer(cfg, datasets, num_features, dev)
         preprocess_time = time.time() - t0
         print(f"preprocessing ran in {preprocess_time:.2f}s")
         model = trainer.init_model(rep)

@@ -2,15 +2,19 @@
 
 An epoch of the port is a function of (model, optimizer, seed): the
 shuffle and every dropout mask come from a generator seeded with the
-epoch's seed.  So nondeterminism (an atomic reduction in a backward, a
-library algorithm chosen per call, a racy kernel) shows as a difference
-between two runs of the same epoch from the same state.  Enable with
-``--check_determinism`` (runs once, before training starts).
+epoch's seed.  SEAL's fringe sampling draws from the stdlib ``random``
+stream, which the check sets to the same state before each run and
+leaves as it found it.  So nondeterminism (an atomic reduction in a
+backward, a library algorithm chosen per call, a racy kernel) shows as
+a difference between two runs of the same epoch from the same state.
+Enable with ``--check_determinism`` (runs once, before training
+starts).
 """
 
 from __future__ import annotations
 
 import copy
+import random
 from typing import Tuple
 
 import torch
@@ -42,14 +46,17 @@ def check_epoch_determinism(trainer, model: torch.nn.Module,
     tensor and the loss are bit-identical.
 
     Returns (number of tensors compared, loss).  Raises AssertionError
-    naming the tensors that differ.  The caller's model and optimizer are
-    left untouched.
+    naming the tensors that differ.  The caller's model, optimizer and
+    ``random`` stream are left untouched.
     """
     runs = []
+    stream = random.getstate()
     for _ in range(2):
+        random.setstate(stream)
         m, opt = copy.deepcopy((model, optimizer))
         loss = trainer.train_epoch(m, opt, seed)
         runs.append((_state_tensors(m, opt), loss))
+    random.setstate(stream)
     (s1, l1), (s2, l2) = runs
     bad = [n for (n, a), (_, b) in zip(s1, s2) if not _bits_equal(a, b)]
     if bad or l1 != l2:

@@ -147,8 +147,10 @@ def _init_like_flax(model: nn.Module, generator: torch.Generator) -> None:
     bias zero, except a GCNConv's, which is glorot-uniform (uniform in
     +-sqrt(6 / (fan_in + fan_out))) with the conv's bias zero; a
     trainable node-embedding table xavier-uniform, flax's glorot with
-    fan_in = num_nodes and fan_out = hidden; BatchNorm at scale 1, bias 0
-    and unit running statistics."""
+    fan_in = num_nodes and fan_out = hidden; an ``nn.Embedding`` (a flax
+    ``Embed``: the SEAL models' tables) normal with variance 1/dim; a
+    ``Conv1d`` lecun-normal over fan_in = in_channels * width, bias zero;
+    BatchNorm at scale 1, bias 0 and unit running statistics."""
     glorot = {id(m.lin) for m in model.modules() if isinstance(m, GCNConv)}
     with torch.no_grad():
         for m in model.modules():
@@ -163,7 +165,17 @@ def _init_like_flax(model: nn.Module, generator: torch.Generator) -> None:
                 std = (1.0 / m.in_features) ** 0.5 / .87962566103423978
                 nn.init.trunc_normal_(m.weight, std=std, a=-2 * std,
                                       b=2 * std, generator=generator)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
+            elif isinstance(m, nn.Conv1d):
+                fan_in = m.in_channels * m.kernel_size[0]
+                std = (1.0 / fan_in) ** 0.5 / .87962566103423978
+                nn.init.trunc_normal_(m.weight, std=std, a=-2 * std,
+                                      b=2 * std, generator=generator)
                 nn.init.zeros_(m.bias)
+            elif isinstance(m, nn.Embedding):
+                nn.init.normal_(m.weight, std=m.embedding_dim ** -0.5,
+                                generator=generator)
             elif isinstance(m, GCNConv):
                 nn.init.zeros_(m.bias)
             elif isinstance(m, nn.BatchNorm1d):

@@ -20,6 +20,17 @@ def str2bool(x) -> bool:
     raise ValueError(f"unrecognised type {type(x)}")
 
 
+def neighbors(fringe, A, outgoing: bool = True) -> set:
+    """The neighbour set of a set of nodes over a scipy CSR adjacency
+    (reference utils.py:102-115): out-neighbours through the rows, or
+    in-neighbours through the columns of a CSC one."""
+    if not fringe:
+        return set()
+    if outgoing:
+        return set(A[list(fringe)].indices)
+    return set(A[:, list(fringe)].indices)
+
+
 def load_pretrained_embedding(path: str, num_nodes=None):
     """A frozen node-embedding table as a float32 numpy array (reference
     utils.py:57-60 loads a torch-saved weight and freezes it; the JAX

@@ -902,3 +902,116 @@ def test_device_heuristics_on_the_card_match_the_host(cuda):
                      ("RA", resource_allocation)):
         np.testing.assert_allclose(dev.scores(links, kind), fn(A, links),
                                    rtol=1e-4, atol=1e-5, err_msg=kind)
+
+
+# ---- the SEAL and KGE tiers ------------------------------------------------
+
+def _seal_trainer(model_name, device):
+    from subgraph_sketching_tpu_torch.config import Config
+    from subgraph_sketching_tpu_torch.graph.datasets import get_data
+    from subgraph_sketching_tpu_torch.train.seal_loop import (
+        build_seal_trainer,
+    )
+    cfg = Config(dataset_name="synth-ba", model=model_name,
+                 hidden_channels=32, num_seal_layers=2, dropout=0.0,
+                 batch_size=64, sortpool_k=20)
+    return build_seal_trainer(cfg, get_data(cfg)[0], device=device)
+
+
+@pytest.mark.parametrize("model_name", ["SEALGCN", "SEALSAGE", "SEALGIN",
+                                        "SEALDGCNN", "SEALMLP"])
+def test_seal_steps_on_the_card_match_the_cpu(cuda, model_name):
+    """One batch's gradients, then two SEAL steps (96 links at batch 64:
+    a padded second batch), dropout off, from one init on the card and
+    on the CPU: gradients rtol 1e-4 / atol 1e-6 of each parameter's
+    largest (Adam's update would hide a wrong size), the epoch loss rtol
+    1e-5, parameters rtol 1e-4 / atol 1e-5; and two runs on the card bit
+    for bit, each step's sums on K1's add."""
+    from subgraph_sketching_tpu_torch.train.loops import make_optimizer
+    order = np.random.default_rng(0).permutation(500)[:96]
+    runs = []
+    for device in ("cpu", cuda, cuda):
+        tr = _seal_trainer(model_name, device)
+        probe = tr.init_model(0)
+        model = tr.init_model(0)
+        for m in (probe, model):
+            if hasattr(m, "drop"):
+                m.drop.p = 0.0
+        batch, y = tr.to_device(tr.datasets["train"].batch(order[:64]))
+        tr.loss_fn(probe(batch), y, torch.ones(64, dtype=torch.bool,
+                                               device=device)).backward()
+        grads = {k: p.grad.cpu() for k, p in probe.named_parameters()}
+        opt = make_optimizer(tr.cfg, model.parameters())
+        segscan.launches["segscan_add_f32"] = 0
+        loss = tr.train_epoch(model, opt, 1, order=order)
+        adds = segscan.launches["segscan_add_f32"]
+        runs.append((loss, {k: v.detach().cpu()
+                            for k, v in model.state_dict().items()}, adds,
+                     grads))
+    (l_cpu, s_cpu, _, g_cpu), (l1, s1, adds, g1), (l2, s2, _, g2) = runs
+    if model_name != "SEALMLP":
+        assert adds > 0
+    for k, v in g_cpu.items():
+        assert torch.equal(g1[k], g2[k]), k
+        torch.testing.assert_close(g1[k], v, rtol=1e-4,
+                                   atol=1e-6 * float(v.abs().max()))
+    assert l1 == l2
+    np.testing.assert_allclose(l1, l_cpu, rtol=1e-5)
+    for k, v in s_cpu.items():
+        assert torch.equal(s1[k], s2[k]), k
+        if v.is_floating_point():
+            torch.testing.assert_close(s1[k], v, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("model_name", ["transE", "distmult", "complEx",
+                                        "rotatE"])
+def test_kge_steps_on_the_card_match_the_cpu(cuda, model_name):
+    """A head- and a tail-corruption KGE step from one init, with the same
+    positives and negatives, on the card and on the CPU, and twice on the
+    card bit for bit (the entity rows' gradient summed by K1's add).
+    The first step's gradients rtol 1e-4 / atol 1e-6 of each table's
+    largest (Adam's update would hide a wrong size); losses rtol 1e-5;
+    tables rtol 1e-4 / atol 1e-6 on all but 0.1% of
+    their elements, and every element within 2 lr a step: Adam's first
+    steps move an element by about lr whatever its gradient's size, so a
+    gradient within float32 rounding of 0 (transE's L1 sign where a
+    difference is within rounding of 0) moves it by up to lr either way
+    on either device."""
+    from subgraph_sketching_tpu_torch.config import Config
+    from subgraph_sketching_tpu_torch.graph.datasets import get_data
+    from subgraph_sketching_tpu_torch.train.kge_loop import KgeTrainer
+    from subgraph_sketching_tpu_torch.train.loops import make_optimizer
+    cfg = Config(dataset_name="synth-ba", model=model_name,
+                 hidden_channels=32, batch_size=256, lr=0.01)
+    splits = get_data(cfg)[0]
+    rng = np.random.default_rng(1)
+    pos = torch.from_numpy(rng.integers(0, 1000, (256, 2)))
+    negs = torch.from_numpy(rng.integers(0, 1000, (2, 256, 64)))
+    runs = []
+    for device in ("cpu", cuda, cuda):
+        tr = KgeTrainer(cfg, splits, device=device)
+        model = tr.init_model(0)
+        opt = make_optimizer(cfg, model.parameters())
+        segscan.launches["segscan_add_f32"] = 0
+        losses, grads = [], None
+        for i, mode in enumerate(("head-batch", "tail-batch")):
+            losses.append(float(tr.step(model, opt, pos.to(device),
+                                        negs[i].to(device), mode)))
+            grads = grads or {k: p.grad.cpu()
+                              for k, p in model.named_parameters()}
+        assert device == "cpu" or segscan.launches["segscan_add_f32"] == 4
+        runs.append((losses, {k: v.detach().cpu()
+                              for k, v in model.state_dict().items()},
+                     grads))
+    (l_cpu, s_cpu, g_cpu), (l1, s1, g1), (l2, s2, g2) = runs
+    for k, v in g_cpu.items():
+        assert torch.equal(g1[k], g2[k]), k
+        torch.testing.assert_close(g1[k], v, rtol=1e-4,
+                                   atol=1e-6 * float(v.abs().max()))
+    assert l1 == l2
+    np.testing.assert_allclose(l1, l_cpu, rtol=1e-5)
+    for k, v in s_cpu.items():
+        assert torch.equal(s1[k], s2[k]), k
+        d = (s1[k] - v).abs()
+        assert int((d > 1e-6 + 1e-4 * v.abs()).sum()) <= 1e-3 * v.numel(), k
+        assert float(d.max()) <= 2 * cfg.lr * 2, k

@@ -27,8 +27,9 @@ print(" ".join(names))
 """
 
 # the training slice's modules, the dataset slice's (loading, LCC, RA
-# and the plan builder's build), ELPH's, the node embeddings' and the
-# heuristics tier's, which must be among those imported
+# and the plan builder's build), ELPH's, the node embeddings', the
+# heuristics tier's and the SEAL and KGE tiers', which must be among
+# those imported
 REQUIRED = {"train", "train.losses", "train.evaluation", "train.inference",
             "train.loops", "train.checkpoint", "train.determinism",
             "runners.run", "metrics_logging", "utils",
@@ -36,7 +37,9 @@ REQUIRED = {"train", "train.losses", "train.evaluation", "train.inference",
             "ops.segment_scan", "graph.preprocess", "models.elph",
             "models.predictor", "models.gnn", "models.buddy",
             "models.convert", "serving", "runners.run_heuristics",
-            "runners.serve"}
+            "runners.serve", "labelling", "graph.native", "graph.seal",
+            "models.seal", "models.transx", "train.seal_loop",
+            "train.kge_loop"}
 
 
 def test_port_imports_no_jax():

@@ -23,9 +23,11 @@ from subgraph_sketching_tpu.ops.graph_ops import gcn_norm as jgcn_norm
 from subgraph_sketching_tpu.ops.graph_ops import spmm as jspmm
 from subgraph_sketching_tpu.ops.segment_scan import PlanSpmm as JPlanSpmm
 from subgraph_sketching_tpu_torch.graph.synthetic import watts_strogatz_graph
-from subgraph_sketching_tpu_torch.ops.graph_ops import gcn_norm, spmm
+from subgraph_sketching_tpu_torch.ops.graph_ops import (
+    edge_orders, gcn_norm, spmm,
+)
 from subgraph_sketching_tpu_torch.ops.segment_scan import (
-    SUB_LEN, PlanSpmm, gather_rows,
+    SUB_LEN, PlanSpmm, gather_rows, segment_order,
 )
 
 
@@ -157,6 +159,11 @@ def test_spmm_matches_jax(kind):
                                atol=1e-5)
     np.testing.assert_allclose(xt.grad.numpy(), want_grad, rtol=1e-5,
                                atol=1e-5)
+    # the sorts made once (edge_orders) give the same sums bit for bit
+    xo = torch.from_numpy(x).requires_grad_()
+    got_o = spmm(nei, nw, xo, n, edge_orders(nei, n))
+    (got_o * torch.from_numpy(t)).sum().backward()
+    assert torch.equal(got_o, got) and torch.equal(xo.grad, xt.grad)
 
 
 def test_spmm_gradcheck_float64():
@@ -193,3 +200,15 @@ def test_gather_rows_matches_indexing():
     torch.testing.assert_close(g_got, g_ref, rtol=1e-6, atol=1e-6)
     t64 = table.detach().double().requires_grad_()
     assert torch.autograd.gradcheck(lambda t: gather_rows(t, idx), (t64,))
+
+
+@pytest.mark.parametrize("bad", [-1, 50])
+def test_segment_order_refuses_ids_out_of_range(bad):
+    """The pointer is a search of the sorted ids, which would drop an id
+    outside [0, n) silently: the device-side assert refuses it."""
+    seg = torch.tensor([3, 0, bad, 7])
+    with pytest.raises(RuntimeError):
+        segment_order(seg, 50)
+    perm, ptr = segment_order(torch.tensor([3, 0, 3, 49]), 50)
+    assert perm.tolist() == [1, 0, 2, 3]
+    assert ptr[[0, 1, 3, 4, 49, 50]].tolist() == [0, 1, 1, 3, 3, 4]

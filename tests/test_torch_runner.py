@@ -88,7 +88,7 @@ def test_main_without_device_needs_cuda():
 
 
 @pytest.mark.parametrize("extra", [
-    ["--model", "transE"], ["--model", "SEALGCN"], ["--mesh_shape", "2"],
+    ["--model", "GCN"], ["--model", "SAGE"], ["--mesh_shape", "2"],
     ["--profile_dir", "p"], ["--heartbeat_dir", "h"],
     ["--compilation_cache_dir", "c"]])
 def test_unported_options_raise(extra):
