@@ -196,6 +196,33 @@ Phases, each printing one JSON line:
              rows at W = 1024 (transE) and 2048 (rotatE), the relation
              row (transE), one line each
 
+  dp         data parallelism (parallel/, the trainers' data axis): (a)
+             world size 1 on NCCL at full width: BUDDY at Config defaults
+             on synth-ws-200000 through runners.run with --mesh_shape 1 (2
+             epochs, --check_determinism), its epoch losses within rtol
+             1e-4 of the train phase's run without a mesh, and ELPH at
+             Config defaults with --mesh_shape 1 (one epoch of 131072
+             links) against the train_elph run's first epoch; per model
+             the epoch seconds, step ms, 50 / 20 steps on the mesh and
+             unsharded under torch.profiler (parallel/breakdown.py: idle
+             share, collectives a step: calls, bytes, NCCL device ms;
+             host self ms by operator and the mesh's excess by operator;
+             K1 adds a step) and the step ms on the mesh and unsharded
+             in turns; K1 on one meshed ELPH step's real
+             inputs (PlanSpmm each way, gather_rows' backward), one line
+             each, held and timed as in the kernels phase.  (b) BUDDY and
+             ELPH on two gloo ranks sharing cuda:0 (torch.distributed.run
+             --standalone, two ranks each, hidden 64, synth-ba, 2 epochs,
+             --heartbeat_dir; the runner holds the ranks' states bit-equal
+             after every epoch), each against the same run at world size
+             1 on the card (epoch losses rtol 1e-4), and BUDDY's ranks
+             resumed from the epoch-1 checkpoint, bit-equal to the
+             uninterrupted run.  (c) parallel.dryrun.dryrun_multichip(1)
+             on NCCL.  Then gcn_norm's degrees of the synth-ws-200000
+             train graph with non-integer weights: one K1 add a call,
+             bit-equal across two calls, within the add bound of
+             index_add_
+
 then the per-kernel summary line (each K1, K2 and K3 entry also carries
 its ``bench_hub`` time, bound and yardstick: ``hub_ms``, ``hub_bound_ms``,
 ``hub_library_ms``; each K1 entry its launches in the train phase,
@@ -212,7 +239,9 @@ seal and kge phases, ``seal_launches`` and ``kge_launches``; and the two
 K1 add instances of the SEAL step's union, at W = 1024 and W = 1, with
 the add launches of the SEALDGCNN run but the label embedding's; and the
 four gather_rows backward instances, SEAL's label embedding and KGE's
-three, each with its own launches in its run), the
+three, each with its own launches in its run; and the three K1 add
+instances of the dp phase's meshed ELPH step, with the add launches of
+its world-size-1 ELPH run), the
 nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises: the run exits
 non-zero and prints no last line.  Without a CUDA device it exits 2 at once.
@@ -221,6 +250,7 @@ non-zero and prints no last line.  Without a CUDA device it exits 2 at once.
 from __future__ import annotations
 
 import contextlib
+import glob
 import json
 import os
 import shutil
@@ -3530,6 +3560,451 @@ def phase_kge(root: str, splits_memo: dict, seed: int = 19) -> dict:
                          f"{ADAM_TOLERANCE}"}, k1_kge
 
 
+# ------------------------------------------------------------------ dp --
+
+DP_ELPH_SAMPLES = 131072        # 128 steps of the default batch 1024
+DP_PROFILE_STEPS = {"BUDDY": 50, "ELPH": 20}
+DP_TIMED_STEPS = 10             # steps a turn, unsharded against mesh
+# the two-rank check on one card: small, on the bundled synth-ba graph
+DP_SMALL = ["--dataset_name", "synth-ba", "--hidden_channels", "64",
+            "--epochs", "2", "--eval_steps", "1", "--checkpoint_every", "1"]
+DP_TWO_RANKS = ["--mesh_shape", "2", "--mesh_axes", "data"]
+DP_LOSS_RTOL = 1e-4   # epoch losses, a mesh run against the run without
+
+
+def _metric_rows(ckpt: str) -> list:
+    with open(os.path.join(ckpt, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _kept_run(cfg) -> tuple:
+    """``runners.run.run(cfg)`` on the card with the trainer it built
+    kept, K1's counts and the collectives' set to 0 just before it and
+    read just after; returns (trainer, results, run seconds, metric rows,
+    K1 launches, collectives, peak memory)."""
+    import torch
+
+    from subgraph_sketching_tpu_torch.ops import segscan
+    from subgraph_sketching_tpu_torch.parallel import collectives
+    from subgraph_sketching_tpu_torch.runners import run as runner
+
+    kept = []
+    build = runner.build_trainer
+
+    def keep(*a, **k):
+        kept.append(build(*a, **k))
+        return kept[-1]
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    _reset_k1()
+    collectives.reset_collectives()
+    t0 = time.perf_counter()
+    with _patched(runner, "build_trainer", keep):
+        results = runner.run(cfg, device="cuda")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    return (kept[-1], results, run_s, _metric_rows(cfg.checkpoint_dir),
+            dict(segscan.launches), dict(collectives.collectives),
+            torch.cuda.max_memory_allocated())
+
+
+def _unsharded(trainer):
+    """The same staged trainer without its mesh: the single-device
+    step on the same data, for timing in turns."""
+    import copy
+
+    from subgraph_sketching_tpu_torch.train.losses import get_loss
+    plain = copy.copy(trainer)
+    plain.mesh = None
+    plain.loss_fn = get_loss(trainer.cfg.loss)
+    return plain
+
+
+def _dp_profile(trainer, steps: int, seed: int) -> dict:
+    """A meshed trainer's steps and the same trainer's without its mesh,
+    each ``steps`` steps under torch.profiler
+    (``parallel.breakdown.profile_steps``: idle share, the collectives'
+    calls, bytes and NCCL device ms a step, the host's self ms by
+    operator and in ``all_reduce``), K1 adds a step on the mesh, the
+    operators that the mesh adds host time to (``host_excess_by_op``:
+    ms a step on the mesh less unsharded); then the step ms by the host
+    clock, unsharded and on the mesh in turns (unsharded, mesh, mesh,
+    unsharded), DP_TIMED_STEPS steps each, without the profiler."""
+    import torch
+
+    from subgraph_sketching_tpu_torch.ops import segscan
+    from subgraph_sketching_tpu_torch.parallel import breakdown
+    from subgraph_sketching_tpu_torch.train.loops import make_optimizer
+
+    cfg, bs = trainer.cfg, trainer.cfg.batch_size
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    order = torch.randperm(trainer.num_links("train"), generator=g,
+                           device="cuda")
+    plain = _unsharded(trainer)
+    prof = {}
+    for what, tr in (("mesh", trainer), ("unsharded", plain)):
+        model = tr.init_model(0)
+        opt = make_optimizer(cfg, model.parameters())
+        prof[what] = breakdown.profile_steps(tr, model, opt, order, steps,
+                                             seed, on_window=_reset_k1)
+        if what == "mesh":
+            adds = segscan.launches["segscan_add_f32"]
+    mesh, base = prof["mesh"], prof["unsharded"]
+    if mesh["collective_calls"] == 0:
+        raise AssertionError(f"dp: {steps} {cfg.model} steps on the mesh "
+                             f"issued no collective")
+    ops = set(mesh["host_ops"]) | set(base["host_ops"])
+    excess = sorted(
+        ([k, mesh["host_ops"].get(k, [0, 0])[0]
+          - base["host_ops"].get(k, [0, 0])[0],
+          mesh["host_ops"].get(k, [0, 0])[1]
+          - base["host_ops"].get(k, [0, 0])[1]] for k in ops),
+        key=lambda r: -abs(r[1]))[:12]
+
+    def timed(tr) -> float:
+        m = tr.init_model(0)
+        o = make_optimizer(cfg, m.parameters())
+        return breakdown.timed_steps(tr, m, o, order, DP_TIMED_STEPS, seed)
+
+    step_ms = {"unsharded": [], "mesh": []}
+    for what, tr in [("unsharded", plain), ("mesh", trainer),
+                     ("mesh", trainer), ("unsharded", plain)]:
+        step_ms[what].append(timed(tr))
+    for p in prof.values():
+        del p["host_ops"]
+    return {"steps": steps,
+            "step_ms_profiled": mesh["step_ms"],
+            "device_busy_ms": mesh["device_busy_ms"] * steps,
+            "device_idle_share": mesh["device_idle_share"],
+            "collectives_per_step": mesh["collective_calls"],
+            "collective_bytes_per_step": mesh["collective_bytes"],
+            "nccl_device_ms_per_step": mesh["nccl_device_ms"],
+            "all_reduce_host_ms_per_step": mesh["all_reduce_host_ms"],
+            "k1_add_launches_per_step": adds / steps,
+            "step_ms_in_turns": step_ms,
+            "host_op_self_ms": {"mesh": mesh["host_op_self_ms"],
+                                "unsharded": base["host_op_self_ms"]},
+            "host_excess_by_op": excess,
+            "profiled": prof,
+            "top_kernels": mesh["top_kernels"][:8]}
+
+
+def _dp_step_k1(trainer, seed: int) -> list:
+    """K1 on one meshed ELPH step's real inputs: the first PlanSpmm
+    forward, the first PlanSpmm backward and gather_rows' backward of a
+    step (K1's inputs taken as the step passes them), each held against
+    its plain version and timed by ``k1_record``."""
+    import torch
+
+    from subgraph_sketching_tpu_torch.ops import segment_scan
+    from subgraph_sketching_tpu_torch.train.loops import make_optimizer
+
+    plan = trainer._data["train"]["plan"]
+    which = {plan.fwd.sub_ptr.data_ptr(): "PlanSpmm forward",
+             plan.bwd.sub_ptr.data_ptr(): "PlanSpmm backward"}
+    stash = {}
+    merge = segment_scan.segment_combine
+
+    def watched(v, x, op, ptr):
+        what = which.get(ptr.data_ptr(), "gather_rows backward")
+        if op == "add" and what not in stash:
+            stash[what] = (v.detach().clone(), x.detach().clone(),
+                           ptr.clone())
+        return merge(v, x, op, ptr)
+
+    model = trainer.init_model(0)
+    opt = make_optimizer(trainer.cfg, model.parameters())
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    order = torch.randperm(trainer.num_links("train"), generator=g,
+                           device="cuda")[:trainer.cfg.batch_size]
+    with _patched(segment_scan, "segment_combine", watched):
+        trainer.run_epoch(model, opt, seed, order=order)
+    torch.cuda.synchronize()
+    if len(stash) != 3:
+        raise AssertionError(f"dp: one ELPH step passed K1 {sorted(stash)}")
+    records = []
+    for what, (v, x, ptr) in stash.items():
+        name = f"segscan_add_f32 (dp ELPH step, {what}, W={v.shape[1]})"
+        records.append({"phase": "dp", "name": name,
+                        **k1_record(name, "add", v, x, ptr)})
+    del stash
+    return records
+
+
+def _world1(cfg, reference: dict, losses_of_reference: list) -> tuple:
+    """One runner run at world size 1 on NCCL (``cfg`` with
+    ``--mesh_shape 1``), held against the same run without a mesh: each
+    epoch loss within DP_LOSS_RTOL; then its steps profiled and timed
+    (``_dp_profile``).  Returns (the kept trainer, record)."""
+    import math
+
+    trainer, results, run_s, rows, launches, coll, peak = _kept_run(cfg)
+    if trainer.mesh is None or trainer.mesh.world_size != 1:
+        raise AssertionError(f"dp: the {cfg.model} run built no mesh")
+    losses = [r["rep0_loss"] for r in rows]
+    for got, want in zip(losses, losses_of_reference):
+        if not math.isfinite(got) or abs(got - want) > DP_LOSS_RTOL * abs(
+                want):
+            raise AssertionError(f"dp: {cfg.model} at world size 1 on the "
+                                 f"mesh, epoch losses {losses}; without a "
+                                 f"mesh {losses_of_reference}")
+    steps = math.ceil(min(cfg.train_samples, trainer.num_links("train"))
+                      / cfg.batch_size)
+    record = {"phase": "dp", "part": f"world1_{cfg.model.lower()}",
+              "model": cfg.model, "dataset": cfg.dataset_name,
+              "hidden_channels": cfg.hidden_channels,
+              "batch_size": cfg.batch_size, "mesh_shape": cfg.mesh_shape,
+              "backend": "nccl", "epochs": cfg.epochs,
+              "check_determinism": cfg.check_determinism,
+              "steps_per_epoch": steps, "run_s": run_s,
+              "epoch_s": [r["rep0_train_time"] for r in rows],
+              "step_ms_by_epoch": [r["rep0_train_time"] * 1e3 / steps
+                                   for r in rows],
+              "losses": losses, "losses_without_mesh": losses_of_reference,
+              "loss_tolerance": f"rtol {DP_LOSS_RTOL} a epoch",
+              "hits@100": [r["rep0_tmp_testHits@100"] / 100 for r in rows],
+              "results": results, "without_mesh": reference,
+              "k1_launches": launches, "collectives": coll,
+              "peak_memory_bytes": peak,
+              "profile": _dp_profile(trainer, DP_PROFILE_STEPS[cfg.model],
+                                     seed=31)}
+    return trainer, record
+
+
+def _two_ranks(name: str, args: list) -> list:
+    """``runners.run`` as two ranks on cuda:0, launched by
+    ``torch.distributed.run --standalone`` (which picks its rendezvous
+    port itself; gloo, the default where the local ranks outnumber the
+    cards), each rank's output to a file; returns each rank's output,
+    killing the launch if it does not finish, and raises unless both
+    ranks exit 0 as ranks 0 and 1 of one group."""
+    import subprocess
+    root = os.path.dirname(os.path.abspath(__file__))
+    logs = tempfile.mkdtemp(prefix=f"smoke_dp_{name}_")
+    try:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "2", "--redirects", "3", "--log_dir", logs,
+             "-m", "subgraph_sketching_tpu_torch.runners.run", *args,
+             "--device", "cuda:0"],
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        try:
+            launcher = proc.communicate(timeout=300)[0]
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        outs = []
+        for r in range(2):
+            text = ""
+            for stream in ("stdout", "stderr"):
+                for path in glob.glob(os.path.join(
+                        logs, "**", "attempt_0", str(r), f"{stream}.log"),
+                        recursive=True):
+                    with open(path) as f:
+                        text += f.read()
+            outs.append(text)
+        for r, out in enumerate(outs):
+            if proc.returncode != 0 or f"(rank {r} of 2)" not in out:
+                raise AssertionError(
+                    f"dp {name}: the launch exited {proc.returncode}; "
+                    f"rank {r}:\n{out[-4000:]}\nlauncher:\n"
+                    f"{launcher[-4000:]}")
+        return outs
+    finally:
+        shutil.rmtree(logs, ignore_errors=True)
+
+
+def _gloo_two_ranks(work: str) -> dict:
+    """BUDDY and ELPH on two gloo ranks sharing cuda:0 (DP_SMALL on
+    DP_TWO_RANKS, --heartbeat_dir, a checkpoint every epoch; the runner
+    checks after every epoch that the ranks hold the same state bits),
+    the two models' launches at once, BUDDY's followed by its ranks
+    restarted with --resume from its epoch-1 checkpoint; meanwhile the
+    same runs at world size 1 on the card in this process.  Each
+    two-rank run's epoch losses within DP_LOSS_RTOL of world size 1, and
+    the resumed run's epoch-2 checkpoint bit-equal to the uninterrupted
+    run's."""
+    import threading
+
+    import torch
+
+    from subgraph_sketching_tpu_torch.runners import run as runner
+
+    models = ("BUDDY", "ELPH")
+    failures, seconds, resumed = {}, {}, []
+    src = os.path.join(work, "BUDDY_ck")
+    ck = os.path.join(work, "BUDDY_resume")
+
+    def launch(model):
+        try:
+            _two_ranks(model, DP_SMALL + DP_TWO_RANKS + [
+                "--model", model,
+                "--checkpoint_dir", os.path.join(work, f"{model}_ck"),
+                "--heartbeat_dir", os.path.join(work, f"{model}_hb")])
+            seconds[model] = time.perf_counter() - t0
+            if model != "BUDDY":
+                return
+            # resume: the run's epoch-1 checkpoint, both ranks restarted
+            shutil.copytree(src, ck)
+            for f in ("step_2.pt", "meta_step_2.json"):
+                os.remove(os.path.join(ck, f))
+            t1 = time.perf_counter()
+            resumed.extend(_two_ranks("resume", DP_SMALL + DP_TWO_RANKS + [
+                "--model", "BUDDY", "--checkpoint_dir", ck,
+                "--heartbeat_dir", os.path.join(work, "BUDDY_hb_resume"),
+                "--resume"]))
+            seconds["resume"] = time.perf_counter() - t1
+        except Exception as e:   # reported below, with the other model's
+            failures[model] = e
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=launch, args=(m,)) for m in models]
+    for t in threads:
+        t.start()
+    want = {}
+    for model in models:
+        # the same run at world size 1 on the card, without a mesh
+        one = os.path.join(work, f"{model}_one")
+        runner.run(runner.config_from_parsed(runner.make_parser().parse_args(
+            DP_SMALL + ["--model", model, "--checkpoint_dir", one])),
+            device="cuda")
+        want[model] = [r["rep0_loss"] for r in _metric_rows(one)]
+    for t in threads:
+        t.join()
+    all_s = time.perf_counter() - t0
+    if failures:
+        raise AssertionError(f"dp: two-rank runs failed: {failures}")
+    out = {}
+    for model in models:
+        got = [r["rep0_loss"] for r in _metric_rows(
+            os.path.join(work, f"{model}_ck"))]
+        if len(got) != 2 or any(abs(a - b) > DP_LOSS_RTOL * abs(b)
+                                for a, b in zip(got, want[model])):
+            raise AssertionError(f"dp: {model} on two gloo ranks, epoch "
+                                 f"losses {got}; at world size 1 "
+                                 f"{want[model]}")
+        out[model] = {"losses": got, "losses_world1": want[model],
+                      "loss_tolerance": f"rtol {DP_LOSS_RTOL} a epoch"}
+    if not all("resumed from checkpoint step 1" in o for o in resumed):
+        raise AssertionError("dp: the restarted ranks did not resume from "
+                             "step 1")
+    a = torch.load(os.path.join(src, "step_2.pt"), map_location="cpu")
+    b = torch.load(os.path.join(ck, "step_2.pt"), map_location="cpu")
+    same = all(torch.equal(v, b["model"][k]) for k, v in a["model"].items())
+    same &= all(torch.equal(v, b["optimizer"]["state"][i][k])
+                for i, st in a["optimizer"]["state"].items()
+                for k, v in st.items())
+    if not same:
+        raise AssertionError("dp: the resumed two-rank run ended apart from "
+                             "the uninterrupted one")
+    return {"phase": "dp", "part": "gloo_two_ranks_one_card",
+            "backend": "gloo", "device": "cuda:0 for both ranks",
+            "args": " ".join(DP_SMALL + DP_TWO_RANKS), "runs": out,
+            "launches_s": all_s, "run_s": {k: seconds[k] for k in models},
+            "resume_s": seconds["resume"],
+            "ranks_agree": "checked by the runner after every epoch "
+                           "(sha256 of every state tensor, all ranks)",
+            "resume": "epoch-2 checkpoint bit-equal to the uninterrupted "
+                      "run's"}
+
+
+def _degrees_twice(g, seed: int) -> dict:
+    """gcn_norm's degrees of the synth-ws-200000 train graph with
+    non-integer weights (seeded): K1's ordered add, bit-equal across two
+    calls, within ADD_TOLERANCE of index_add_."""
+    import numpy as np
+    import torch
+
+    from subgraph_sketching_tpu_torch.ops import segscan
+    from subgraph_sketching_tpu_torch.ops.graph_ops import degrees_from_edges
+
+    n = g.num_nodes
+    ei = torch.from_numpy(g.edge_index.astype(np.int64)).to("cuda")
+    w = torch.from_numpy(np.random.default_rng(seed).random(
+        ei.shape[1]).astype(np.float32) * 3).to("cuda")
+    _reset_k1()
+    first = degrees_from_edges(ei, w, n)
+    second = degrees_from_edges(ei, w, n)
+    torch.cuda.synchronize()
+    adds = segscan.launches["segscan_add_f32"]
+    want = torch.zeros(n, device="cuda").index_add_(0, ei[1], w)
+    scale = torch.zeros(n, device="cuda").index_add_(0, ei[1], w.abs())
+    err = (first - want).abs()
+    if adds != 2 or not torch.equal(first, second) \
+            or bool((err > 1e-4 * scale + 1e-6).any()):
+        raise AssertionError(f"dp: gcn_norm degrees: {adds} K1 adds, equal "
+                             f"across calls {torch.equal(first, second)}, "
+                             f"max |err| vs index_add_ {float(err.max())}")
+    return {"phase": "dp", "part": "gcn_norm_degrees", "nodes": n,
+            "edges": int(ei.shape[1]), "k1_add_launches": adds,
+            "bit_equal_across_two_calls": True,
+            "max_abs_err_vs_index_add": float(err.max()),
+            "tolerance": ADD_TOLERANCE}
+
+
+def phase_dp(splits, train: dict, elph: dict) -> tuple:
+    """Data parallelism (parallel/, the trainers' data axis) on the card.
+    (a) world size 1 on NCCL at full width: BUDDY at Config defaults on
+    synth-ws-200000 through runners.run with --mesh_shape 1 (2 epochs,
+    --check_determinism) held against the train phase's run without a
+    mesh, and ELPH at Config defaults with --mesh_shape 1 (one epoch of
+    DP_ELPH_SAMPLES links) held against the train_elph run's first epoch;
+    each profiled (step ms on the mesh and unsharded, idle share,
+    collectives a step, K1 adds a step); K1 on one meshed ELPH step's
+    real inputs.  (b) two gloo ranks on cuda:0 (``_gloo_two_ranks``).
+    (c) ``parallel.dryrun.dryrun_multichip(1)`` on NCCL.  Then gcn_norm's
+    degrees on the card (``_degrees_twice``).  Returns (the K1 records,
+    the phase's records)."""
+    import dataclasses
+
+    from subgraph_sketching_tpu_torch.config import Config
+    from subgraph_sketching_tpu_torch.ops.cuda_build import BUILD_DIR
+    from subgraph_sketching_tpu_torch.parallel import multihost
+    from subgraph_sketching_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    work = tempfile.mkdtemp(prefix="smoke_dp_")
+    records = []
+    t0 = time.perf_counter()
+    try:
+        multihost.initialize("file://" + os.path.join(work, "store"),
+                             num_processes=1, process_id=0, backend="nccl",
+                             device="cuda:0")
+        buddy_cfg = Config(dataset_name="synth-ws-200000", epochs=2,
+                           eval_steps=1, check_determinism=True,
+                           mesh_shape=[1], mesh_axes=["data"],
+                           checkpoint_dir=os.path.join(work, "buddy"))
+        _, buddy = _world1(buddy_cfg, {k: train[k] for k in (
+            "run_s", "epochs")}, [e["loss"] for e in train["epochs"]])
+        records.append(buddy)
+        elph_cfg = dataclasses.replace(
+            buddy_cfg, model="ELPH", epochs=1, check_determinism=False,
+            train_samples=DP_ELPH_SAMPLES,
+            checkpoint_dir=os.path.join(work, "elph"))
+        trainer, elph_dp = _world1(elph_cfg, {"epochs": elph["epochs"][:1]},
+                                   [elph["epochs"][0]["loss"]])
+        k1 = _dp_step_k1(trainer, seed=32)
+        for r in k1:
+            r["launches"] = elph_dp["k1_launches"]["segscan_add_f32"]
+        del trainer
+        records.append(elph_dp)
+        records.append(_gloo_two_ranks(work))
+        t1 = time.perf_counter()
+        dry = dryrun_multichip(1, device="cuda")
+        records.append({"phase": "dp", "part": "dryrun_multichip",
+                        "ranks": 1, "backend": "nccl", **dry,
+                        "s": time.perf_counter() - t1})
+        records.append(_degrees_twice(splits["train"].graph, seed=33))
+    finally:
+        multihost.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+    records.append({"phase": "dp", "part": "summary",
+                    "phase_s": time.perf_counter() - t0})
+    return k1, records
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3613,6 +4088,9 @@ def main() -> int:
         for r in k1_kge:
             emit(r)
         del splits_memo
+        k1_dp, dp = phase_dp(splits, train, elph)
+        for r in dp + k1_dp:
+            emit(r)
     finally:
         shutil.rmtree(collab_root, ignore_errors=True)
         shutil.rmtree(ddi_root, ignore_errors=True)
@@ -3642,6 +4120,7 @@ def main() -> int:
                        hub_library_ms=h["library_ms"])
         return rec
 
+    dp_elph = next(r for r in dp if r.get("part") == "world1_elph")
     # K1 in the four KGE runs: the add alone (the rows' backward)
     kge_launches = {name: 0 for name, *_ in INSTANCES}
     kge_launches["segscan_add_f32"] = sum(r["k1_add_launches"]
@@ -3715,7 +4194,18 @@ def main() -> int:
          "graph_ms": r["graph_ms"],
          "launches_of": "this gather_rows backward's K1 adds in its run "
                         "(SEALDGCNN; KGE: that model's)"}
-        for r in k1_seal + k1_kge if "backward" in r["name"]]})
+        for r in k1_seal + k1_kge if "backward" in r["name"]] + [
+        {"name": r["name"], "route": "cuda", "source": f"{CSRC}/segscan.cu",
+         "replaces": REPLACES["segscan"], "launches": r["launches"],
+         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+         "graph_ms": r["graph_ms"],
+         "launches_of": "segscan_add_f32 in the dp phase's ELPH run at world "
+                        "size 1 on NCCL, all three ELPH add uses together",
+         "launches_per_step_counted_in_trace": dp_elph["profile"][
+             "k1_add_launches_per_step"]}
+        for r in k1_dp]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -3,6 +3,14 @@ embedding diffusion and the GCN convolution.
 
 BatchNorm: flax momentum 0.9 (the JAX package's ``BN_MOMENTUM``) is torch
 momentum 0.1; eps 1e-5 in both.
+
+Data parallelism (``parallel/mesh.py``): :func:`shard_batch_axis` gives
+the BatchNorms and Dropouts that see the link batch the run's mesh.  Each
+rank then holds one block of the batch, and they compute what one device
+computes over the whole batch: a BatchNorm's statistics are summed over
+the ranks, a Dropout draws the whole batch's mask and keeps its block.
+Those over a node table, which every rank holds whole (``SIGNEmbedding``'s,
+ELPH's GNN's dropout), are left as they are.
 """
 
 from __future__ import annotations
@@ -14,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from subgraph_sketching_tpu_torch.ops.graph_ops import gcn_norm, spmm
+from subgraph_sketching_tpu_torch.parallel.collectives import sum_across_ranks
 
 BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
@@ -36,14 +45,30 @@ class BatchNorm(nn.BatchNorm1d):
     normalised by them.  Against a two-pass variance this costs float32
     cancellation of order eps·E[x²] where the mean is large beside the
     spread.  Eval mode ignores the mask, as flax does.
+
+    With a ``mesh`` (:func:`shard_batch_axis`) ``x`` is this rank's block
+    of the batch, and training mode takes the mean and the biased variance
+    over the global batch (:meth:`_across_ranks`).  ``nn.SyncBatchNorm``
+    is not used: it updates ``running_var`` from the unbiased variance.
     """
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        # the data-parallel mesh whose ranks each hold a block of the
+        # batch (None: the batch is whole here)
+        self.mesh = None
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         if mask is not None:
+            if self.mesh is not None:
+                raise NotImplementedError("a masked BatchNorm over a "
+                                          "batch split across ranks")
             return self._masked(x, mask.reshape(-1, 1))
+        if self.mesh is not None:
+            return self._across_ranks(x)
         out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                            self.eps)
         with torch.no_grad():
@@ -62,12 +87,30 @@ class BatchNorm(nn.BatchNorm1d):
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         out = (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
             + self.bias
-        with torch.no_grad():
-            mo = self.momentum
-            self.running_mean.mul_(1 - mo).add_(mean.detach(), alpha=mo)
-            self.running_var.mul_(1 - mo).add_(var.detach(), alpha=mo)
-            self.num_batches_tracked.add_(1)
+        self._track(mean, var)
         return out
+
+    def _across_ranks(self, x: torch.Tensor) -> torch.Tensor:
+        """Training mode over a batch whose [B/W, C] blocks lie on the W
+        ranks: the mean, then the biased variance as the mean of the
+        centred squares (two passes, as ``F.batch_norm``), each sum taken
+        on the rank and summed over the ranks by a differentiable
+        all-reduce whose backward sums the gradient over the ranks."""
+        n = x.shape[0] * self.mesh.world_size
+        mean = sum_across_ranks(x.sum(0)) / n
+        xc = x - mean
+        var = sum_across_ranks((xc * xc).sum(0)) / n
+        out = xc * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        self._track(mean, var)
+        return out
+
+    @torch.no_grad()
+    def _track(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """flax's running statistics, from the biased variance."""
+        mo = self.momentum
+        self.running_mean.mul_(1 - mo).add_(mean.detach(), alpha=mo)
+        self.running_var.mul_(1 - mo).add_(var.detach(), alpha=mo)
+        self.num_batches_tracked.add_(1)
 
 
 def batch_norm(num_features: int) -> BatchNorm:
@@ -78,18 +121,43 @@ class Dropout(nn.Module):
     """Dropout whose mask comes from the ``generator`` given to forward (a
     ``torch.Generator`` on the input's device), so a training epoch is a
     function of its seed, as the JAX package's is of its key.  Kept units
-    are scaled by 1/(1-p), as in flax."""
+    are scaled by 1/(1-p), as in flax.
+
+    With a ``mesh`` (:func:`shard_batch_axis`) ``x`` is this rank's block
+    of the batch: the mask is drawn for the whole batch, as one device
+    draws it, and the rank keeps its block, so every rank's generator
+    stays in step and the masks are the single-device ones."""
 
     def __init__(self, p: float):
         super().__init__()
+        # the data-parallel mesh whose ranks each hold a block of the
+        # batch (None: the batch is whole here)
+        self.mesh = None
         self.p = p
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if not self.training or self.p == 0:
             return x
-        keep = torch.empty_like(x).bernoulli_(1 - self.p, generator=generator)
+        if self.mesh is None:
+            keep = torch.empty_like(x)
+        else:
+            keep = x.new_empty((x.shape[0] * self.mesh.world_size,
+                                *x.shape[1:]))
+        keep.bernoulli_(1 - self.p, generator=generator)
+        if self.mesh is not None:
+            keep = self.mesh.shard(keep)
         return torch.where(keep.bool(), x / (1 - self.p), torch.zeros_like(x))
+
+
+def shard_batch_axis(module: nn.Module, mesh) -> None:
+    """Give every BatchNorm and Dropout under ``module`` the data-parallel
+    ``mesh``: ``module`` sees one rank's block of the batch (a BUDDY, an
+    ELPH ``LinkPredictor``).  Never a module over a replicated node table
+    (``SIGNEmbedding``, ELPH's GNN)."""
+    for m in module.modules():
+        if isinstance(m, (BatchNorm, Dropout)):
+            m.mesh = mesh
 
 
 class SIGN(nn.Module):

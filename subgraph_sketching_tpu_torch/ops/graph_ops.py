@@ -27,14 +27,19 @@ def degrees_from_edges(edge_index: torch.Tensor,
     """Weighted in-degree: deg[v] = sum of w over edges (u, v).
 
     Matches the reference's ``A.sum(axis=0)`` with A[src, dst] = w
-    (src/datasets/elph.py:74).
+    (src/datasets/elph.py:74).  Each node's weights are summed in edge
+    order by K1's add (``segment_order``, ``ordered_segment_add``), so
+    the degrees of non-integer weights, and the gcn_norm weights made
+    from them, are the same bits in every process (every rank of a
+    data-parallel run computes them), where ``index_add_``'s atomics on
+    the card are not.
     """
     if edge_weight is None:
         edge_weight = torch.ones(edge_index.shape[1], dtype=torch.float32,
                                  device=edge_index.device)
-    deg = torch.zeros(num_nodes, dtype=torch.float32, device=edge_index.device)
-    return deg.index_add_(0, edge_index[1].long(),
-                          edge_weight.to(torch.float32))
+    perm, ptr = segment_order(edge_index[1].long(), num_nodes)
+    w = edge_weight.to(torch.float32)[perm, None]
+    return ordered_segment_add(w, ptr, num_nodes)[:, 0]
 
 
 def add_self_loops(edge_index: torch.Tensor,

@@ -24,8 +24,26 @@ from their raw files under ``--data_root`` (default ``SKETCH_DATA_ROOT``
 or ``dataset/`` in the checkout).  On ogbl-citation2 the train metric is
 taken on a small ``train_eval`` subset with its same-source negatives.
 
-Not ported yet (queued, each raises NotImplementedError): ``--mesh_shape``,
-``--heartbeat_dir``, ``--profile_dir`` and ``--compilation_cache_dir``.
+Data parallelism (BUDDY and ELPH, ``train/loops.py``): one process per
+rank, launched by torchrun, whose environment ``main`` joins (NCCL on
+CUDA, gloo on the CPU and where the local ranks outnumber the cards, as
+two ranks on one card do, which NCCL refuses):
+
+    torchrun --nproc_per_node 2 -m subgraph_sketching_tpu_torch.runners.run \
+        --dataset_name synth-ba --model BUDDY --mesh_shape 2 --mesh_axes data
+
+Each rank runs on ``cuda:LOCAL_RANK`` unless ``--device`` names a
+device.  ``--heartbeat_dir`` (a directory every rank shares) starts the
+heartbeat failure detector (``parallel/fault.py``): every epoch begins at
+an out-of-band barrier, so a dead peer raises a named ``PeerFailure``
+instead of hanging the survivors in the next collective, and ``--resume``
+first agrees with every rank on the newest checkpoint they all see.  The
+graph and lane axes and ``--memory_sharded`` (ROADMAP item 9b) raise
+NotImplementedError, and so do SEAL and KGE on a mesh or under a
+process group of several ranks: their trainers have no data axis.
+
+Not ported yet (queued, each raises NotImplementedError):
+``--profile_dir`` and ``--compilation_cache_dir``.
 """
 
 from __future__ import annotations
@@ -33,6 +51,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import random
 import time
 from math import inf
@@ -40,7 +59,9 @@ from math import inf
 import numpy as np
 
 from subgraph_sketching_tpu_torch.config import Config
-from subgraph_sketching_tpu_torch.device import resolve_device
+from subgraph_sketching_tpu_torch.device import (
+    device_from_flags, resolve_device,
+)
 from subgraph_sketching_tpu_torch.graph.datasets import get_data
 from subgraph_sketching_tpu_torch.graph.preprocess import (
     build_all_splits, make_train_eval_dataset,
@@ -48,9 +69,11 @@ from subgraph_sketching_tpu_torch.graph.preprocess import (
 from subgraph_sketching_tpu_torch.metrics_logging import (
     MetricsLogger, apply_sweep_overrides,
 )
+from subgraph_sketching_tpu_torch.parallel import fault, multihost
+from subgraph_sketching_tpu_torch.parallel.mesh import refuse_unported_axes
 from subgraph_sketching_tpu_torch.train import checkpoint
 from subgraph_sketching_tpu_torch.train.determinism import (
-    check_epoch_determinism,
+    assert_ranks_agree, check_epoch_determinism,
 )
 from subgraph_sketching_tpu_torch.train.inference import test
 from subgraph_sketching_tpu_torch.train.kge_loop import KGE_MODELS, KgeTrainer
@@ -78,10 +101,18 @@ def _refuse_unported(cfg: Config) -> None:
         raise NotImplementedError(
             f"model {cfg.model} is not wired into the runner (available: "
             f"{', '.join((*TRAINERS, *SEAL_MODELS, *KGE_MODELS))})")
-    for flag in ("mesh_shape", "heartbeat_dir", "profile_dir",
-                 "compilation_cache_dir"):
+    for flag in ("profile_dir", "compilation_cache_dir"):
         if getattr(cfg, flag):
             raise NotImplementedError(f"--{flag} is not ported yet")
+    if cfg.mesh_shape:   # (Config gives --memory_sharded a graph axis)
+        refuse_unported_axes(cfg.mesh_axes)
+    if cfg.model in (*SEAL_MODELS, *KGE_MODELS) and (
+            cfg.mesh_shape or multihost.world_size() > 1):
+        raise NotImplementedError(
+            f"{cfg.model} on a mesh or over {multihost.world_size()} "
+            f"ranks: the SEAL and KGE trainers have no data axis (the JAX "
+            f"package's train/seal_loop.py and train/kge_loop.py never read "
+            f"the mesh), and W independent copies are not one run")
 
 
 def build_trainer(cfg: Config, datasets, num_features, device):
@@ -101,18 +132,46 @@ def build_trainer(cfg: Config, datasets, num_features, device):
     return trainer
 
 
-def run(cfg: Config, device="cuda"):
+def _heartbeat(cfg: Config):
+    """The failure detector of a multi-process run with
+    ``--heartbeat_dir`` (None otherwise): a peer silent for
+    ``heartbeat_timeout`` seconds is dead; each rank beats 20 times a
+    timeout, at most every 2 s."""
+    return fault.maybe_start(cfg.heartbeat_dir,
+                             interval=min(2.0, cfg.heartbeat_timeout / 20),
+                             timeout=cfg.heartbeat_timeout)
+
+
+def run(cfg: Config, device=None):
     """Rep loop with best-val model selection (reference run.py:50-110).
 
-    Besides the JAX runner's per-rep logger keys, each eval row carries
-    ``rep<r>_get_data_time`` (loading and splitting the dataset),
-    ``rep<r>_preprocess_time``, ``rep<r>_train_time`` (the epoch's training
-    alone) and ``rep<r>_eval_time``, in seconds."""
-    dev = resolve_device(device)
+    ``device`` None: ``cfg.platform``'s device, else CUDA
+    (``cuda:LOCAL_RANK`` under torchrun).  Besides the JAX runner's
+    per-rep logger keys, each eval row carries ``rep<r>_get_data_time``
+    (loading and splitting the dataset), ``rep<r>_preprocess_time``,
+    ``rep<r>_train_time`` (the epoch's training alone) and
+    ``rep<r>_eval_time``, in seconds.  In a process group of several
+    ranks every rank runs this loop (evaluation is replicated), rank 0
+    writes the checkpoints and the run's metadata, and after every epoch
+    the ranks must hold the same state bits."""
+    dev = resolve_device(device_from_flags(device, cfg.platform))
     _refuse_unported(cfg)
-    print(f"executing on {dev}")
+    print(f"executing on {dev} (rank {multihost.rank()} of "
+          f"{multihost.world_size()})")
+    detector = _heartbeat(cfg)
+    try:
+        return _run(cfg, dev, detector)
+    finally:
+        if detector is not None:
+            detector.stop()
+
+
+def _run(cfg: Config, dev, detector):
+    # one metrics sink a run: rank 0's (every rank computes the same rows)
+    lead = multihost.rank() == 0
     logger = MetricsLogger(
-        run_dir=cfg.checkpoint_dir, use_wandb=cfg.wandb,
+        run_dir=cfg.checkpoint_dir if lead else None,
+        use_wandb=cfg.wandb and lead,
         config=None if cfg.checkpoint_dir is None else
         json.loads(cfg.to_json()),
         wandb_kwargs=dict(
@@ -150,6 +209,14 @@ def run(cfg: Config, device="cuda"):
             # is epoch_seed(rep, epoch), so the resumed run's remaining
             # epochs are bit-identical to an uninterrupted run's
             step = checkpoint.latest_step(cfg.checkpoint_dir)
+            if detector is not None:
+                # ranks may see different directory states (lag, a copy
+                # that was not shared): agree on the newest step every
+                # rank sees, or none, so that the barrier tags of every
+                # rank's epochs stay the same
+                step = detector.agree_min(
+                    "resume_step", -1 if step is None else step)
+                step = None if step < 0 else step
             if step is not None:
                 step = checkpoint.restore_into(cfg.checkpoint_dir, model,
                                                optimizer, step=step)
@@ -175,10 +242,18 @@ def run(cfg: Config, device="cuda"):
             best_epoch = resumed_meta.get("best_epoch", 0)
         print(f"running repetition {rep}")
         for epoch in range(start_epoch, cfg.epochs):
+            if detector is not None:
+                # out of band, before the epoch's first collective: a peer
+                # that died since the last check raises PeerFailure here
+                # instead of hanging this rank inside the fabric
+                detector.barrier(f"rep{rep}_ep{epoch}")
             t0 = time.time()
             loss = trainer.train_epoch(model, optimizer,
                                        epoch_seed(rep, epoch))
             train_time = time.time() - t0
+            if detector is not None:
+                detector.check()
+            assert_ranks_agree(model, optimizer)
             if (epoch + 1) % cfg.eval_steps == 0:
                 t1 = time.time()
                 results = test(trainer, model, cfg, eval_metric,
@@ -217,10 +292,12 @@ def run(cfg: Config, device="cuda"):
                 # best-val tracking including it
                 checkpoint.save_checkpoint(cfg.checkpoint_dir, model,
                                            optimizer, step=epoch + 1)
-                checkpoint.save_run_meta(cfg.checkpoint_dir, epoch + 1, {
-                    "val_res": float(val_res), "test_res": float(test_res),
-                    "train_res": float(train_res),
-                    "best_epoch": int(best_epoch)})
+                if multihost.rank() == 0:
+                    checkpoint.save_run_meta(cfg.checkpoint_dir, epoch + 1, {
+                        "val_res": float(val_res),
+                        "test_res": float(test_res),
+                        "train_res": float(train_res),
+                        "best_epoch": int(best_epoch)})
         if start_epoch >= cfg.epochs and cfg.epochs > 0:
             # resumed from a checkpoint at/past cfg.epochs (e.g. one written
             # by --save_model after a completed run): the loop body never
@@ -292,8 +369,10 @@ def make_parser() -> argparse.ArgumentParser:
             parser.add_argument(name, type=int, default=None)
         else:
             parser.add_argument(name, type=str, default=default)
-    parser.add_argument("--device", default="cuda",
-                        help="torch device to run on (default: cuda)")
+    parser.add_argument("--device", default=None,
+                        help="torch device to run on (default: "
+                             "--platform's device, else cuda; "
+                             "cuda:LOCAL_RANK under torchrun)")
     return parser
 
 
@@ -310,10 +389,24 @@ def config_from_parsed(args) -> Config:
 
 
 def main(argv=None):
+    """The CLI.  Under torchrun (``WORLD_SIZE`` in the environment), or
+    with ``--mesh_shape``, it first joins the process group (staying
+    single-process, loudly, where there is none) and leaves it at the
+    end; a group its caller joined is left as it is."""
     args = make_parser().parse_args(argv)
     cfg = apply_sweep_overrides(config_from_parsed(args))
     print(cfg)
-    return run(cfg, device=args.device)
+    device = device_from_flags(args.device, cfg.platform)
+    joined = False
+    if (cfg.mesh_shape or "WORLD_SIZE" in os.environ) \
+            and not multihost.initialized():
+        multihost.initialize(device=device)
+        joined = multihost.initialized()
+    try:
+        return run(cfg, device=device)
+    finally:
+        if joined:
+            multihost.shutdown()
 
 
 if __name__ == "__main__":

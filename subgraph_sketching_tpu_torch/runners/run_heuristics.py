@@ -10,7 +10,9 @@ for the test split, then evaluated with Hits@K or MRR, and AUC, on the
 chosen device.  ``--device`` (default cuda; bare ``--device`` means cuda,
 as the JAX package's flag means the accelerator) scores CN/AA/RA by
 ``DeviceHeuristics`` on that device; ``--device cpu`` runs the host
-functions, the plain versions.  PPR runs on the host either way, as in the
+functions, the plain versions.  The JAX package's ``--platform`` (cpu or
+gpu) picks the device when ``--device`` is not given and must agree with
+it when it is.  PPR runs on the host either way, as in the
 JAX package: one power iteration per unique source.
 """
 
@@ -23,7 +25,9 @@ import numpy as np
 import torch
 
 from subgraph_sketching_tpu_torch.config import Config
-from subgraph_sketching_tpu_torch.device import resolve_device
+from subgraph_sketching_tpu_torch.device import (
+    device_from_flags, resolve_device,
+)
 from subgraph_sketching_tpu_torch.graph.datasets import get_data
 from subgraph_sketching_tpu_torch.heuristics import (
     DeviceHeuristics, adamic_adar, common_neighbours, personalized_pagerank,
@@ -41,9 +45,10 @@ HEURISTICS = {
 }
 
 
-def run(cfg: Config, heuristics=("RA", "CN", "AA", "PPR"), device="cuda",
+def run(cfg: Config, heuristics=("RA", "CN", "AA", "PPR"), device=None,
         logger=None):
-    dev = resolve_device(device)
+    """``device`` None: ``cfg.platform``'s, else cuda."""
+    dev = resolve_device(device_from_flags(device, cfg.platform))
     # dataset-specific K (reference run_heuristics.py:27-31)
     k = 100
     if cfg.dataset_name == "ogbl-collab":
@@ -140,15 +145,16 @@ def make_parser() -> argparse.ArgumentParser:
     parser.add_argument("--dataset_name", type=str, default="Cora")
     parser.add_argument("--reps", type=int, default=1)
     parser.add_argument("--heuristics", type=str, default="RA,CN,AA,PPR")
-    parser.add_argument("--device", nargs="?", const="cuda", default="cuda",
+    parser.add_argument("--device", nargs="?", const="cuda", default=None,
                         help="torch device that scores CN/AA/RA (bucketed "
                              "neighbour intersection) and runs the metric "
                              "math; bare --device means cuda, --device cpu "
-                             "runs the host functions (default: cuda)")
+                             "runs the host functions (default: "
+                             "--platform's device, else cuda)")
     parser.add_argument("--platform", type=str, default=None,
-                        help="accepted for command-line compatibility with "
-                             "the JAX package's CLI; --device picks the "
-                             "device")
+                        help="the JAX package's flag: cpu or gpu picks the "
+                             "device when --device is not given; a value "
+                             "that conflicts with --device raises")
     parser.add_argument("--data_root", type=str, default=None,
                         help="root of the raw dataset trees")
     # reference CLI compatibility (run_heuristics.py:116-120): wandb flags

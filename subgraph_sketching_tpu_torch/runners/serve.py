@@ -8,7 +8,9 @@ run (``runners/run.py --checkpoint_dir D --save_model``; BUDDY or ELPH),
 or ``config.json`` + ``buddy.pt`` (serving.save_buddy_checkpoint).
 ``--links`` accepts a .npy ([N, 2] int) or a whitespace text file with two
 integer columns.  Scores are logits; pass them through a sigmoid for
-probabilities.  Runs on CUDA unless ``--device cpu`` is given.
+probabilities.  Runs on CUDA unless ``--device cpu`` (or the JAX
+package's ``--platform cpu``) is given; a ``--platform`` that conflicts
+with ``--device`` raises.
 """
 
 from __future__ import annotations
@@ -50,22 +52,28 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--min_bucket", type=int, default=1024)
     p.add_argument("--max_bucket", type=int, default=1 << 18)
     p.add_argument("--platform", default=None,
-                   help="accepted for command-line compatibility with the "
-                        "JAX package's CLI; --device picks the device")
-    p.add_argument("--device", default="cuda",
-                   help="torch device to serve on (default: cuda)")
+                   help="the JAX package's flag: cpu or gpu picks the "
+                        "device when --device is not given; a value that "
+                        "conflicts with --device raises")
+    p.add_argument("--device", default=None,
+                   help="torch device to serve on (default: --platform's "
+                        "device, else cuda)")
     return p
 
 
 def main(argv=None):
     args = make_parser().parse_args(argv)
+    from subgraph_sketching_tpu_torch.device import (
+        device_from_flags, resolve_device,
+    )
     from subgraph_sketching_tpu_torch.serving import scorer_from_checkpoint
 
+    device = resolve_device(device_from_flags(args.device, args.platform))
     links = load_links(args.links)
     t0 = time.time()
     scorer = scorer_from_checkpoint(
         args.checkpoint_dir, split=args.split, min_bucket=args.min_bucket,
-        max_bucket=args.max_bucket, device=args.device)
+        max_bucket=args.max_bucket, device=device)
     print(f"rebuilt serving state on {scorer.device} in "
           f"{time.time() - t0:.2f}s")
     if links.min() < 0 or links.max() >= scorer.num_nodes:

@@ -8,6 +8,11 @@ mid-save never leaves a partial ``step_<N>.pt``.  The sidecar
 package's train/checkpoint.py.  A trainable node-embedding table is a
 parameter and is saved with the rest; a pretrained (frozen) one is not
 in the state_dict, and the model re-reads it from the config's path.
+
+In a process group of several ranks (data parallelism: every rank holds
+the same state) rank 0 writes and every rank then waits at a barrier, so
+that no rank reads the directory before the file is in place;
+``save_run_meta`` is rank 0's alone (the runner calls it there).
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ from typing import Optional
 
 import torch
 
+from subgraph_sketching_tpu_torch.parallel import multihost
+
 _STEP_FILE = re.compile(r"step_(\d+)\.pt")
 
 
@@ -28,12 +35,15 @@ def _path(directory: str, step: int) -> str:
 
 def save_checkpoint(directory: str, model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer, step: int = 0) -> str:
-    os.makedirs(directory, exist_ok=True)
+    """Write ``step_<step>.pt`` (rank 0; the other ranks wait for it)."""
     path = _path(directory, step)
-    tmp = path + ".tmp"
-    torch.save({"model": model.state_dict(),
-                "optimizer": optimizer.state_dict(), "step": step}, tmp)
-    os.replace(tmp, path)
+    if multihost.rank() == 0:
+        os.makedirs(directory, exist_ok=True)
+        tmp = path + ".tmp"
+        torch.save({"model": model.state_dict(),
+                    "optimizer": optimizer.state_dict(), "step": step}, tmp)
+        os.replace(tmp, path)
+    multihost.barrier()
     return path
 
 

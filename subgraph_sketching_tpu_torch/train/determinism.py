@@ -9,15 +9,24 @@ backward, a library algorithm chosen per call, a racy kernel) shows as
 a difference between two runs of the same epoch from the same state.
 Enable with ``--check_determinism`` (runs once, before training
 starts).
+
+Data parallelism: every rank runs the check (its collectives are part of
+the epoch), and the two runs must also leave every rank with the same
+state bits (:func:`assert_ranks_agree`), the property that makes a
+data-parallel step one step on the global batch.
 """
 
 from __future__ import annotations
 
 import copy
+import hashlib
 import random
 from typing import Tuple
 
 import torch
+import torch.distributed as dist
+
+from subgraph_sketching_tpu_torch.parallel import multihost
 
 
 def _state_tensors(model: torch.nn.Module,
@@ -35,6 +44,29 @@ def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     """Bitwise equality (NaN-safe: compares the bytes)."""
     a, b = (t.detach().cpu().reshape(-1).view(torch.uint8) for t in (a, b))
     return torch.equal(a, b)
+
+
+def assert_ranks_agree(model: torch.nn.Module,
+                       optimizer: torch.optim.Optimizer) -> int:
+    """Raise unless every rank of the process group holds the same model
+    and optimizer state, bit for bit: each rank hashes its state tensors
+    (in ``_state_tensors``' order) and the digests are gathered.  Returns
+    the number of tensors hashed; a no-op at world size 1."""
+    if multihost.world_size() == 1:
+        return 0
+    digest = hashlib.sha256()
+    tensors = _state_tensors(model, optimizer)
+    for _, t in tensors:
+        digest.update(t.detach().cpu().reshape(-1).view(torch.uint8)
+                      .numpy().tobytes())
+    digests = [None] * multihost.world_size()
+    dist.all_gather_object(digests, digest.hexdigest())
+    if len(set(digests)) != 1:
+        raise AssertionError(
+            f"the ranks' model and optimizer states differ (sha256 by rank: "
+            f"{[d[:12] for d in digests]}): a data-parallel step left the "
+            f"replicas apart")
+    return len(tensors)
 
 
 def check_epoch_determinism(trainer, model: torch.nn.Module,
@@ -65,4 +97,5 @@ def check_epoch_determinism(trainer, model: torch.nn.Module,
             f"{len(s1)} state tensors differ bitwise ({bad[:8]}"
             f"{'...' if len(bad) > 8 else ''}). This indicates an unstable "
             f"reduction or a racy kernel — file it before trusting any run.")
+    assert_ranks_agree(m, opt)
     return len(s1), float(l1)

@@ -31,12 +31,28 @@ train graph, through a staged ``PlanSpmm`` (K1 each way) or the scatter
 ``spmm``, and looks the batch's rows up by ``gather_rows``; eval diffuses
 once by the scatter ``spmm``.
 
-Not ported yet (queued): the data-parallel mesh and the memory-sharded
-mode, ``dtype`` other than float32.
+Data parallelism (``--mesh_shape W --mesh_axes data``, JAX's ``data``
+axis): each of W ranks of the process group (``parallel/mesh.py``) holds
+every table and the GCN's graph whole and takes its contiguous block of
+each step's batch, the columns [r·B/W, (r+1)·B/W) of the global
+[steps, B] order that every rank draws from the same generator (JAX's
+``P(None, "data")``).  The link batch's BatchNorms and Dropouts work on
+the global batch (``models/gnn.py`` ``shard_batch_axis``), the loss is
+the global batch's, and the gradients are summed over the ranks before
+``optimizer.step()``: a step is the single-device step on the whole
+batch, up to the order of float sums.  ELPH's full-graph GCN, the
+sketches and the embedding diffusion run on every rank (K1 per rank);
+evaluation is replicated.  ``DistributedDataParallel`` is not used: it
+divides by W, buckets in its own order and broadcasts buffers, which
+would hide a divergence of the BatchNorm statistics.
+
+Not ported yet (queued): the graph and lane mesh axes and the
+memory-sharded mode (ROADMAP item 9b), ``dtype`` other than float32.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Dict, Optional, Tuple
 
@@ -51,10 +67,15 @@ from subgraph_sketching_tpu_torch.graph.preprocess import (
 )
 from subgraph_sketching_tpu_torch.models.buddy import BUDDY
 from subgraph_sketching_tpu_torch.models.elph import ELPHPredictor
-from subgraph_sketching_tpu_torch.models.gnn import GCNConv, SIGNEmbedding
+from subgraph_sketching_tpu_torch.models.gnn import (
+    GCNConv, SIGNEmbedding, shard_batch_axis,
+)
 from subgraph_sketching_tpu_torch.ops.graph_ops import gcn_norm
 from subgraph_sketching_tpu_torch.ops.segment_scan import (
     PlanSpmm, gather_rows, make_auto_plan,
+)
+from subgraph_sketching_tpu_torch.parallel.mesh import (
+    Mesh, flat_grads, mesh_from_config,
 )
 from subgraph_sketching_tpu_torch.sketch.elph import (
     build_hash_tables, subgraph_features_batched,
@@ -183,10 +204,13 @@ def _init_like_flax(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def _epoch_order(num_links: int, cfg: Config, g: torch.Generator,
-                 order: Optional[torch.Tensor], device) -> torch.Tensor:
+                 order: Optional[torch.Tensor], device,
+                 mesh: Optional[Mesh] = None) -> torch.Tensor:
     """[steps, batch_size] link indices of one epoch: ``order`` (an
     [n_used] index tensor) or a permutation drawn from ``g``, its tail
-    padded with -1."""
+    padded with -1.  With ``mesh`` the global order is built the same
+    way on every rank, and the rank's [steps, batch_size / W] block of
+    columns returned."""
     bs = cfg.batch_size
     if order is None:
         n_used, _ = _epoch_plan(num_links, bs, cfg.train_samples)
@@ -197,13 +221,11 @@ def _epoch_order(num_links: int, cfg: Config, g: torch.Generator,
     pad = steps * bs - len(order)
     if pad:
         order = torch.cat([order, order.new_full((pad,), -1)])
-    return order.view(steps, bs)
+    order = order.view(steps, bs)
+    return order if mesh is None else mesh.shard(order, dim=1)
 
 
 def _refuse_unported(cfg: Config) -> None:
-    if cfg.mesh_shape:
-        raise NotImplementedError("the data-parallel mesh is not ported "
-                                  "yet")
     if cfg.dtype not in (None, "float32", "f32"):
         raise NotImplementedError(f"--dtype {cfg.dtype} is not ported "
                                   f"yet (float32 only)")
@@ -328,6 +350,32 @@ class _Trainer:
     cfg: Config
     _data: Dict[str, Dict[str, torch.Tensor]]
 
+    def _init_mesh(self) -> None:
+        """The data-parallel mesh (None without ``--mesh_shape``) and the
+        loss over its global batch."""
+        self.mesh = mesh_from_config(self.cfg, self.device)
+        if self.mesh is not None and self.cfg.batch_size \
+                % self.mesh.world_size:
+            raise ValueError(f"batch_size {self.cfg.batch_size} does not "
+                             f"split over {self.mesh.world_size} ranks")
+        self.loss_fn = get_loss(self.cfg.loss)
+        if self.mesh is not None:
+            self.loss_fn = functools.partial(self.loss_fn, mesh=self.mesh)
+
+    def _update(self, model: nn.Module, optimizer: torch.optim.Optimizer,
+                loss: torch.Tensor) -> None:
+        """The backward, the gradients summed over the mesh's ranks (in
+        the model's flat gradient buffer), and the optimizer's step."""
+        if self.mesh is None:
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        else:
+            grads = flat_grads(model)
+            grads.zero_grad()
+            loss.backward()
+            grads.all_reduce()
+        optimizer.step()
+
     def _init_embedding(self, dataset: LinkDataset) -> None:
         self.use_embedding = uses_embedding(self.cfg)
         self.num_nodes = dataset.num_nodes
@@ -391,10 +439,10 @@ class BuddyTrainer(_Trainer):
         _refuse_unported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self._init_mesh()
         self.use_feature = cfg.use_feature and dataset.x is not None
         self.num_features = num_features if self.use_feature else None
         self._init_embedding(dataset)
-        self.loss_fn = get_loss(cfg.loss)
         self._data: Dict[str, Dict[str, torch.Tensor]] = {}
         self._num_pos: Dict[str, int] = {}
         self.stage("train", dataset)
@@ -464,6 +512,9 @@ class BuddyTrainer(_Trainer):
         model = build_buddy(self.cfg, self.num_features, self.num_nodes,
                             self.frozen_emb)
         _init_like_flax(model, torch.Generator().manual_seed(seed))
+        if self.mesh is not None:
+            # the BUDDY sees the link batch; a table's diffusion does not
+            shard_batch_axis(getattr(model, "buddy", model), self.mesh)
         return model.to(self.device)
 
     # -- public API ---------------------------------------------------------
@@ -476,11 +527,13 @@ class BuddyTrainer(_Trainer):
         ``order``, a [n_used] index tensor, gives it) and then every dropout
         mask, step by step.  With node embeddings each step first builds
         the (diffused) table and gathers the batch's rows by
-        ``gather_rows``, whose backward sums in a fixed order."""
+        ``gather_rows``, whose backward sums in a fixed order.  On a mesh
+        the step runs on this rank's block of each batch, and the losses
+        are the global batch's."""
         data = self._data["train"]
         g = torch.Generator(device=self.device).manual_seed(seed)
         perm = _epoch_order(self.num_links("train"), self.cfg, g, order,
-                            self.device)
+                            self.device, self.mesh)
         steps = perm.shape[0]
         model.train()
         losses = torch.empty(steps, device=self.device)
@@ -491,9 +544,7 @@ class BuddyTrainer(_Trainer):
                    if self.use_embedding else None)
             logits = self._apply(model, batch, g, emb)
             loss = self.loss_fn(logits, batch["labels"], batch["mask"])
-            optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            optimizer.step()
+            self._update(model, optimizer, loss)
             losses[step] = loss.detach()
         return losses
 
@@ -526,8 +577,8 @@ class BuddyTrainer(_Trainer):
 
 class ElphTrainer(_Trainer):
     """Owns the device-resident split data and the ELPH step (the JAX
-    package's ``ElphTrainer`` without its mesh and memory-sharded
-    branches).
+    package's ``ElphTrainer`` on the data axis, without its graph- and
+    lane-sharded branches).
 
     The full-graph GCN runs inside every step, as in the reference
     (train.py:188-204); the sketch side is built once at staging (the same
@@ -538,14 +589,14 @@ class ElphTrainer(_Trainer):
 
     def __init__(self, cfg: Config, dataset: LinkDataset,
                  num_features: Optional[int], device="cuda"):
-        _refuse_unported(cfg)   # --memory_sharded needs the mesh
+        _refuse_unported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self._init_mesh()   # refuses --memory_sharded (ROADMAP item 9b)
         self.sketch_params = sketch_params_from_config(cfg)
         self.use_feature = cfg.use_feature and dataset.x is not None
         self.num_features = num_features if self.use_feature else None
         self._init_embedding(dataset)
-        self.loss_fn = get_loss(cfg.loss)
         self._data: Dict[str, Dict[str, torch.Tensor]] = {}
         self._num_pos: Dict[str, int] = {}
         # split -> (edge_index, edge_weight, num_nodes) of its staged SpMM
@@ -649,6 +700,9 @@ class ElphTrainer(_Trainer):
             model.embedding = ElphEmbedding(**_embedding_args(
                 self.cfg, self.num_nodes, self.frozen_emb))
         _init_like_flax(model, torch.Generator().manual_seed(seed))
+        if self.mesh is not None:
+            # the head sees the link batch; the GCN and the table do not
+            shard_batch_axis(model.predictor, self.mesh)
         return model.to(self.device)
 
     def node_features(self, model: ELPHPredictor, data: dict,
@@ -674,11 +728,13 @@ class ElphTrainer(_Trainer):
         gathers its rows the same way, runs the head, the BCE loss, the
         backward through ``PlanSpmm`` and the Adam step.  The generator
         seeded with ``seed`` draws the permutation (unless ``order``
-        gives it) and every dropout mask."""
+        gives it) and every dropout mask.  On a mesh every rank runs the
+        GCN and the diffusion whole, and the head on its block of each
+        batch."""
         data = self._data["train"]
         g = torch.Generator(device=self.device).manual_seed(seed)
         perm = _epoch_order(self.num_links("train"), self.cfg, g, order,
-                            self.device)
+                            self.device, self.mesh)
         model.train()
         losses = torch.empty(perm.shape[0], device=self.device)
         for step, idx in enumerate(perm):
@@ -690,9 +746,7 @@ class ElphTrainer(_Trainer):
                    if self.use_embedding else None)
             logits = model.predictor(data["sf"][safe], nf, emb, generator=g)
             loss = self.loss_fn(logits, data["labels"][safe], idx >= 0)
-            optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            optimizer.step()
+            self._update(model, optimizer, loss)
             losses[step] = loss.detach()
         return losses
 

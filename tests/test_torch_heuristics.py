@@ -27,6 +27,7 @@ from subgraph_sketching_tpu.graph.synthetic import barabasi_albert_graph
 from subgraph_sketching_tpu.runners import run_heuristics as jrun
 from subgraph_sketching_tpu_torch import heuristics as heur
 from subgraph_sketching_tpu_torch.config import Config
+from subgraph_sketching_tpu_torch.device import device_from_flags
 from subgraph_sketching_tpu_torch.heuristics import DeviceHeuristics
 from subgraph_sketching_tpu_torch.runners import run_heuristics
 
@@ -234,7 +235,22 @@ def test_device_flag_spellings(argv, device):
     """Both the JAX package's bare ``--device`` and the port's
     ``--device <name>`` parse."""
     args = run_heuristics.make_parser().parse_args(argv)
-    assert args.device == device
+    assert device_from_flags(args.device, args.platform) == device
+
+
+def test_platform_maps_onto_the_device():
+    """--platform cpu runs the host functions without --device, as
+    --device cpu does; a --platform that conflicts with --device, or one
+    the port does not run on, raises."""
+    argv = ["--dataset_name", "synth-ba", "--heuristics", "CN"]
+    got = run_heuristics.main(argv + ["--platform", "cpu"])
+    _assert_summaries_match(got, run_heuristics.main(argv + ["--device",
+                                                             "cpu"]))
+    for bad in (["--platform", "cpu", "--device", "cuda"],
+                ["--platform", "gpu", "--device", "cpu"],
+                ["--platform", "tpu"]):
+        with pytest.raises(ValueError, match="--platform"):
+            run_heuristics.main(argv + bad)
 
 
 def test_entry_points_need_cuda_unless_told_cpu():

@@ -28,8 +28,8 @@ print(" ".join(names))
 
 # the training slice's modules, the dataset slice's (loading, LCC, RA
 # and the plan builder's build), ELPH's, the node embeddings', the
-# heuristics tier's and the SEAL and KGE tiers', which must be among
-# those imported
+# heuristics tier's, the SEAL and KGE tiers' and the multi-process
+# layer's, which must be among those imported
 REQUIRED = {"train", "train.losses", "train.evaluation", "train.inference",
             "train.loops", "train.checkpoint", "train.determinism",
             "runners.run", "metrics_logging", "utils",
@@ -39,7 +39,10 @@ REQUIRED = {"train", "train.losses", "train.evaluation", "train.inference",
             "models.convert", "serving", "runners.run_heuristics",
             "runners.serve", "labelling", "graph.native", "graph.seal",
             "models.seal", "models.transx", "train.seal_loop",
-            "train.kge_loop"}
+            "train.kge_loop", "parallel", "parallel.mesh",
+            "parallel.multihost", "parallel.fault", "parallel.train",
+            "parallel.dryrun", "parallel.collectives",
+            "parallel.breakdown", "device"}
 
 
 def test_port_imports_no_jax():

@@ -212,3 +212,33 @@ def test_segment_order_refuses_ids_out_of_range(bad):
     perm, ptr = segment_order(torch.tensor([3, 0, 3, 49]), 50)
     assert perm.tolist() == [1, 0, 2, 3]
     assert ptr[[0, 1, 3, 4, 49, 50]].tolist() == [0, 1, 1, 3, 3, 4]
+
+
+def test_gcn_norm_degrees_are_ordered_k1_sums(monkeypatch):
+    """``degrees_from_edges`` (gcn_norm's degrees) sums each node's
+    weights in edge order through K1's add (here its plain version), so
+    that every process gets the same bits: with non-integer weights it
+    equals ``index_add_`` within chip_smoke.py's ADD_TOLERANCE
+    (|err| <= 1e-4 * sum|w| + 1e-6) and itself across two calls."""
+    from subgraph_sketching_tpu_torch.ops import segscan
+    from subgraph_sketching_tpu_torch.ops.graph_ops import degrees_from_edges
+    rng = np.random.default_rng(3)
+    n, e = 500, 6000
+    ei = torch.from_numpy(rng.integers(0, n, (2, e)))
+    w = torch.from_numpy((rng.random(e) * 3 - 0.5).astype(np.float32))
+    ops = []
+    plain = segscan.segment_combine_plain
+
+    def counted(v, x, op, ptr):
+        ops.append(op)
+        return plain(v, x, op, ptr)
+
+    monkeypatch.setattr(segscan, "segment_combine_plain", counted)
+    got = degrees_from_edges(ei, w, n)
+    assert ops == ["add"]
+    want = torch.zeros(n).index_add_(0, ei[1], w)
+    scale = torch.zeros(n).index_add_(0, ei[1], w.abs())
+    assert bool(((got - want).abs() <= 1e-4 * scale + 1e-6).all())
+    assert torch.equal(got, degrees_from_edges(ei, w, n))
+    assert torch.equal(degrees_from_edges(ei, None, n),
+                       torch.bincount(ei[1], minlength=n).float())

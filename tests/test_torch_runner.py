@@ -30,6 +30,7 @@ import torch
 
 from subgraph_sketching_tpu.runners import run as jrun
 from subgraph_sketching_tpu_torch.config import Config
+from subgraph_sketching_tpu_torch.device import device_from_flags
 from subgraph_sketching_tpu_torch.graph.datasets import get_data
 from subgraph_sketching_tpu_torch.graph.preprocess import build_all_splits
 from subgraph_sketching_tpu_torch.metrics_logging import apply_sweep_overrides
@@ -61,10 +62,11 @@ EMB = ["--train_node_embedding", "--propagate_embeddings", "--use_feature",
 def test_parser_matches_jax(cmd):
     argv = shlex.split(cmd)
     args = run.make_parser().parse_args(argv)
-    assert args.device == "cuda"
+    assert args.device is None
+    assert device_from_flags(args.device, args.platform) == "cuda"
     jargs = jrun.make_parser().parse_args(argv)
-    assert {k: v for k, v in vars(args).items() if k != "device"} \
-        == vars(jargs)
+    assert {k: v for k, v in vars(args).items()
+            if k != "device"} == vars(jargs)
     assert (dataclasses.asdict(run.config_from_parsed(args))
             == dataclasses.asdict(jrun.config_from_parsed(jargs)))
 
@@ -88,12 +90,28 @@ def test_main_without_device_needs_cuda():
 
 
 @pytest.mark.parametrize("extra", [
-    ["--model", "GCN"], ["--model", "SAGE"], ["--mesh_shape", "2"],
-    ["--profile_dir", "p"], ["--heartbeat_dir", "h"],
+    ["--model", "GCN"], ["--model", "SAGE"],
+    ["--mesh_shape", "2", "--mesh_axes", "graph"],
+    ["--profile_dir", "p"], ["--model", "SEALGCN", "--mesh_shape", "1"],
     ["--compilation_cache_dir", "c"]])
 def test_unported_options_raise(extra):
     with pytest.raises(NotImplementedError):
         run.main(SMALL + extra + ["--device", "cpu"])
+
+
+def test_platform_maps_onto_the_device(capsys):
+    """--platform cpu runs on the CPU without --device; --platform gpu
+    asks for CUDA (absent here); a conflicting or unknown platform
+    raises."""
+    run.main(SMALL + ["--epochs", "0", "--platform", "cpu"])
+    assert "executing on cpu" in capsys.readouterr().out
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            run.main(SMALL + ["--platform", "gpu"])
+    for bad in (["--platform", "cpu", "--device", "cuda"],
+                ["--platform", "tpu", "--device", "cpu"]):
+        with pytest.raises(ValueError, match="--platform"):
+            run.main(SMALL + bad)
 
 
 def test_determinism_check_catches_a_nondeterministic_epoch():

@@ -202,6 +202,26 @@ def test_checkpoint_and_serve_cli_round_trip(both, scorers, tmp_path):
                                atol=1e-6)
 
 
+def test_serve_cli_maps_platform_onto_the_device(both, scorers, tmp_path):
+    """--platform cpu serves on the CPU without --device; a --platform that
+    conflicts with --device raises before anything is read."""
+    _, _, _, ds = both
+    cfg, _, scorer = scorers
+    save_buddy_checkpoint(str(tmp_path / "ckpt"), cfg, scorer.model)
+    links = _queries(ds["valid"].num_nodes, ds["valid"].links[:20])
+    np.save(tmp_path / "q.npy", links)
+    argv = ["--checkpoint_dir", str(tmp_path / "ckpt"), "--links",
+            str(tmp_path / "q.npy"), "--split", "valid"]
+    got = serve.main(argv + ["--platform", "cpu"])
+    np.testing.assert_allclose(got, scorer.score(links), rtol=1e-6,
+                               atol=1e-6)
+    for bad in (["--platform", "cpu", "--device", "cuda"],
+                ["--platform", "tpu"]):
+        with pytest.raises(ValueError, match="--platform"):
+            serve.main(["--checkpoint_dir", str(tmp_path / "none"),
+                        "--links", str(tmp_path / "none.npy")] + bad)
+
+
 def test_entry_points_refuse_missing_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -382,7 +382,7 @@ def test_optimizer_state_carries_across():
 
 @pytest.mark.parametrize("trainer", ["BuddyTrainer", "ElphTrainer"])
 @pytest.mark.parametrize("overrides", [
-    {"mesh_shape": [2]},
+    {"mesh_shape": [2], "mesh_axes": ["lane"]},
     {"memory_sharded": True, "mesh_shape": [2], "mesh_axes": ["graph"]},
     {"dtype": "bfloat16"}])
 def test_trainer_refuses_what_is_not_ported(overrides, trainer):
