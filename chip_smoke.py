@@ -198,9 +198,9 @@ Phases, each printing one JSON line:
 
   dp         data parallelism (parallel/, the trainers' data axis): (a)
              world size 1 on NCCL at full width: BUDDY at Config defaults
-             on synth-ws-200000 through runners.run with --mesh_shape 1 (2
-             epochs, --check_determinism), its epoch losses within rtol
-             1e-4 of the train phase's run without a mesh, and ELPH at
+             on synth-ws-200000 through runners.run with --mesh_shape 1 (1
+             epoch, --check_determinism), its epoch loss within rtol 1e-4
+             of the train phase's first epoch without a mesh, and ELPH at
              Config defaults with --mesh_shape 1 (one epoch of 131072
              links) against the train_elph run's first epoch; per model
              the epoch seconds, step ms, 50 / 20 steps on the mesh and
@@ -222,6 +222,30 @@ Phases, each printing one JSON line:
              train graph with non-integer weights: one K1 add a call,
              bit-equal across two calls, within the add bound of
              index_add_
+  mesh_graph the graph and lane axes (parallel/node_sharded.py,
+             dist_sketch.py, the trainers' graph branches): (a) world size
+             1 on NCCL on a [1] graph mesh at Config defaults on
+             synth-ws-200000: the locality partition at D = 1, the
+             node-sharded build bit-equal in node order to the plan
+             route's (ms per sharded hop beside the plan route's hop, K1
+             launches per hop by op, halo rows, bytes the rank holds), the
+             edge-sharded build bit-equal too; ELPH with --memory_sharded
+             through runners.run (one epoch of 128 steps) within rtol 1e-4
+             of train_elph's first epoch, 20 steps profiled (idle share,
+             K1 adds a step); BUDDY preprocessing on the graph mesh against
+             the unsharded one (rtol 1e-5, atol 1e-4); a seeded BUDDY served
+             by runners/serve.py under the graph-mesh config and without
+             it, scores equal; 100 undirected edges deleted and inserted on
+             the position-ordered state, bit-equal to node-sharded
+             rebuilds; K1 on the hop's local merges, the edge-sharded
+             build's and the edge shard's PlanSpmm each way, held and
+             timed.  (b) two gloo ranks on cuda:0 on a [2] graph mesh
+             (synth-ba, hidden 64, 2 epochs, ELPH --memory_sharded and
+             BUDDY; launched beside the dp phase's two-rank launches, an
+             untimed window, and read here): the shards bit-equal to world size 1's in node order,
+             epoch losses within rtol 1e-5 of world size 1's, the halo
+             route printed (the all-reduce route: gloo exchanges no CUDA
+             tensor), K1 on rank 0's halo merges held and timed
 
 then the per-kernel summary line (each K1, K2 and K3 entry also carries
 its ``bench_hub`` time, bound and yardstick: ``hub_ms``, ``hub_bound_ms``,
@@ -241,7 +265,8 @@ the add launches of the SEALDGCNN run but the label embedding's; and the
 four gather_rows backward instances, SEAL's label embedding and KGE's
 three, each with its own launches in its run; and the three K1 add
 instances of the dp phase's meshed ELPH step, with the add launches of
-its world-size-1 ELPH run), the
+its world-size-1 ELPH run; and the mesh_graph phase's K1 instances, each
+with the launches of the run it came from), the
 nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises: the run exits
 non-zero and prints no last line.  Without a CUDA device it exits 2 at once.
@@ -274,7 +299,14 @@ REPLACES = {"segscan": "subgraph_sketching_tpu/ops/pallas_segscan.py:103",
 REQUEST_SIZES = (1024, 8192, 65536, 262144)
 
 
+START = time.perf_counter()
+
+
 def emit(record: dict) -> None:
+    """One JSON line; a phase's record carries the script's seconds so
+    far (``elapsed_s``), the kernels line and the last line do not."""
+    if "phase" in record:
+        record = {**record, "elapsed_s": time.perf_counter() - START}
     print(json.dumps(record), flush=True)
 
 
@@ -3690,17 +3722,19 @@ def _dp_profile(trainer, steps: int, seed: int) -> dict:
             "top_kernels": mesh["top_kernels"][:8]}
 
 
-def _dp_step_k1(trainer, seed: int) -> list:
+def _dp_step_k1(trainer, seed: int, phase: str = "dp") -> list:
     """K1 on one meshed ELPH step's real inputs: the first PlanSpmm
     forward, the first PlanSpmm backward and gather_rows' backward of a
     step (K1's inputs taken as the step passes them), each held against
-    its plain version and timed by ``k1_record``."""
+    its plain version and timed by ``k1_record``.  On a graph axis the
+    PlanSpmm is the rank's edge block's (``EdgeShardSpmm.spmm``)."""
     import torch
 
     from subgraph_sketching_tpu_torch.ops import segment_scan
     from subgraph_sketching_tpu_torch.train.loops import make_optimizer
 
     plan = trainer._data["train"]["plan"]
+    plan = getattr(plan, "spmm", plan)
     which = {plan.fwd.sub_ptr.data_ptr(): "PlanSpmm forward",
              plan.bwd.sub_ptr.data_ptr(): "PlanSpmm backward"}
     stash = {}
@@ -3722,11 +3756,12 @@ def _dp_step_k1(trainer, seed: int) -> list:
         trainer.run_epoch(model, opt, seed, order=order)
     torch.cuda.synchronize()
     if len(stash) != 3:
-        raise AssertionError(f"dp: one ELPH step passed K1 {sorted(stash)}")
+        raise AssertionError(f"{phase}: one ELPH step passed K1 "
+                             f"{sorted(stash)}")
     records = []
     for what, (v, x, ptr) in stash.items():
-        name = f"segscan_add_f32 (dp ELPH step, {what}, W={v.shape[1]})"
-        records.append({"phase": "dp", "name": name,
+        name = f"segscan_add_f32 ({phase} ELPH step, {what}, W={v.shape[1]})"
+        records.append({"phase": phase, "name": name,
                         **k1_record(name, "add", v, x, ptr)})
     del stash
     return records
@@ -3772,22 +3807,24 @@ def _world1(cfg, reference: dict, losses_of_reference: list) -> tuple:
     return trainer, record
 
 
-def _two_ranks(name: str, args: list) -> list:
-    """``runners.run`` as two ranks on cuda:0, launched by
-    ``torch.distributed.run --standalone`` (which picks its rendezvous
-    port itself; gloo, the default where the local ranks outnumber the
-    cards), each rank's output to a file; returns each rank's output,
-    killing the launch if it does not finish, and raises unless both
-    ranks exit 0 as ranks 0 and 1 of one group."""
+def _two_ranks(name: str, args: list, program: list = None) -> list:
+    """``runners.run`` (or ``program``, a script and its arguments) as two
+    ranks on cuda:0, launched by ``torch.distributed.run --standalone``
+    (which picks its rendezvous port itself; gloo, the default where the
+    local ranks outnumber the cards), each rank's output to a file;
+    returns each rank's output, killing the launch if it does not finish,
+    and raises unless both ranks exit 0 as ranks 0 and 1 of one group."""
     import subprocess
     root = os.path.dirname(os.path.abspath(__file__))
     logs = tempfile.mkdtemp(prefix=f"smoke_dp_{name}_")
+    if program is None:
+        program = ["-m", "subgraph_sketching_tpu_torch.runners.run", *args,
+                   "--device", "cuda:0"]
     try:
         proc = subprocess.Popen(
             [sys.executable, "-m", "torch.distributed.run", "--standalone",
              "--nproc_per_node", "2", "--redirects", "3", "--log_dir", logs,
-             "-m", "subgraph_sketching_tpu_torch.runners.run", *args,
-             "--device", "cuda:0"],
+             *program],
             cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)
         try:
@@ -3815,6 +3852,39 @@ def _two_ranks(name: str, args: list) -> list:
         return outs
     finally:
         shutil.rmtree(logs, ignore_errors=True)
+
+
+class _Launch:
+    """A two-rank launch (``_two_ranks`` of ``program``) in a thread of its
+    own: ``start()``; ``wait()`` for its end; ``result()`` waits, raises
+    its failure and returns its seconds from start to end."""
+
+    def __init__(self, name: str, program: list):
+        self.name, self.program = name, program
+        self.thread = self.failure = self.seconds = None
+
+    def _run(self, t0: float) -> None:
+        try:
+            _two_ranks(self.name, [], program=self.program)
+        except Exception as e:   # raised by result()
+            self.failure = e
+        self.seconds = time.perf_counter() - t0
+
+    def start(self) -> None:
+        import threading
+        self.thread = threading.Thread(target=self._run,
+                                       args=(time.perf_counter(),))
+        self.thread.start()
+
+    def wait(self) -> None:
+        self.thread.join()
+
+    def result(self) -> float:
+        self.wait()
+        if self.failure is not None:
+            raise AssertionError(f"{self.name}: the two-rank launch failed: "
+                                 f"{self.failure}")
+        return self.seconds
 
 
 def _gloo_two_ranks(work: str) -> dict:
@@ -3945,19 +4015,22 @@ def _degrees_twice(g, seed: int) -> dict:
             "tolerance": ADD_TOLERANCE}
 
 
-def phase_dp(splits, train: dict, elph: dict) -> tuple:
+def phase_dp(splits, train: dict, elph: dict, alongside=None) -> tuple:
     """Data parallelism (parallel/, the trainers' data axis) on the card.
     (a) world size 1 on NCCL at full width: BUDDY at Config defaults on
-    synth-ws-200000 through runners.run with --mesh_shape 1 (2 epochs,
-    --check_determinism) held against the train phase's run without a
-    mesh, and ELPH at Config defaults with --mesh_shape 1 (one epoch of
-    DP_ELPH_SAMPLES links) held against the train_elph run's first epoch;
+    synth-ws-200000 through runners.run with --mesh_shape 1 (1 epoch,
+    --check_determinism) held against the first epoch of the train
+    phase's run without a mesh, and ELPH at Config defaults with
+    --mesh_shape 1 (one epoch of DP_ELPH_SAMPLES links) held against the
+    train_elph run's first epoch;
     each profiled (step ms on the mesh and unsharded, idle share,
     collectives a step, K1 adds a step); K1 on one meshed ELPH step's
     real inputs.  (b) two gloo ranks on cuda:0 (``_gloo_two_ranks``).
     (c) ``parallel.dryrun.dryrun_multichip(1)`` on NCCL.  Then gcn_norm's
-    degrees on the card (``_degrees_twice``).  Returns (the K1 records,
-    the phase's records)."""
+    degrees on the card (``_degrees_twice``).  ``alongside``: a
+    :class:`_Launch` started with (b) and waited for after it, so that it
+    shares (b)'s untimed window and no timed one.  Returns (the K1
+    records, the phase's records)."""
     import dataclasses
 
     from subgraph_sketching_tpu_torch.config import Config
@@ -3972,7 +4045,8 @@ def phase_dp(splits, train: dict, elph: dict) -> tuple:
         multihost.initialize("file://" + os.path.join(work, "store"),
                              num_processes=1, process_id=0, backend="nccl",
                              device="cuda:0")
-        buddy_cfg = Config(dataset_name="synth-ws-200000", epochs=2,
+        # one epoch (the train phase ran two): room for mesh_graph
+        buddy_cfg = Config(dataset_name="synth-ws-200000", epochs=1,
                            eval_steps=1, check_determinism=True,
                            mesh_shape=[1], mesh_axes=["data"],
                            checkpoint_dir=os.path.join(work, "buddy"))
@@ -3990,7 +4064,13 @@ def phase_dp(splits, train: dict, elph: dict) -> tuple:
             r["launches"] = elph_dp["k1_launches"]["segscan_add_f32"]
         del trainer
         records.append(elph_dp)
-        records.append(_gloo_two_ranks(work))
+        if alongside is not None:
+            alongside.start()
+        try:
+            records.append(_gloo_two_ranks(work))
+        finally:
+            if alongside is not None:
+                alongside.wait()
         t1 = time.perf_counter()
         dry = dryrun_multichip(1, device="cuda")
         records.append({"phase": "dp", "part": "dryrun_multichip",
@@ -4001,6 +4081,542 @@ def phase_dp(splits, train: dict, elph: dict) -> tuple:
         multihost.shutdown()
         shutil.rmtree(work, ignore_errors=True)
     records.append({"phase": "dp", "part": "summary",
+                    "phase_s": time.perf_counter() - t0})
+    return k1, records
+
+
+# ---------------------------------------------------------- mesh_graph --
+
+MG_SAMPLES = 131072     # one ELPH epoch of 128 steps of the default batch
+MG_PROFILE_STEPS = 20
+MG_STREAM_EDGES = 100   # undirected train edges deleted, then inserted
+MG_SERVE_LINKS = 65536
+# the two-rank check on one card, as the dp phase's
+MG_SMALL = ["--dataset_name", "synth-ba", "--hidden_channels", "64",
+            "--epochs", "2", "--eval_steps", "1"]
+MG_TWO_RANKS = ["--mesh_shape", "2", "--mesh_axes", "graph",
+                "--memory_sharded", "1"]
+MG_LOSS_RTOL = 1e-5     # two gloo ranks against world size 1, a epoch
+MG_ELPH_RTOL = 1e-4     # the memory-sharded ELPH epoch against train_elph's
+MG_SF_TOLERANCE = dict(rtol=1e-5, atol=1e-4)
+# what each mesh_graph K1 entry's launches count, by the use its name gives
+MG_LAUNCHES_OF = {
+    "node-sharded hop local merge": "this instance's K1 launches in the "
+    "world-size-1 node-sharded build (2 hops)",
+    "edge-sharded build": "this instance's K1 launches in the world-size-1 "
+    "edge-sharded build (2 hops)",
+    "node-sharded hop halo merge": "this instance's K1 launches in rank "
+    "0's node-sharded build at D = 2 (local and halo merges, 2 hops)",
+    "ELPH step": "segscan_add_f32 in the memory-sharded ELPH run at world "
+    "size 1, all three ELPH add uses together"}
+
+# one rank of the two-rank check (run by torch.distributed.run from the
+# checkout's root): the node-sharded build of the synth-ba train graph
+# at D = 2 (its shard, the halo route, K1's launches, K1 on the rank's
+# halo merge held and timed), then the memory-sharded ELPH run and the
+# graph-mesh BUDDY run through runners.run
+MG_RANK = r"""
+import json, os, sys
+sys.path.insert(0, os.getcwd())
+work = sys.argv[1]
+import numpy as np
+import torch
+from subgraph_sketching_tpu_torch.parallel import multihost
+multihost.initialize(device="cuda:0")
+try:
+    import chip_smoke
+    from subgraph_sketching_tpu_torch.config import Config
+    from subgraph_sketching_tpu_torch.graph.datasets import get_data
+    from subgraph_sketching_tpu_torch.ops import segscan
+    from subgraph_sketching_tpu_torch.ops.segment_scan import (
+        _reduce_slots, with_identity_row)
+    from subgraph_sketching_tpu_torch.parallel.collectives import (
+        halo_exchange, halo_route)
+    from subgraph_sketching_tpu_torch.parallel.mesh import make_mesh
+    from subgraph_sketching_tpu_torch.parallel.node_sharded import (
+        ShardedHop, make_node_partition, node_sharded_build_hash_tables)
+    from subgraph_sketching_tpu_torch.runners import run
+    from subgraph_sketching_tpu_torch.sketch.params import SketchParams
+
+    rank = multihost.rank()
+    g = get_data(Config(dataset_name="synth-ba"))[0]["train"].graph
+    params = SketchParams()
+    mesh = make_mesh([2], ["graph"], "cuda:0")
+    group = mesh.group("graph")
+    plan = make_node_partition(g.edge_index, g.num_nodes, 2)
+    hop = ShardedHop(plan, mesh.axis_index("graph"), group, "cuda:0")
+    chip_smoke._reset_k1()
+    sk = node_sharded_build_hash_tables(plan, params, mesh, hop=hop)
+    torch.cuda.synchronize()
+    launches = dict(segscan.launches)
+    np.savez(os.path.join(work, f"shard{rank}.npz"),
+             minhash=sk.minhash.cpu().numpy(), hll=sk.hll.cpu().numpy(),
+             cards=sk.cards.cpu().numpy())
+    # K1 on this rank's halo merges, on the hop-0 rows (both ranks run
+    # the exchange, a collective)
+    k1 = []
+    for op, t in (("min", sk.minhash[0]), ("max", sk.hll[0])):
+        recv = halo_exchange(hop._send(t, op), group, op).wait().reshape(
+            -1, t.shape[1])
+        acc = hop.local.reduce(t, op)
+        v = _reduce_slots(with_identity_row(recv, op), hop.halo.gather_idx,
+                          None, hop.halo.sub_len, op).contiguous()
+        name = (f"{'segscan_min_i32' if op == 'min' else 'segscan_max_i8'} "
+                f"(mesh_graph, node-sharded hop halo merge, D=2, rank "
+                f"{rank})")
+        k1.append({"name": name, "launches": launches[name.split()[0]],
+                   **chip_smoke.k1_record(name, op, v, acc,
+                                          hop.halo.sub_ptr)})
+    record = {"rank": rank, "route": halo_route(group, "cuda:0"),
+              "halo_rows_per_hop": plan.halo_rows_per_dev,
+              "halo_width": plan.halo_width,
+              "rows_per_rank": plan.shard_size,
+              "padded_nodes": plan.padded_nodes,
+              "local_edges": hop.local_edges, "halo_edges": hop.halo_edges,
+              "k1_launches_build": launches, "k1": k1,
+              "perm": plan.perm.tolist()}
+    small = json.loads(os.environ["MG_SMALL"])
+    for model in ("ELPH", "BUDDY"):
+        run.main(small + json.loads(os.environ["MG_TWO_RANKS"]) + [
+            "--model", model, "--device", "cuda:0",
+            "--checkpoint_dir", os.path.join(work, model + "_ck")])
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(record, f)
+finally:
+    multihost.shutdown()
+"""
+
+
+def _node_order(sk, perm):
+    """A node-sharded stack set at D = 1 (the whole table, position
+    order) in node order."""
+    from subgraph_sketching_tpu_torch.sketch.params import Sketches
+    return Sketches(minhash=sk.minhash[:, perm], hll=sk.hll[:, perm],
+                    cards=sk.cards[perm])
+
+
+def _mg_sharded_build(g, cfg, params) -> tuple:
+    """World size 1 on the graph axis: the locality partition at D = 1,
+    the node-sharded build (K1 counted per hop by op), bit-equal in node
+    order to the plan route's build; the sharded hop timed beside the
+    plan route's hop; the bytes the rank holds; K1 on the hop's local
+    merges and on the edge-sharded build's, held and timed.  Returns (the
+    record, the K1 records, the mesh, the stacks, the partition)."""
+    import numpy as np
+    import torch
+
+    from subgraph_sketching_tpu_torch.ops import segscan
+    from subgraph_sketching_tpu_torch.ops.segment_scan import (
+        SortedSegmentPlan, make_auto_plan,
+    )
+    from subgraph_sketching_tpu_torch.parallel.collectives import halo_route
+    from subgraph_sketching_tpu_torch.parallel.dist_sketch import (
+        edge_block, edge_sharded_build_hash_tables,
+    )
+    from subgraph_sketching_tpu_torch.parallel.mesh import make_mesh
+    from subgraph_sketching_tpu_torch.parallel.node_sharded import (
+        ShardedHop, make_node_partition, node_sharded_build_hash_tables,
+    )
+    from subgraph_sketching_tpu_torch.sketch.elph import build_hash_tables
+
+    n = g.num_nodes
+    mesh = make_mesh([1], ["graph"], "cuda")
+    t0 = time.perf_counter()
+    plan = make_node_partition(g.edge_index, n, 1)
+    partition_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hop = ShardedHop(plan, 0, mesh.group("graph"), "cuda",
+                     cfg.max_gather_slots)
+    torch.cuda.synchronize()
+    plans_s = time.perf_counter() - t0
+    if not isinstance(hop.local, SortedSegmentPlan):
+        raise AssertionError("mesh_graph: the local plan chunked")
+    node_sharded_build_hash_tables(plan, params, mesh, hop=hop)  # warm
+    torch.cuda.synchronize()
+    _reset_k1()
+    t0 = time.perf_counter()
+    sk = node_sharded_build_hash_tables(plan, params, mesh, hop=hop)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    launches = dict(segscan.launches)
+    ref_plan = make_auto_plan(g.edge_index, n, max_slots=cfg.max_gather_slots,
+                              device="cuda")
+    ref = build_hash_tables(g.edge_index, n, params, plan=ref_plan)
+    perm = torch.from_numpy(plan.perm.astype(np.int64)).to("cuda")
+    got = _node_order(sk, perm)
+    if not (torch.equal(got.minhash, ref.minhash)
+            and torch.equal(got.hll, ref.hll)
+            and torch.equal(got.cards, ref.cards)):
+        raise AssertionError("mesh_graph: the node-sharded stacks differ "
+                             "from the plan route's in node order")
+    mh0, hll0 = sk.minhash[0], sk.hll[0]
+    hop_ms = cuda_ms(lambda: hop(mh0, hll0), iters=10)
+    plan_hop_ms = cuda_ms(lambda: (ref_plan.reduce(ref.minhash[0], "min"),
+                                   ref_plan.reduce(ref.hll[0], "max")),
+                          iters=10)
+    held = sum(t.numel() * t.element_size() for t in sk)
+    k1 = []
+    for op, t, inst in (("min", mh0, "segscan_min_i32"),
+                        ("max", hll0, "segscan_max_i8")):
+        name = f"{inst} (mesh_graph, node-sharded hop local merge, D=1)"
+        v = hop.local.reduce_subruns(t, op).contiguous()
+        k1.append({"phase": "mesh_graph", "name": name,
+                   "launches": launches[inst],
+                   **k1_record(name, op, v, t, hop.local.sub_ptr)})
+    # the edge-sharded build at world size 1: its plan is the rank's edge
+    # block's (the whole graph here), merged by K1, then the MIN / MAX
+    # all-reduce over the graph axis
+    _reset_k1()
+    t0 = time.perf_counter()
+    esk = edge_sharded_build_hash_tables(
+        g.edge_index, n, params, mesh,
+        max_gather_slots=cfg.max_gather_slots)
+    torch.cuda.synchronize()
+    edge_s = time.perf_counter() - t0
+    edge_launches = dict(segscan.launches)
+    if not (torch.equal(esk.minhash, ref.minhash)
+            and torch.equal(esk.hll, ref.hll)):
+        raise AssertionError("mesh_graph: the edge-sharded stacks differ "
+                             "from the plan route's")
+    eplan = make_auto_plan(edge_block(g.edge_index, None, mesh), n,
+                           max_slots=cfg.max_gather_slots, device="cuda")
+    for op, t, inst in (("min", ref.minhash[0], "segscan_min_i32"),
+                        ("max", ref.hll[0], "segscan_max_i8")):
+        name = f"{inst} (mesh_graph, edge-sharded build, D=1)"
+        v = eplan.reduce_subruns(t, op).contiguous()
+        k1.append({"phase": "mesh_graph", "name": name,
+                   "launches": edge_launches[inst],
+                   **k1_record(name, op, v, t, eplan.sub_ptr)})
+    del ref, esk, eplan, ref_plan
+    per_hop = {k: v / params.max_hops for k, v in launches.items() if v}
+    record = {"phase": "mesh_graph", "part": "node_sharded_build",
+              "ranks": 1, "backend": "nccl", "nodes": n,
+              "edges": int(g.edge_index.shape[1]),
+              "partition": "locality (the identity at D = 1, as the JAX "
+                           "package's make_node_partition gives it)",
+              "identity_perm": plan.is_identity_perm,
+              "halo_rows_per_hop": plan.halo_rows_per_dev,
+              "halo_width": plan.halo_width,
+              "route": halo_route(mesh.group("graph"), "cuda"),
+              "rows_per_rank": plan.shard_size,
+              "bytes_held_per_rank": held,
+              "partition_s": partition_s, "plans_s": plans_s,
+              "build_s": build_s, "k1_launches_per_hop": per_hop,
+              "sharded_hop_ms": hop_ms, "plan_route_hop_ms": plan_hop_ms,
+              "edge_sharded_build_s": edge_s,
+              "edge_sharded_k1_launches": edge_launches,
+              "stacks": "bit-equal in node order to the plan route's"}
+    return record, k1, mesh, sk, plan
+
+
+def _mg_buddy_and_serving(splits, work: str, seed: int) -> list:
+    """BUDDY preprocessing on ``--mesh_shape 1 --mesh_axes graph``
+    against the unsharded preprocessing (subgraph features within
+    MG_SF_TOLERANCE); a seeded BUDDY saved under both configs and served
+    through runners/serve.py (the graph mesh's at world size 1, its
+    tables node-sharded at D = 1): scores equal; one delete and one
+    insert batch of MG_STREAM_EDGES undirected edges on the
+    position-ordered state, bit-equal in node order to node-sharded
+    rebuilds of the changed graph."""
+    import numpy as np
+    import torch
+
+    from subgraph_sketching_tpu_torch.config import Config
+    from subgraph_sketching_tpu_torch.graph.preprocess import (
+        build_link_dataset, sketch_params_from_config,
+    )
+    from subgraph_sketching_tpu_torch.parallel.mesh import make_mesh
+    from subgraph_sketching_tpu_torch.parallel.node_sharded import (
+        make_node_partition, node_sharded_build_hash_tables,
+    )
+    from subgraph_sketching_tpu_torch.runners import serve
+    from subgraph_sketching_tpu_torch.serving import (
+        LinkScorer, save_buddy_checkpoint,
+    )
+
+    cfg = Config(dataset_name="synth-ws-200000")
+    cfg_mesh = Config(dataset_name="synth-ws-200000", mesh_shape=[1],
+                      mesh_axes=["graph"])
+    records = []
+    t0 = time.perf_counter()
+    ds_mesh = build_link_dataset(splits["train"], cfg_mesh, "train",
+                                 device="cuda")
+    mesh_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = build_link_dataset(splits["train"], cfg, "train", device="cuda")
+    plain_s = time.perf_counter() - t0
+    if ds_mesh.sketch_perm is None:
+        raise AssertionError("mesh_graph: the graph-mesh preprocessing "
+                             "kept no permutation")
+    err = np.abs(ds_mesh.subgraph_features - ds.subgraph_features)
+    np.testing.assert_allclose(ds_mesh.subgraph_features,
+                               ds.subgraph_features, **MG_SF_TOLERANCE)
+    records.append({"phase": "mesh_graph", "part": "buddy_preprocessing",
+                    "links": len(ds.links), "graph_mesh_s": mesh_s,
+                    "unsharded_s": plain_s,
+                    "max_abs_err_sf": float(err.max()),
+                    "tolerance": str(MG_SF_TOLERANCE)})
+    width = ds.x.shape[-1]
+    del ds
+    model = seeded_buddy(cfg, width, seed)
+    rng = np.random.default_rng(seed)
+    n = splits["train"].graph.num_nodes
+    queries = os.path.join(work, "queries.npy")
+    np.save(queries, rng.integers(0, n, (MG_SERVE_LINKS, 2)).astype(np.int32))
+    scores, serve_s = {}, {}
+    for what, c in (("graph_mesh", cfg_mesh), ("unsharded", cfg)):
+        ck = os.path.join(work, f"buddy_{what}")
+        save_buddy_checkpoint(ck, c, model)
+        t0 = time.perf_counter()
+        scores[what] = serve.main(["--checkpoint_dir", ck, "--links",
+                                   queries, "--device", "cuda"])
+        serve_s[what] = time.perf_counter() - t0
+    err = np.abs(scores["graph_mesh"] - scores["unsharded"])
+    if not np.allclose(scores["graph_mesh"], scores["unsharded"], rtol=1e-5,
+                       atol=1e-5):
+        raise AssertionError(f"mesh_graph: served scores differ, max |err| "
+                             f"{float(err.max())}")
+    records.append({"phase": "mesh_graph", "part": "serve",
+                    "links": MG_SERVE_LINKS, "serve_s": serve_s,
+                    "max_abs_err": float(err.max()),
+                    "bit_equal": bool(np.array_equal(
+                        scores["graph_mesh"], scores["unsharded"])),
+                    "tolerance": "rtol 1e-5, atol 1e-5"})
+
+    # streaming on the position-ordered state
+    params = sketch_params_from_config(cfg)
+    g = splits["train"].graph
+    ei = g.edge_index
+    und = ei[:, ei[0] < ei[1]]
+    pick = und[:, rng.choice(und.shape[1], MG_STREAM_EDGES, replace=False)]
+    keys = lambda a: a[0].astype(np.int64) * n + a[1]   # noqa: E731
+    gone = np.isin(keys(ei), np.concatenate([keys(pick), keys(pick[::-1])]))
+    mesh = make_mesh([1], ["graph"], "cuda")
+
+    def rebuild(edges):
+        part = make_node_partition(edges, n, 1)
+        return part, node_sharded_build_hash_tables(part, params, mesh)
+
+    original = type(ds_mesh.sketches)(*(t.clone()
+                                        for t in ds_mesh.sketches))
+    scorer = LinkScorer(cfg_mesh, model, ds_mesh, device="cuda")
+    perm = scorer.sk_perm
+    stream = {}
+    for op, want_edges, want in (("delete", ei[:, ~gone], None),
+                                 ("insert", ei, original)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        getattr(scorer, f"{op}_edges")(pick.T)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if want is None:
+            part, want = rebuild(want_edges)
+            want_perm = torch.from_numpy(part.perm.astype(np.int64)).cuda()
+        else:
+            want_perm = perm
+        got, exp = _node_order(scorer.sk, perm), _node_order(want, want_perm)
+        _hold_stacks(got, exp, f"mesh_graph {op}")
+        stream[op] = {"wall_ms": wall * 1e3, **scorer.last_update_stats}
+    records.append({"phase": "mesh_graph", "part": "streaming",
+                    "undirected_edges": MG_STREAM_EDGES, "batches": stream,
+                    "stacks": "bit-equal in node order to node-sharded "
+                              "rebuilds (cards rtol 1e-6)"})
+    return records
+
+
+def _mg_elph(elph: dict, work: str, seed: int) -> tuple:
+    """ELPH with --memory_sharded 1 --mesh_shape 1 --mesh_axes graph at
+    Config defaults on synth-ws-200000 through runners.run (one epoch of
+    MG_SAMPLES links), its epoch loss within MG_ELPH_RTOL of the
+    train_elph run's first epoch; MG_PROFILE_STEPS steps under
+    torch.profiler (step ms, idle share, K1 adds a step); K1 on one
+    step's real inputs (the edge shard's PlanSpmm each way, gather_rows'
+    backward).  Returns (record, K1 records)."""
+    import math
+
+    import torch
+
+    from subgraph_sketching_tpu_torch.config import Config
+    from subgraph_sketching_tpu_torch.ops import segscan
+    from subgraph_sketching_tpu_torch.parallel import breakdown
+    from subgraph_sketching_tpu_torch.train.loops import make_optimizer
+
+    cfg = Config(dataset_name="synth-ws-200000", model="ELPH", epochs=1,
+                 eval_steps=1, train_samples=MG_SAMPLES, mesh_shape=[1],
+                 mesh_axes=["graph"], memory_sharded=True,
+                 checkpoint_dir=os.path.join(work, "elph"))
+    trainer, results, run_s, rows, launches, coll, peak = _kept_run(cfg)
+    data = trainer._data["train"]
+    if not trainer._memory_sharded or "sk_shard" not in data:
+        raise AssertionError("mesh_graph: the ELPH run staged no "
+                             "node-sharded tables")
+    loss, want = rows[0]["rep0_loss"], elph["epochs"][0]["loss"]
+    if not math.isfinite(loss) or abs(loss - want) > MG_ELPH_RTOL * abs(want):
+        raise AssertionError(f"mesh_graph: memory-sharded ELPH epoch loss "
+                             f"{loss}, train_elph's {want}")
+    steps = math.ceil(MG_SAMPLES / cfg.batch_size)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    order = torch.randperm(trainer.num_links("train"), generator=g,
+                           device="cuda")
+    model = trainer.init_model(0)
+    opt = make_optimizer(cfg, model.parameters())
+    prof = breakdown.profile_steps(trainer, model, opt, order,
+                                   MG_PROFILE_STEPS, seed,
+                                   on_window=_reset_k1)
+    adds = segscan.launches["segscan_add_f32"] / MG_PROFILE_STEPS
+    k1 = _dp_step_k1(trainer, seed, phase="mesh_graph")
+    for r in k1:
+        r["launches"] = launches["segscan_add_f32"]
+    record = {"phase": "mesh_graph", "part": "elph_memory_sharded",
+              "ranks": 1, "backend": "nccl", "mesh_shape": cfg.mesh_shape,
+              "mesh_axes": cfg.mesh_axes, "memory_sharded": True,
+              "steps": steps, "run_s": run_s,
+              "epoch_s": rows[0]["rep0_train_time"],
+              "step_ms": rows[0]["rep0_train_time"] * 1e3 / steps,
+              "loss": loss, "train_elph_loss": want,
+              "loss_tolerance": f"rtol {MG_ELPH_RTOL}",
+              "hits@100": rows[0]["rep0_tmp_testHits@100"] / 100,
+              "rows_per_rank": int(data["sk_shard"].minhash.shape[1]),
+              "k1_launches": launches, "collectives": coll,
+              "peak_memory_bytes": peak,
+              "profiled_step_ms": prof["step_ms"],
+              "device_idle_share": prof["device_idle_share"],
+              "k1_adds_per_step": adds,
+              "collectives_per_step": prof["collective_calls"],
+              "top_kernels": prof["top_kernels"][:6]}
+    del trainer
+    return record, k1
+
+
+def _mg_launch(work: str) -> _Launch:
+    """MG_RANK on two gloo ranks sharing cuda:0, written to ``work``, as
+    a :class:`_Launch` (not started)."""
+    script = os.path.join(work, "mg_rank.py")
+    with open(script, "w") as f:
+        f.write(MG_RANK)
+    os.environ["MG_SMALL"] = json.dumps(MG_SMALL)
+    os.environ["MG_TWO_RANKS"] = json.dumps(MG_TWO_RANKS)
+    return _Launch("mesh_graph", [script, work])
+
+
+def _mg_two_ranks(work: str, launch: _Launch) -> dict:
+    """MG_RANK on two gloo ranks sharing cuda:0 (the node-sharded build at
+    D = 2, the memory-sharded ELPH and graph-mesh BUDDY runs of MG_SMALL
+    on MG_TWO_RANKS; ``launch``, from ``_mg_launch``, which the dp phase
+    ran beside its own two-rank launches), and the same two runs at world
+    size 1 on the card in this process (``--mesh_shape 1 --mesh_axes
+    graph``): the shards, in node order, bit-equal to the world-size-1
+    build, and each run's epoch losses within MG_LOSS_RTOL."""
+    import numpy as np
+    import torch
+
+    from subgraph_sketching_tpu_torch.config import Config
+    from subgraph_sketching_tpu_torch.graph.datasets import get_data
+    from subgraph_sketching_tpu_torch.parallel.mesh import make_mesh
+    from subgraph_sketching_tpu_torch.parallel.node_sharded import (
+        make_node_partition, node_sharded_build_hash_tables,
+    )
+    from subgraph_sketching_tpu_torch.runners import run as runner
+    from subgraph_sketching_tpu_torch.sketch.params import SketchParams
+
+    launch_s = launch.result()
+    want = {}
+    world1 = ["--mesh_shape", "1", "--mesh_axes", "graph",
+              "--memory_sharded", "1"]
+    for model in ("ELPH", "BUDDY"):
+        one = os.path.join(work, f"{model}_one")
+        runner.run(runner.config_from_parsed(runner.make_parser().parse_args(
+            MG_SMALL + world1 + ["--model", model, "--checkpoint_dir", one])),
+            device="cuda")
+        want[model] = [r["rep0_loss"] for r in _metric_rows(one)]
+    g = get_data(Config(dataset_name="synth-ba"))[0]["train"].graph
+    params = SketchParams()
+    one = node_sharded_build_hash_tables(
+        make_node_partition(g.edge_index, g.num_nodes, 1), params,
+        make_mesh([1], ["graph"], "cuda"))
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    perm = np.asarray(ranks[0]["perm"], np.int64)
+    shards = [np.load(os.path.join(work, f"shard{r}.npz")) for r in range(2)]
+    for key in ("minhash", "hll"):
+        full = np.concatenate([s[key] for s in shards], axis=1)[:, perm]
+        if not np.array_equal(full, getattr(one, key).cpu().numpy()):
+            raise AssertionError(f"mesh_graph: the two ranks' {key} shards "
+                                 f"differ from world size 1's")
+    runs = {}
+    for model in ("ELPH", "BUDDY"):
+        got = [r["rep0_loss"] for r in _metric_rows(
+            os.path.join(work, f"{model}_ck"))]
+        if len(got) != 2 or any(abs(a - b) > MG_LOSS_RTOL * abs(b)
+                                for a, b in zip(got, want[model])):
+            raise AssertionError(f"mesh_graph: {model} on two gloo ranks, "
+                                 f"epoch losses {got}; at world size 1 "
+                                 f"{want[model]}")
+        runs[model] = {"losses": got, "losses_world1": want[model]}
+    del one
+    torch.cuda.synchronize()
+    return {"phase": "mesh_graph", "part": "gloo_two_ranks_one_card",
+            "backend": "gloo", "device": "cuda:0 for both ranks",
+            "args": " ".join(MG_SMALL + MG_TWO_RANKS),
+            "halo_route": ranks[0]["route"],
+            "halo_rows_per_hop": ranks[0]["halo_rows_per_hop"],
+            "rows_per_rank": ranks[0]["rows_per_rank"],
+            "padded_nodes": ranks[0]["padded_nodes"],
+            "edges_by_rank": [[r["local_edges"], r["halo_edges"]]
+                              for r in ranks],
+            "k1_launches_build": [r["k1_launches_build"] for r in ranks],
+            "stacks": "bit-equal in node order to world size 1's",
+            "runs": runs, "loss_tolerance": f"rtol {MG_LOSS_RTOL} a epoch",
+            "launches_s": launch_s, "k1": ranks[0]["k1"]}
+
+
+def phase_mesh_graph(splits, elph: dict, work: str,
+                     launch: _Launch) -> tuple:
+    """The graph and lane axes' layer on the card (parallel/node_sharded,
+    dist_sketch, the trainers' graph branches, serving on position-ordered
+    state).  (a) World size 1 on NCCL at full width (synth-ws-200000,
+    Config defaults): the node-sharded and edge-sharded builds
+    (``_mg_sharded_build``), BUDDY preprocessing, serving and streaming on
+    the graph mesh (``_mg_buddy_and_serving``), memory-sharded ELPH
+    (``_mg_elph``).  (b) Two gloo ranks on cuda:0 (``_mg_two_ranks``:
+    ``launch``, which ran during the dp phase, and its references).
+    ``work``: the phase's directory (the launch's too), removed here.
+    Returns (the K1 records, the phase's records)."""
+    from subgraph_sketching_tpu_torch.config import Config
+    from subgraph_sketching_tpu_torch.graph.preprocess import (
+        sketch_params_from_config,
+    )
+    from subgraph_sketching_tpu_torch.parallel import multihost
+
+    records, k1 = [], []
+    t0 = time.perf_counter()
+    try:
+        multihost.initialize("file://" + os.path.join(work, "store"),
+                             num_processes=1, process_id=0, backend="nccl",
+                             device="cuda:0")
+        cfg = Config(dataset_name="synth-ws-200000")
+        build, k1_build, _, sk, _ = _mg_sharded_build(
+            splits["train"].graph, cfg, sketch_params_from_config(cfg))
+        del sk
+        records.append(build)
+        k1 += k1_build
+        elph_record, k1_elph = _mg_elph(elph, work, seed=41)
+        records.append(elph_record)
+        k1 += k1_elph
+        records += _mg_buddy_and_serving(splits, work, seed=42)
+        two = _mg_two_ranks(work, launch)
+        k1 += [{"phase": "mesh_graph", **r} for r in two.pop("k1")]
+        records.append(two)
+        idle = [r["name"] for r in k1 if r["launches"] <= 0]
+        if idle:
+            raise AssertionError(f"mesh_graph: K1 instances never launched "
+                                 f"on the path: {idle}")
+    finally:
+        multihost.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+    records.append({"phase": "mesh_graph", "part": "summary",
                     "phase_s": time.perf_counter() - t0})
     return k1, records
 
@@ -4062,6 +4678,7 @@ def main() -> int:
     emit(phase_elph_reference())
     collab_root = tempfile.mkdtemp(prefix="smoke_collab_")
     ddi_root = tempfile.mkdtemp(prefix="smoke_ddi_")
+    mg_work = tempfile.mkdtemp(prefix="smoke_mesh_graph_")
     try:
         emit(phase_datasets_collab(collab_root))
         emit(phase_datasets_chunked(plans))
@@ -4088,12 +4705,19 @@ def main() -> int:
         for r in k1_kge:
             emit(r)
         del splits_memo
-        k1_dp, dp = phase_dp(splits, train, elph)
+        # mesh_graph's two-rank launch runs beside dp's (untimed) ones
+        mg_launch = _mg_launch(mg_work)
+        k1_dp, dp = phase_dp(splits, train, elph, alongside=mg_launch)
         for r in dp + k1_dp:
+            emit(r)
+        k1_mg, mesh_graph = phase_mesh_graph(splits, elph, mg_work,
+                                             mg_launch)
+        for r in mesh_graph + k1_mg:
             emit(r)
     finally:
         shutil.rmtree(collab_root, ignore_errors=True)
         shutil.rmtree(ddi_root, ignore_errors=True)
+        shutil.rmtree(mg_work, ignore_errors=True)
 
     # each K1, K2 and K3 instance's bench_hub record, by name
     at_hub = {r["name"]: r for r in hub_records + hub_routes if "name" in r}
@@ -4205,7 +4829,16 @@ def main() -> int:
                         "size 1 on NCCL, all three ELPH add uses together",
          "launches_per_step_counted_in_trace": dp_elph["profile"][
              "k1_add_launches_per_step"]}
-        for r in k1_dp]})
+        for r in k1_dp] + [
+        {"name": r["name"], "route": "cuda", "source": f"{CSRC}/segscan.cu",
+         "replaces": REPLACES["segscan"], "launches": r["launches"],
+         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+         "graph_ms": r["graph_ms"],
+         "launches_of": next(v for k, v in MG_LAUNCHES_OF.items()
+                             if k in r["name"])}
+        for r in k1_mg]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -16,7 +16,15 @@ An ELPH split carries the raw features, the graph, its weights and
 degrees (and RA when asked): ELPH propagates its features in the model
 and its trainer builds the sketches and subgraph features at staging.
 
-Not ported yet (queued): the node-sharded mesh build.
+Under a mesh with a ``graph`` axis (``--mesh_axes ...,graph``) the BUDDY
+sketches are built memory-sharded, as the JAX package builds them: a
+locality partition of the nodes over the graph axis, each rank's rows
+built by halo exchange with K1 ending every reduce
+(``parallel/node_sharded.py``), and the per-link subgraph features
+assembled from the ranks that own the rows.  ``LinkDataset.sketches``
+then holds this rank's shard, in partition order, and ``sketch_perm``
+the node -> row map.  A split on the train graph reuses both; the hash
+cache is written on the unsharded branch only, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -35,6 +43,10 @@ from subgraph_sketching_tpu_torch.heuristics import resource_allocation
 from subgraph_sketching_tpu_torch.ops.graph_ops import gcn_norm
 from subgraph_sketching_tpu_torch.ops.segment import segment_sum
 from subgraph_sketching_tpu_torch.ops.segment_scan import make_auto_plan
+from subgraph_sketching_tpu_torch.parallel.node_sharded import (
+    make_node_partition, node_sharded_build_hash_tables,
+    node_sharded_subgraph_features_batched,
+)
 from subgraph_sketching_tpu_torch.sketch.elph import (
     build_hash_tables, subgraph_features_batched,
 )
@@ -64,6 +76,9 @@ class LinkDataset:
     subgraph_features: Optional[np.ndarray] = None  # [N, sf_dim]
     RA: Optional[np.ndarray] = None   # [N] resource-allocation scores
     sketches: Optional[Sketches] = None  # retained for serving
+    # node id -> row position when ``sketches`` is node-sharded
+    # (locality-partitioned) state; None for node-ordered sketches
+    sketch_perm: Optional[np.ndarray] = None
 
     @property
     def num_links(self) -> int:
@@ -182,9 +197,6 @@ def build_link_dataset(split_data: SplitData, cfg: Config, split: str,
     if model not in ("BUDDY", "ELPH"):
         raise NotImplementedError(f"preprocessing for {model} is not ported "
                                   f"yet (BUDDY and ELPH only)")
-    if cfg.mesh_shape and "graph" in (cfg.mesh_axes or []):
-        raise NotImplementedError("the node-sharded (graph mesh) build is "
-                                  "not ported yet")
     dev = resolve_device(device)
     g = split_data.graph
     if cfg.dataset_name == "ogbl-collab":
@@ -230,10 +242,20 @@ def build_link_dataset(split_data: SplitData, cfg: Config, split: str,
     params = sketch_params_from_config(cfg)
     sf_cache = _cache_name(cfg, split, "subgraph_features")
     sketches = reuse_from.sketches if same_graph else None
+    sketch_perm = reuse_from.sketch_perm if same_graph else None
     batch = min(cfg.subgraph_feature_batch_size, 1 << 18)
+    mesh = graph_mesh(cfg, dev)
+
+    def features(sk, perm):
+        if mesh is not None and perm is not None:
+            return node_sharded_subgraph_features_batched(
+                links, sk, params, mesh, perm=perm,
+                batch_size=batch).cpu().numpy()
+        return subgraph_features_batched(links, sk, params,
+                                         batch_size=batch).cpu().numpy()
+
     if sketches is not None:
-        sf = subgraph_features_batched(links, sketches, params,
-                                       batch_size=batch).cpu().numpy()
+        sf = features(sketches, sketch_perm)
         if sf_cache and cfg.cache_subgraph_features:
             # the JAX package writes no file here, so its next run builds
             # the sketches again for a split that shares the train graph
@@ -250,6 +272,14 @@ def build_link_dataset(split_data: SplitData, cfg: Config, split: str,
         hash_cache = _cache_name(cfg, split, "hashes")
         if hash_cache and cfg.load_hashes and os.path.exists(hash_cache):
             sketches = load_sketches(hash_cache, dev)
+        elif mesh is not None:
+            # memory-sharded (the citation2-scale path): the tables never
+            # sit whole on one device
+            part = make_node_partition(g.edge_index, g.num_nodes,
+                                       mesh.axis_size("graph"))
+            sketches = node_sharded_build_hash_tables(
+                part, params, mesh, max_gather_rows=cfg.max_gather_slots)
+            sketch_perm = part.perm
         else:
             plan = (make_auto_plan(g.edge_index, g.num_nodes,
                                    max_slots=cfg.max_gather_slots,
@@ -261,13 +291,21 @@ def build_link_dataset(split_data: SplitData, cfg: Config, split: str,
                                          device=dev)
             if hash_cache and cfg.load_hashes:
                 save_sketches(hash_cache, sketches)
-        sf = subgraph_features_batched(links, sketches, params,
-                                       batch_size=batch).cpu().numpy()
+        sf = features(sketches, sketch_perm)
         if sf_cache and cfg.cache_subgraph_features:
             np.savez(sf_cache, sf=sf)
     return LinkDataset(links, labels, g.edge_index, g.weights, g.num_nodes,
                        x, degrees, subgraph_features=_knockout(sf, cfg),
-                       RA=RA, sketches=sketches)
+                       RA=RA, sketches=sketches, sketch_perm=sketch_perm)
+
+
+def graph_mesh(cfg: Config, device):
+    """The run's mesh when it has a ``graph`` axis (the memory-sharded
+    build), else None."""
+    if not (cfg.mesh_shape and "graph" in (cfg.mesh_axes or [])):
+        return None
+    from subgraph_sketching_tpu_torch.parallel.mesh import mesh_from_config
+    return mesh_from_config(cfg, device)
 
 
 def build_all_splits(splits, cfg: Config, directed: bool = False,
@@ -324,4 +362,5 @@ def make_train_eval_dataset(train_ds: LinkDataset,
         degrees=train_ds.degrees,
         subgraph_features=np.concatenate(
             [sf[:n_pos], sf[n_pos_total:n_pos_total + n_neg]]),
-        RA=RA, sketches=train_ds.sketches)
+        RA=RA, sketches=train_ds.sketches,
+        sketch_perm=train_ds.sketch_perm)

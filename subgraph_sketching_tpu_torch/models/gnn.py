@@ -8,9 +8,18 @@ Data parallelism (``parallel/mesh.py``): :func:`shard_batch_axis` gives
 the BatchNorms and Dropouts that see the link batch the run's mesh.  Each
 rank then holds one block of the batch, and they compute what one device
 computes over the whole batch: a BatchNorm's statistics are summed over
-the ranks, a Dropout draws the whole batch's mask and keeps its block.
+the data axis's ranks, a Dropout draws the whole batch's mask and keeps
+its block.
 Those over a node table, which every rank holds whole (``SIGNEmbedding``'s,
 ELPH's GNN's dropout), are left as they are.
+
+ELPH's GCN on the mesh's ``graph`` axis (:class:`EdgeShardSpmm`): each
+rank holds one block of the gcn_norm'd edges (the degrees are the whole
+graph's) and runs the SpMM over it, then a SUM over the graph axis gives
+every rank the whole product; in the backward each block contributes
+its A_rᵀ g, so the gradient of the replicated input is summed over the
+axis too.  JAX's GSPMD partitioned that SpMM over the sharded edge list
+by itself.
 """
 
 from __future__ import annotations
@@ -22,7 +31,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from subgraph_sketching_tpu_torch.ops.graph_ops import gcn_norm, spmm
-from subgraph_sketching_tpu_torch.parallel.collectives import sum_across_ranks
+from subgraph_sketching_tpu_torch.parallel.collectives import (
+    replicate_into, sum_across_ranks, sum_replicated,
+)
 
 BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
@@ -92,14 +103,15 @@ class BatchNorm(nn.BatchNorm1d):
 
     def _across_ranks(self, x: torch.Tensor) -> torch.Tensor:
         """Training mode over a batch whose [B/W, C] blocks lie on the W
-        ranks: the mean, then the biased variance as the mean of the
+        ranks of the data axis: the mean, then the biased variance as the mean of the
         centred squares (two passes, as ``F.batch_norm``), each sum taken
         on the rank and summed over the ranks by a differentiable
         all-reduce whose backward sums the gradient over the ranks."""
-        n = x.shape[0] * self.mesh.world_size
-        mean = sum_across_ranks(x.sum(0)) / n
+        n = x.shape[0] * self.mesh.data_size
+        group = self.mesh.group("data")
+        mean = sum_across_ranks(x.sum(0), group) / n
         xc = x - mean
-        var = sum_across_ranks((xc * xc).sum(0)) / n
+        var = sum_across_ranks((xc * xc).sum(0), group) / n
         out = xc * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
         self._track(mean, var)
         return out
@@ -126,7 +138,8 @@ class Dropout(nn.Module):
     With a ``mesh`` (:func:`shard_batch_axis`) ``x`` is this rank's block
     of the batch: the mask is drawn for the whole batch, as one device
     draws it, and the rank keeps its block, so every rank's generator
-    stays in step and the masks are the single-device ones."""
+    stays in step and the masks are the single-device ones (the graph and
+    lane peers of a rank, which hold its block, draw its mask)."""
 
     def __init__(self, p: float):
         super().__init__()
@@ -142,7 +155,7 @@ class Dropout(nn.Module):
         if self.mesh is None:
             keep = torch.empty_like(x)
         else:
-            keep = x.new_empty((x.shape[0] * self.mesh.world_size,
+            keep = x.new_empty((x.shape[0] * self.mesh.data_size,
                                 *x.shape[1:]))
         keep.bernoulli_(1 - self.p, generator=generator)
         if self.mesh is not None:
@@ -263,3 +276,18 @@ class GCNConv(nn.Module):
                 edge_index, edge_weight, num_nodes)
             out = spmm(ei, w, x, num_nodes)
         return out + self.bias
+
+
+class EdgeShardSpmm:
+    """The GCN's SpMM over this rank's block of the edges, summed over the
+    graph axis's ``group``: forward Σ_r A_r x on every rank, backward
+    Σ_r A_rᵀ g into the replicated ``x``.  ``spmm`` is the block's own
+    SpMM (a ``PlanSpmm``, each way one K1 add, or the scatter ``spmm``);
+    the wrapper is what ``GCNConv`` takes as its ``plan``."""
+
+    def __init__(self, spmm, group):
+        self.spmm, self.group = spmm, group
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return sum_replicated(self.spmm(replicate_into(x, self.group)),
+                              self.group)

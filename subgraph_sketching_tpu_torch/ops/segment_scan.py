@@ -180,10 +180,16 @@ class SortedSegmentPlan:
     the card (``native``) and from numpy on the CPU.  Device copies of the
     tables the reduce reads (``gather_idx``, ``sub_ptr``) are made on
     ``device`` at first use.
+
+    ``num_sources``: the edges' sources index another table than the
+    destinations, of that many rows (the halo buffer of a node-sharded
+    hop, ``parallel/node_sharded.py``); the slots' sentinel is then
+    ``num_sources``, and ``reduce`` gathers from ``sources``.
     """
 
     def __init__(self, edge_index: np.ndarray, num_nodes: int,
-                 sub_len: int = SUB_LEN, device="cuda"):
+                 sub_len: int = SUB_LEN, device="cuda",
+                 num_sources: Optional[int] = None):
         self.device = resolve_device(device)
         self.num_segments = num_nodes
         self.sub_len = sub_len
@@ -196,6 +202,12 @@ class SortedSegmentPlan:
         self._slot_edge_np: Optional[np.ndarray] = None
         self._gather_idx: Optional[torch.Tensor] = None
         self._sub_ptr: Optional[torch.Tensor] = None
+        if num_sources is not None:
+            # the slots re-pointed at the source table, sentinel
+            # num_sources (the builder's sentinel is num_nodes)
+            src = np.asarray(edge_index[0], dtype=np.int32)
+            self._gather_idx_np = np.concatenate(
+                [src, np.array([num_sources], np.int32)])[self._slot_edge]
 
     @property
     def gather_idx(self) -> torch.Tensor:
@@ -244,16 +256,21 @@ class SortedSegmentPlan:
                                self.sub_ptr)
 
     def reduce(self, x: torch.Tensor, op: str,
-               edge_data_slots: Optional[torch.Tensor] = None
-               ) -> torch.Tensor:
+               edge_data_slots: Optional[torch.Tensor] = None,
+               sources: Optional[torch.Tensor] = None) -> torch.Tensor:
         """min/max: out[v] = op(x[v], in-neighbour rows) — closed
         neighbourhood, matching sketch propagation (self always included).
         add: out[v] = sum over in-edges of w_e * x[src_e] (SpMM; self NOT
         included — put self-loops in the edge list).
-        ``edge_data_slots`` comes from ``stage_edge_data``."""
+        ``edge_data_slots`` comes from ``stage_edge_data``.  ``sources``:
+        the table the in-neighbour rows come from, where it is not ``x``
+        (a plan built with ``num_sources``); ``x`` is then only folded
+        in."""
         if self.num_subruns == 0:
             return x.clone() if op != "add" else torch.zeros_like(x)
-        v = self.reduce_subruns(x, op, edge_data_slots)
+        table = x if sources is None else sources
+        v = _reduce_slots(with_identity_row(table, op), self.gather_idx,
+                          edge_data_slots, self.sub_len, op)
         return self.merge_subruns(v, x, op)
 
     def chunk(self, max_slots: int) -> "ChunkedSegmentPlan":
@@ -334,12 +351,13 @@ class ChunkedSegmentPlan:
 
     def reduce(self, x: torch.Tensor, op: str,
                edge_data_slots: Optional[torch.Tensor] = None,
-               merge: Callable = segment_combine) -> torch.Tensor:
+               merge: Callable = segment_combine,
+               sources: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Same contract as SortedSegmentPlan.reduce.  ``merge`` is the
         per-chunk merge, K1 (``segment_combine``) unless a check asks for
         its plain version."""
         out = x.clone() if op != "add" else torch.zeros_like(x)
-        rows = with_identity_row(x, op)
+        rows = with_identity_row(x if sources is None else sources, op)
         for c, ((_, _, lo, hi), ptr) in enumerate(zip(self.bounds,
                                                       self.ptrs)):
             v = self.chunk_subruns(rows, c, op, edge_data_slots)
@@ -360,13 +378,13 @@ def _estimated_slots(dst: np.ndarray, num_nodes: int, sub_len: int) -> int:
 def make_auto_plan(edge_index: np.ndarray, num_nodes: int,
                    max_slots: Optional[int] = None,
                    sub_len: Optional[int] = None,
-                   device="cuda"):
+                   device="cuda", num_sources: Optional[int] = None):
     """Plan with bounded device memory, chosen as the JAX package chooses
     it: one-shot when the slot table fits ``max_slots`` rows,
     chunk-streamed (:class:`ChunkedSegmentPlan`) otherwise.  With
     ``sub_len=None`` the sub-run length is SUB_LEN for a one-shot plan and
     CHUNK_SUB_LEN for one that will chunk, decided from a degree
-    histogram."""
+    histogram.  ``num_sources``: as ``SortedSegmentPlan`` takes it."""
     ei = np.asarray(edge_index)
     if sub_len is None:
         sub_len = SUB_LEN
@@ -374,7 +392,8 @@ def make_auto_plan(edge_index: np.ndarray, num_nodes: int,
                 _estimated_slots(np.asarray(ei[1], dtype=np.int64),
                                  num_nodes, SUB_LEN) > max_slots:
             sub_len = CHUNK_SUB_LEN
-    plan = SortedSegmentPlan(ei, num_nodes, sub_len, device=device)
+    plan = SortedSegmentPlan(ei, num_nodes, sub_len, device=device,
+                             num_sources=num_sources)
     if max_slots and plan.num_subruns * plan.sub_len > max_slots:
         return plan.chunk(max_slots)
     return plan

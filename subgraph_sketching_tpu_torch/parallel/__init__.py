@@ -1,11 +1,14 @@
 """The multi-process layer of the port on ``torch.distributed``: the
-runtime (``multihost``), the collectives of a data-parallel step and
-their count (``collectives``), the data-parallel mesh (``mesh``), the
-heartbeat failure detector (``fault``).  The distributed ELPH step and
+runtime (``multihost``), the collectives and their count
+(``collectives``), the mesh over the data, graph and lane axes
+(``mesh``), the heartbeat failure detector (``fault``).  The distributed
+ELPH step and
 its oracle (``parallel.train``) and the multi-rank dry run
 (``parallel.dryrun``) import the models and are imported from their
-modules.  The graph and lane axes (memory-sharded sketch state) are not
-ported yet."""
+modules, as are the graph and lane axes' sketch layers: node-sharded
+state by halo exchange (``parallel.node_sharded``), the edge-sharded
+build and lane-sharded features (``parallel.dist_sketch``), and the
+scaling harness (``parallel.scaling``)."""
 
 from subgraph_sketching_tpu_torch.parallel.collectives import (  # noqa: F401
     gather_replicated,

@@ -37,10 +37,23 @@ device.  ``--heartbeat_dir`` (a directory every rank shares) starts the
 heartbeat failure detector (``parallel/fault.py``): every epoch begins at
 an out-of-band barrier, so a dead peer raises a named ``PeerFailure``
 instead of hanging the survivors in the next collective, and ``--resume``
-first agrees with every rank on the newest checkpoint they all see.  The
-graph and lane axes and ``--memory_sharded`` (ROADMAP item 9b) raise
-NotImplementedError, and so do SEAL and KGE on a mesh or under a
-process group of several ranks: their trainers have no data axis.
+first agrees with every rank on the newest checkpoint they all see.
+
+The mesh takes any mix of the JAX runner's axes ``data``, ``graph`` and
+``lane`` (``parallel/mesh.py``), e.g.
+
+    torchrun --nproc_per_node 4 -m subgraph_sketching_tpu_torch.runners.run \
+        --dataset_name synth-ba --model ELPH --mesh_shape 2,2 \
+        --mesh_axes data,graph --memory_sharded 1
+
+A graph axis builds BUDDY's sketches node-sharded by halo exchange and
+ELPH's edge-sharded (node-sharded with ``--memory_sharded``), and runs
+ELPH's GCN over each rank's block of the edges; a lane axis shards the
+sketch width of the subgraph features.  Unknown axes and shapes that do
+not match the process group raise ValueError, as does
+``--memory_sharded`` without a graph axis; SEAL and KGE on a mesh or
+under a process group of several ranks raise NotImplementedError: their
+trainers have no mesh.
 
 Not ported yet (queued, each raises NotImplementedError):
 ``--profile_dir`` and ``--compilation_cache_dir``.
@@ -70,7 +83,7 @@ from subgraph_sketching_tpu_torch.metrics_logging import (
     MetricsLogger, apply_sweep_overrides,
 )
 from subgraph_sketching_tpu_torch.parallel import fault, multihost
-from subgraph_sketching_tpu_torch.parallel.mesh import refuse_unported_axes
+from subgraph_sketching_tpu_torch.parallel.mesh import check_axes
 from subgraph_sketching_tpu_torch.train import checkpoint
 from subgraph_sketching_tpu_torch.train.determinism import (
     assert_ranks_agree, check_epoch_determinism,
@@ -104,8 +117,6 @@ def _refuse_unported(cfg: Config) -> None:
     for flag in ("profile_dir", "compilation_cache_dir"):
         if getattr(cfg, flag):
             raise NotImplementedError(f"--{flag} is not ported yet")
-    if cfg.mesh_shape:   # (Config gives --memory_sharded a graph axis)
-        refuse_unported_axes(cfg.mesh_axes)
     if cfg.model in (*SEAL_MODELS, *KGE_MODELS) and (
             cfg.mesh_shape or multihost.world_size() > 1):
         raise NotImplementedError(
@@ -113,6 +124,8 @@ def _refuse_unported(cfg: Config) -> None:
             f"ranks: the SEAL and KGE trainers have no data axis (the JAX "
             f"package's train/seal_loop.py and train/kge_loop.py never read "
             f"the mesh), and W independent copies are not one run")
+    if cfg.mesh_shape:   # (Config gives --memory_sharded a graph axis)
+        check_axes(cfg.mesh_shape, cfg.mesh_axes)
 
 
 def build_trainer(cfg: Config, datasets, num_features, device):

@@ -27,9 +27,18 @@ model reads no RA column, so ``ElphLinkScorer`` ignores the flag.
 
 ``LinkScorer`` takes exact streaming edge inserts and deletes
 (``insert_edges`` / ``delete_edges``), bit-equal to a rebuild on the
-changed graph.  The node-sharded serving state of the JAX package (its
-``sketch_perm``) comes with the multi-device layer; here a sketch row is
-the node id.
+changed graph.
+
+Node-sharded state (a dataset built under a ``graph`` mesh, whose
+``sketch_perm`` maps node ids to row positions): ``LinkScorer`` keeps the
+permutation (``sk_perm``) and translates every sketch lookup, and every
+row a streaming update gathers, scatters or resets (``_pos``), from node
+ids to positions, while the adjacency walk, the degrees, the features
+and the embedding rows stay in node ids: a missed translation would read
+another node's row without any error (the train/serve skew the JAX
+package's serving.py names).  A checkpoint whose config names a graph
+mesh is served at world size 1 (``scorer_from_checkpoint``): the mesh
+becomes [1] over ``graph``, the tables are built node-sharded at D = 1.
 """
 
 from __future__ import annotations
@@ -131,6 +140,12 @@ class LinkScorer(_BucketedScorer):
         if cfg.use_struct_feature:
             self.sk = Sketches(*(t.to(self.device)
                                  for t in dataset.sketches))
+        # node-sharded tables are POSITION-ordered: sketch lookups and the
+        # streaming updates' rows translate node id -> row position
+        self._perm_np = self.sk_perm = None
+        if self.sk is not None and dataset.sketch_perm is not None:
+            self._perm_np = np.asarray(dataset.sketch_perm, dtype=np.int64)
+            self.sk_perm = torch.from_numpy(self._perm_np).to(self.device)
         self.num_nodes = dataset.num_nodes
         # the message graph with use_RA: its CSR stays on the host, and RA
         # is scored by the host math preprocessing used over the same
@@ -158,7 +173,10 @@ class LinkScorer(_BucketedScorer):
     def _score_batch(self, links: torch.Tensor,
                      chunk: np.ndarray) -> torch.Tensor:
         if self.sk is not None:
-            sf = subgraph_features(links, self.sk, self.sketch_params)
+            # only the sketch lookup rides sk_perm (x, deg and the
+            # embedding rows stay in node order)
+            sk_links = links if self.sk_perm is None else self.sk_perm[links]
+            sf = subgraph_features(sk_links, self.sk, self.sketch_params)
         else:
             sf = torch.zeros((links.shape[0], self.sketch_params.sf_dim),
                              device=self.device)
@@ -174,6 +192,13 @@ class LinkScorer(_BucketedScorer):
         return out.ravel()
 
     # -- streaming updates ----------------------------------------------------
+    def _pos(self, ids: np.ndarray) -> np.ndarray:
+        """Node ids -> sketch-table row positions: the identity without a
+        partition permutation, else ``sk_perm`` (the updates scatter into
+        row positions while the adjacency walk stays in node ids)."""
+        ids = np.asarray(ids, dtype=np.int64)
+        return ids if self._perm_np is None else self._perm_np[ids]
+
     def _stack_index(self, k: int) -> int:
         """Hop k's index in the stacks: k in hop-0..K stacks, k - 1 in
         K-row hops-only stacks (hop 0 dropped to save device memory at
@@ -349,18 +374,19 @@ class LinkScorer(_BucketedScorer):
         Min and max do not depend on the order of the merges, so the
         card's atomics leave the result bit-exact.  ``sources``: the
         sources' hop-(k-1) rows where the stack does not hold them
-        (``_sources``)."""
+        (``_sources``).  ``rows`` and ``pairs`` are node ids; the stacks
+        are indexed at their row positions (``_pos``)."""
         mh, hll, cards = self.sk
         kst = self._stack_index(k)
         dev = self.device
         if sources is None:
-            src = torch.from_numpy(pairs[:, 0]).to(dev)
+            src = torch.from_numpy(self._pos(pairs[:, 0])).to(dev)
             s_mh = mh[kst - 1].index_select(0, src)
             s_hll = hll[kst - 1].index_select(0, src)
         else:
             s_mh, s_hll = sources
-        rows_t = torch.from_numpy(rows).to(dev)
-        dst = torch.from_numpy(pairs[:, 1]).to(dev)[:, None]
+        rows_t = torch.from_numpy(self._pos(rows)).to(dev)
+        dst = torch.from_numpy(self._pos(pairs[:, 1])).to(dev)[:, None]
         mh_k, hll_k = mh[kst], hll[kst]
         if reset:
             mh_k.index_fill_(0, rows_t, identity("min", mh.dtype))
@@ -542,9 +568,10 @@ class ElphLinkScorer(_BucketedScorer):
     ``ElphLinkScorer``): the full-graph GCN runs once at construction, in
     eval mode (reference get_elph_preds, inference.py:167-205), and its
     node features stay resident; a query batch computes subgraph features
-    from the sketch stacks of the split's message graph (the trainer's
-    held set when it is that graph's, else built again) and runs the
-    LinkPredictor head; the node-embedding table, when the model has
+    from the sketch state of the split's message graph, resolved once at
+    construction (``ElphTrainer.link_feature_fn``: the node-sharded
+    tables under ``--memory_sharded``, else the graph's stacks), and runs
+    the LinkPredictor head; the node-embedding table, when the model has
     one, is resolved once as well.  Same bucketing contract as
     ``LinkScorer``.  ELPH's model reads no RA column, so a ``use_RA``
     config serves as without it, as in the JAX package.  No streaming
@@ -559,10 +586,7 @@ class ElphLinkScorer(_BucketedScorer):
         self.sketch_params = trainer.sketch_params
         data = trainer._data[split]
         self.num_nodes = data["num_nodes"]
-        self.sk = None
-        if cfg.use_struct_feature:
-            self.sk = trainer.graph_sketches(
-                data["edge_index"].cpu().numpy(), self.num_nodes)
+        self._link_features = trainer.link_feature_fn(data)
         self.model = model.to(self.device).eval()
         with torch.inference_mode():
             self.feats = trainer.node_features(self.model, data)
@@ -574,11 +598,7 @@ class ElphLinkScorer(_BucketedScorer):
     @torch.inference_mode()
     def _score_batch(self, links: torch.Tensor,
                      chunk: np.ndarray) -> torch.Tensor:
-        if self.sk is not None:
-            sf = subgraph_features(links, self.sk, self.sketch_params)
-        else:
-            sf = torch.zeros((links.shape[0], self.sketch_params.sf_dim),
-                             device=self.device)
+        sf = self._link_features(links)
         nf = self.feats[links] if self.feats is not None else None
         emb = self.emb_table[links] if self.emb_table is not None else None
         return self.model.predictor(sf, nf, emb).ravel()
@@ -592,6 +612,18 @@ def save_buddy_checkpoint(checkpoint_dir: str, cfg: Config,
         f.write(cfg.to_json())
     state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     torch.save(state, os.path.join(checkpoint_dir, WEIGHTS_FILE))
+
+
+def serving_config(cfg: Config) -> Config:
+    """The config a checkpoint is served with, at world size 1: a mesh
+    with a ``graph`` axis becomes [1] over ``graph`` (node-sharded tables
+    at D = 1, position-ordered), any other mesh none."""
+    if not cfg.mesh_shape:
+        return cfg
+    if "graph" in (cfg.mesh_axes or []):
+        return dataclasses.replace(cfg, mesh_shape=[1], mesh_axes=["graph"])
+    return dataclasses.replace(cfg, mesh_shape=None, mesh_axes=["data"],
+                               memory_sharded=False)
 
 
 def scorer_from_checkpoint(checkpoint_dir: str, cfg: Optional[Config] = None,
@@ -626,6 +658,7 @@ def scorer_from_checkpoint(checkpoint_dir: str, cfg: Optional[Config] = None,
             cfg = Config.from_json(f.read())
     if cfg.model not in ("BUDDY", "ELPH"):
         raise NotImplementedError(f"serving {cfg.model} is not ported yet")
+    cfg = serving_config(cfg)
     splits, directed, _ = get_data(cfg)
     # the scorer needs the sketch stacks, which a split whose subgraph
     # features come from the run's cache would not build

@@ -46,8 +46,23 @@ evaluation is replicated.  ``DistributedDataParallel`` is not used: it
 divides by W, buckets in its own order and broadcasts buffers, which
 would hide a divergence of the BatchNorm statistics.
 
-Not ported yet (queued): the graph and lane mesh axes and the
-memory-sharded mode (ROADMAP item 9b), ``dtype`` other than float32.
+The graph and lane axes (``--mesh_axes`` with ``graph`` / ``lane``, JAX's
+ElphTrainer branches): the peers of a rank on those axes hold its block
+of the batch, so the losses, the BatchNorm statistics and the gradients
+are summed over the data axis alone.  ELPH on a graph axis builds its
+sketches edge-sharded (``parallel/dist_sketch.py``: the state replicated)
+and runs its GCN over the rank's block of the gcn_norm'd edges, summed
+over the axis (``models/gnn.py`` ``EdgeShardSpmm``); on a lane axis the
+subgraph features come from the rank's width slice, summed over the
+axis.  With ``--memory_sharded`` the sketch state stays node-sharded
+(``parallel/node_sharded.py``: 1/D rows a rank, built once per distinct
+message graph and shared across splits) and each batch's subgraph
+features are assembled from the ranks that own its rows.  A BUDDY split
+built under a graph mesh carries position-ordered sketches
+(``LinkDataset.sketch_perm``); the ELPH trainer translates through the
+permutation, and refuses them without a graph axis.
+
+Not ported yet (queued): ``dtype`` other than float32.
 """
 
 from __future__ import annotations
@@ -68,17 +83,25 @@ from subgraph_sketching_tpu_torch.graph.preprocess import (
 from subgraph_sketching_tpu_torch.models.buddy import BUDDY
 from subgraph_sketching_tpu_torch.models.elph import ELPHPredictor
 from subgraph_sketching_tpu_torch.models.gnn import (
-    GCNConv, SIGNEmbedding, shard_batch_axis,
+    EdgeShardSpmm, GCNConv, SIGNEmbedding, shard_batch_axis,
 )
-from subgraph_sketching_tpu_torch.ops.graph_ops import gcn_norm
+from subgraph_sketching_tpu_torch.ops.graph_ops import gcn_norm, spmm
 from subgraph_sketching_tpu_torch.ops.segment_scan import (
     PlanSpmm, gather_rows, make_auto_plan,
 )
 from subgraph_sketching_tpu_torch.parallel.mesh import (
     Mesh, flat_grads, mesh_from_config,
 )
+from subgraph_sketching_tpu_torch.parallel.dist_sketch import (
+    edge_sharded_build_hash_tables, lane_sharded_subgraph_features,
+    lane_sharded_subgraph_features_batched, pad_edges, weighted_edge_block,
+)
+from subgraph_sketching_tpu_torch.parallel.node_sharded import (
+    make_node_partition, node_sharded_build_hash_tables,
+    node_sharded_subgraph_features, node_sharded_subgraph_features_batched,
+)
 from subgraph_sketching_tpu_torch.sketch.elph import (
-    build_hash_tables, subgraph_features_batched,
+    build_hash_tables, subgraph_features, subgraph_features_batched,
 )
 from subgraph_sketching_tpu_torch.train.losses import get_loss
 from subgraph_sketching_tpu_torch.utils import load_pretrained_embedding
@@ -351,13 +374,13 @@ class _Trainer:
     _data: Dict[str, Dict[str, torch.Tensor]]
 
     def _init_mesh(self) -> None:
-        """The data-parallel mesh (None without ``--mesh_shape``) and the
-        loss over its global batch."""
+        """The mesh (None without ``--mesh_shape``) and the loss over its
+        global batch."""
         self.mesh = mesh_from_config(self.cfg, self.device)
         if self.mesh is not None and self.cfg.batch_size \
-                % self.mesh.world_size:
+                % self.mesh.data_size:
             raise ValueError(f"batch_size {self.cfg.batch_size} does not "
-                             f"split over {self.mesh.world_size} ranks")
+                             f"split over {self.mesh.data_size} ranks")
         self.loss_fn = get_loss(self.cfg.loss)
         if self.mesh is not None:
             self.loss_fn = functools.partial(self.loss_fn, mesh=self.mesh)
@@ -373,7 +396,7 @@ class _Trainer:
             grads = flat_grads(model)
             grads.zero_grad()
             loss.backward()
-            grads.all_reduce()
+            grads.all_reduce(self.mesh.group("data"))
         optimizer.step()
 
     def _init_embedding(self, dataset: LinkDataset) -> None:
@@ -577,8 +600,8 @@ class BuddyTrainer(_Trainer):
 
 class ElphTrainer(_Trainer):
     """Owns the device-resident split data and the ELPH step (the JAX
-    package's ``ElphTrainer`` on the data axis, without its graph- and
-    lane-sharded branches).
+    package's ``ElphTrainer``, with its graph- and lane-sharded branches
+    and the memory-sharded mode; see the module docstring).
 
     The full-graph GCN runs inside every step, as in the reference
     (train.py:188-204); the sketch side is built once at staging (the same
@@ -592,7 +615,17 @@ class ElphTrainer(_Trainer):
         _refuse_unported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
-        self._init_mesh()   # refuses --memory_sharded (ROADMAP item 9b)
+        self._init_mesh()
+        axes = self.mesh.axis_names if self.mesh is not None else ()
+        self._has_graph = "graph" in axes
+        self._has_lane = "lane" in axes
+        # memory-sharded: the sketch state stays node-partitioned (1/D per
+        # rank) through training; each batch's features are assembled
+        # from the shards (only with the structure features on)
+        self._memory_sharded = bool(cfg.memory_sharded and self._has_graph
+                                    and cfg.use_struct_feature)
+        # split -> (edge_index, num_nodes) of its node-sharded tables
+        self._ms_graphs: Dict[str, tuple] = {}
         self.sketch_params = sketch_params_from_config(cfg)
         self.use_feature = cfg.use_feature and dataset.x is not None
         self.num_features = num_features if self.use_feature else None
@@ -617,14 +650,21 @@ class ElphTrainer(_Trainer):
                 and held[0].shape == edge_index.shape
                 and np.array_equal(held[0], edge_index)):
             return held[2]
-        plan = (make_auto_plan(edge_index, num_nodes,
-                               max_slots=self.cfg.max_gather_slots,
-                               device=self.device)
-                if self.cfg.use_plan else None)
-        sk = build_hash_tables(edge_index, num_nodes, self.sketch_params,
-                               plan=plan,
-                               hops_only=self.cfg.hops_only_sketches,
-                               device=self.device)
+        if self._has_graph:
+            # edge-sharded: each rank's block of the (padded) edges
+            ei, mask = pad_edges(edge_index, self.mesh.axis_size("graph"))
+            sk = edge_sharded_build_hash_tables(
+                ei, num_nodes, self.sketch_params, self.mesh, mask=mask,
+                max_gather_slots=self.cfg.max_gather_slots)
+        else:
+            plan = (make_auto_plan(edge_index, num_nodes,
+                                   max_slots=self.cfg.max_gather_slots,
+                                   device=self.device)
+                    if self.cfg.use_plan else None)
+            sk = build_hash_tables(edge_index, num_nodes, self.sketch_params,
+                                   plan=plan,
+                                   hops_only=self.cfg.hops_only_sketches,
+                                   device=self.device)
         self._sk_graph = (edge_index, num_nodes, sk)
         return sk
 
@@ -639,22 +679,46 @@ class ElphTrainer(_Trainer):
         SpMM; and the embedding diffusion's SpMM (``_stage_embedding``,
         apart from the GCN's)."""
         dev = self.device
+        params = self.sketch_params
+        extra = {}
         if self.cfg.use_struct_feature is False:
-            sf = torch.zeros((len(ds.links), self.sketch_params.sf_dim),
+            sf = torch.zeros((len(ds.links), params.sf_dim),
                              dtype=torch.float32, device=dev)
+        elif self._memory_sharded:
+            sf = None   # assembled per batch from the node-sharded tables
+            extra = self._stage_memory_sharded(split, ds)
+        elif ds.sketches is not None and ds.sketch_perm is not None:
+            # POSITION-ordered node-sharded tables (a BUDDY split built
+            # under a graph mesh): node ids go through the permutation
+            if not self._has_graph:
+                raise ValueError(
+                    "the dataset carries node-sharded sketches but this "
+                    "trainer has no 'graph' mesh axis; build the dataset "
+                    "without a mesh or give --mesh_axes a graph axis")
+            sf = node_sharded_subgraph_features_batched(
+                ds.links, ds.sketches, params, self.mesh,
+                perm=ds.sketch_perm,
+                batch_size=min(self.cfg.subgraph_feature_batch_size,
+                               1 << 18))
         else:
             sk = (ds.sketches if ds.sketches is not None
                   else self.graph_sketches(ds.edge_index, ds.num_nodes))
-            sf = subgraph_features_batched(ds.links, sk, self.sketch_params)
+            if self._has_lane:
+                sf = lane_sharded_subgraph_features_batched(
+                    ds.links, sk, params, self.mesh)
+            else:
+                sf = subgraph_features_batched(ds.links, sk, params)
         d = {"links": torch.from_numpy(
                  np.asarray(ds.links, dtype=np.int64)).to(dev),
              "labels": torch.from_numpy(
                  np.asarray(ds.labels, dtype=np.float32)).to(dev),
-             "sf": sf, "num_nodes": ds.num_nodes,
+             "num_nodes": ds.num_nodes, **extra,
              "edge_index": torch.from_numpy(
                  np.asarray(ds.edge_index, dtype=np.int64)).to(dev),
              "edge_weight": torch.from_numpy(
                  np.asarray(ds.edge_weight, dtype=np.float32)).to(dev)}
+        if sf is not None:
+            d["sf"] = sf
         if self.use_feature:
             d["x"] = torch.from_numpy(
                 np.asarray(ds.x, dtype=np.float32)).to(dev)
@@ -680,12 +744,78 @@ class ElphTrainer(_Trainer):
             return {k: self._data[reuse][k] for k in ("plan", "norm")
                     if k in self._data[reuse]}
         ein, wn = gcn_norm(d["edge_index"], d["edge_weight"], ds.num_nodes)
+        if self._has_graph:
+            # this rank's block of the gcn_norm'd edges (the whole graph's
+            # degrees), its SpMM summed over the graph axis
+            ein, wn = weighted_edge_block(ein, wn, self.mesh)
         plan = (PlanSpmm.try_build(ein.cpu().numpy(), wn.cpu().numpy(),
                                    ds.num_nodes,
                                    max_slots=self.cfg.max_gather_slots,
                                    device=self.device)
                 if self.cfg.use_plan else None)
+        if self._has_graph:
+            n = ds.num_nodes
+            inner = plan if plan is not None else (
+                lambda h, e=ein, w=wn: spmm(e, w, h, n))
+            return {"plan": EdgeShardSpmm(inner, self.mesh.group("graph"))}
         return {"plan": plan} if plan is not None else {"norm": (ein, wn)}
+
+    def _stage_memory_sharded(self, split: str, ds: LinkDataset) -> dict:
+        """The node-partitioned sketch tables of this split's message graph
+        (``sk_shard``: this rank's 1/D rows, in partition order) and the
+        node -> row map (``sk_perm``), built by halo exchange once per
+        distinct message graph: a split on a staged split's graph shares
+        its tables."""
+        self._ms_graphs.pop(split, None)   # a re-staged split may change
+        reuse = next(
+            (s for s, (e, n) in self._ms_graphs.items()
+             if n == ds.num_nodes and e.shape == ds.edge_index.shape
+             and np.array_equal(e, ds.edge_index)), None)
+        self._ms_graphs[split] = (ds.edge_index, ds.num_nodes)
+        if reuse is not None:
+            return {k: self._data[reuse][k] for k in ("sk_shard", "sk_perm")}
+        part = make_node_partition(ds.edge_index, ds.num_nodes,
+                                   self.mesh.axis_size("graph"))
+        sk = node_sharded_build_hash_tables(
+            part, self.sketch_params, self.mesh,
+            max_gather_rows=self.cfg.max_gather_slots)
+        return {"sk_shard": sk, "sk_perm": torch.from_numpy(
+            part.perm.astype(np.int64)).to(self.device)}
+
+    def batch_features(self, data: dict, idx: torch.Tensor,
+                       links: torch.Tensor) -> torch.Tensor:
+        """The subgraph features of a staged split's links ``idx`` (node
+        pairs ``links``): staged, or under ``--memory_sharded`` assembled
+        from the node-sharded tables (gradient-free)."""
+        if "sf" in data:
+            return data["sf"][idx]
+        with torch.no_grad():
+            return node_sharded_subgraph_features(
+                links, data["sk_shard"], self.sketch_params, self.mesh,
+                perm=data["sk_perm"])
+
+    def link_feature_fn(self, data: dict):
+        """The subgraph features of any [B, 2] node pairs on a staged
+        split's message graph (serving), as a function of the pairs whose
+        sketch state is resolved once, here: the split's node-sharded
+        tables under ``--memory_sharded``, else the graph's stacks (the
+        held set when it is this graph's, else built), lane-sharded on a
+        lane axis; zeros under ``--use_struct_feature 0``.  A call makes
+        no host round trip."""
+        params, mesh, dev = self.sketch_params, self.mesh, self.device
+        if self.cfg.use_struct_feature is False:
+            return lambda links: torch.zeros((links.shape[0], params.sf_dim),
+                                             device=dev)
+        if "sk_shard" in data:
+            sk, perm = data["sk_shard"], data["sk_perm"]
+            return lambda links: node_sharded_subgraph_features(
+                links, sk, params, mesh, perm=perm)
+        sk = self.graph_sketches(data["edge_index"].cpu().numpy(),
+                                 data["num_nodes"])
+        if self._has_lane:
+            return lambda links: lane_sharded_subgraph_features(
+                links, sk, params, mesh)
+        return lambda links: subgraph_features(links, sk, params)
 
     # -- model --------------------------------------------------------------
     def init_model(self, seed: int) -> ELPHPredictor:
@@ -744,7 +874,8 @@ class ElphTrainer(_Trainer):
             nf = gather_rows(feats, links) if feats is not None else None
             emb = (gather_rows(self.embedding_table(model, data, g), links)
                    if self.use_embedding else None)
-            logits = model.predictor(data["sf"][safe], nf, emb, generator=g)
+            logits = model.predictor(self.batch_features(data, safe, links),
+                                     nf, emb, generator=g)
             loss = self.loss_fn(logits, data["labels"][safe], idx >= 0)
             self._update(model, optimizer, loss)
             losses[step] = loss.detach()
@@ -771,7 +902,8 @@ class ElphTrainer(_Trainer):
             links = data["links"][j]
             nf = feats[links] if feats is not None else None
             emb = table[links] if table is not None else None
-            return model.predictor(data["sf"][j], nf, emb).ravel()
+            return model.predictor(self.batch_features(data, j, links), nf,
+                                   emb).ravel()
 
         pred = batched_predict(score, sel, self.cfg.eval_batch_size)
         labels = data["labels"].cpu().numpy()[sel]

@@ -1,11 +1,12 @@
 """Training losses (reference src/runners/train.py:231-255), as the JAX
 package's train/losses.py computes them.
 
-With a data-parallel ``mesh`` (``parallel/mesh.py``) each rank passes its
-block of the batch and gets the global batch's loss, the same value on
-every rank; its backward reaches this rank's rows only, so the sum of the
-ranks' gradients (the step's gradient all-reduce) is the global
-gradient.  The padded tail lies at the end of the global batch, so a
+With a ``mesh`` (``parallel/mesh.py``) each rank passes its block of the
+batch and gets the global batch's loss, the same value on every rank,
+summed over the data axis's ranks (the graph and lane peers of a rank
+hold its block); its backward reaches this rank's rows only, so the sum
+of the data ranks' gradients (the step's gradient all-reduce) is the
+global gradient.  The padded tail lies at the end of the global batch, so a
 rank may hold no real link: the BCE divides by the global count."""
 
 from __future__ import annotations
@@ -34,7 +35,8 @@ def bce_loss(logits: torch.Tensor, labels: torch.Tensor,
     m = torch.ones_like(per) if mask is None else mask.ravel().to(per.dtype)
     total, count = torch.sum(per * m), torch.sum(m)
     if mesh is not None:
-        total, count = sum_replicated(torch.stack([total, count]))
+        total, count = sum_replicated(torch.stack([total, count]),
+                                      mesh.group("data"))
     return total / torch.clamp(count, min=1.0)
 
 

@@ -42,7 +42,8 @@ REQUIRED = {"train", "train.losses", "train.evaluation", "train.inference",
             "train.kge_loop", "parallel", "parallel.mesh",
             "parallel.multihost", "parallel.fault", "parallel.train",
             "parallel.dryrun", "parallel.collectives",
-            "parallel.breakdown", "device"}
+            "parallel.breakdown", "parallel.node_sharded",
+            "parallel.dist_sketch", "parallel.scaling", "device"}
 
 
 def test_port_imports_no_jax():

@@ -133,7 +133,7 @@ try:
     grads = flat_grads(bn)
     grads.zero_grad()
     (y * mesh.shard(b["cot"])).sum().backward()
-    grads.all_reduce()
+    grads.all_reduce(mesh.group("data"))
     out["bn"] = dict(y=y.detach(), x_grad=x.grad, weight_grad=bn.weight.grad,
                      bias_grad=bn.bias.grad, running_mean=bn.running_mean,
                      running_var=bn.running_var)
@@ -452,16 +452,31 @@ def test_host_local_batch_matches_jax(monkeypatch, n, index, count, pad):
 # ------------------------------------------------------------ refusals --
 
 def test_make_mesh_refuses_what_is_not_the_data_axis():
+    """The data, graph and lane axes in any order make a mesh (no group:
+    every collective the identity); an unknown axis, an axis named
+    twice, a shape of another length than the axes and a shape that the
+    process group does not divide into raise ValueError, and so does
+    --memory_sharded without a graph axis."""
     assert make_mesh([1], ["data"], "cpu").world_size == 1  # no group
+    for axes in (["graph"], ["data", "lane"], ["lane", "graph", "data"]):
+        mesh = make_mesh([1] * len(axes), axes, "cpu")
+        assert mesh.group("graph") is None and mesh.data_size == 1
+        assert mesh.coords == (0,) * len(axes)
+    mesh = mesh_from_config(Config(mesh_shape=[1, 1], mesh_axes=[
+        "data", "graph"], memory_sharded=True), "cpu")
+    assert mesh.axis_names == ("data", "graph")
     with pytest.raises(ValueError, match="needs 2 ranks"):
         make_mesh([2], ["data"], "cpu")
-    for axes in (["graph"], ["data", "lane"]):
-        with pytest.raises(NotImplementedError, match="item 9b"):
-            make_mesh([1] * len(axes), axes, "cpu")
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        mesh_from_config(Config(mesh_shape=[1, 1], mesh_axes=["data",
-                                                               "graph"],
-                                memory_sharded=True), "cpu")
+    with pytest.raises(ValueError, match="needs 4 ranks"):
+        make_mesh([2, 2], ["graph", "lane"], "cpu")
+    with pytest.raises(ValueError, match="the axes are"):
+        make_mesh([1], ["model"], "cpu")
+    with pytest.raises(ValueError, match="twice"):
+        make_mesh([1, 1], ["graph", "graph"], "cpu")
+    with pytest.raises(ValueError, match="does not match"):
+        make_mesh([1, 1], ["graph"], "cpu")
+    with pytest.raises(ValueError, match="graph"):
+        Config(mesh_shape=[1], mesh_axes=["data"], memory_sharded=True)
 
 
 def test_make_mesh_defaults_to_the_card(monkeypatch):

@@ -91,11 +91,29 @@ def test_main_without_device_needs_cuda():
 
 @pytest.mark.parametrize("extra", [
     ["--model", "GCN"], ["--model", "SAGE"],
-    ["--mesh_shape", "2", "--mesh_axes", "graph"],
+    ["--model", "transE", "--mesh_shape", "1", "--mesh_axes", "graph"],
     ["--profile_dir", "p"], ["--model", "SEALGCN", "--mesh_shape", "1"],
     ["--compilation_cache_dir", "c"]])
 def test_unported_options_raise(extra):
+    """What the port does not run: models the runner has no trainer for,
+    the flags of ROADMAP item 10, and SEAL or KGE on a mesh (their
+    trainers have no mesh)."""
     with pytest.raises(NotImplementedError):
+        run.main(SMALL + extra + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("extra, match", [
+    (["--mesh_shape", "1", "--mesh_axes", "rows"], "the axes are"),
+    (["--mesh_shape", "2", "--mesh_axes", "graph"], "needs 2 ranks"),
+    (["--mesh_shape", "1,1", "--mesh_axes", "graph"], "does not match"),
+    (["--mesh_shape", "1", "--mesh_axes", "data", "--memory_sharded", "1"],
+     "graph")])
+def test_mesh_refusals(extra, match):
+    """The graph and lane axes run; an unknown axis, a shape that the
+    process group (one process here) does not divide into, a shape of
+    another length than the axes and --memory_sharded without a graph
+    axis raise ValueError."""
+    with pytest.raises(ValueError, match=match):
         run.main(SMALL + extra + ["--device", "cpu"])
 
 
