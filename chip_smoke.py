@@ -59,7 +59,8 @@ Phases, each printing one JSON line:
              torch.profiler: host stage times, device busy time and share,
              the top kernels
   train      BUDDY training at full width through runners.run.run
-             (synth-ws-200000, Config defaults, 2 epochs, eval every epoch,
+             (synth-ws-200000, Config defaults, 2 epochs of 262,144 links,
+             BUDDY_TRAIN_SAMPLES, eval every epoch,
              --check_determinism, --save_model), the K1 launch counts read
              around it (at least 2 min, 2 max and 1 add per message graph);
              per epoch: loss (finite, falling), train and eval seconds,
@@ -77,7 +78,8 @@ Phases, each printing one JSON line:
              with weights and years, 60,084 valid and 46,329 test edges
              with 100,000 negatives each), written from a seed (its
              seconds apart), then the reference's collab BUDDY command cut
-             to one epoch through runners.run, twice with one --cache_dir:
+             to one epoch of 131,072 links through runners.run, twice
+             with one --cache_dir:
              the second run reads the caches and equals the first
              (subgraph and SIGN features, epoch-0 loss); per run get_data,
              preprocessing, epoch and eval seconds, Hits@50, peak memory.
@@ -196,11 +198,31 @@ Phases, each printing one JSON line:
              rows at W = 1024 (transE) and 2048 (rotatE), the relation
              row (transE), one line each
 
+  bf16       the bfloat16 compute dtype (--dtype bfloat16): ELPH at full
+             width through runners.run.run (the train_elph run at
+             bfloat16, with --profile_dir: its epoch-1 trace names K1's
+             bfloat16 kernel), K1 launches a step by instance, the state
+             float32 after training, 20 steps profiled (idle share, top
+             kernels), a step at bfloat16 beside one at float32 on the same
+             staged data in turns, the checkpoint served within 1e-2 of
+             predict; BUDDY at full width, one epoch of
+             BUDDY_TRAIN_SAMPLES links, served in bfloat16;
+             SEALDGCNN at Config defaults on the collab tree cut to 16
+             train batches (K1 launches a step by instance, the step at
+             both dtypes in turns); a small ELPH with a diffused node
+             table and a small SEALDGCNN on the card against the CPU at
+             bfloat16 (logits, one step's gradients), GCN, SAGE and
+             MLPLinkPredictor in float32; K1's bfloat16 add at PlanSpmm's
+             shape (W = 1024) and SEAL's union (W = 1024, W = 1): dyadic
+             inputs bit-equal to the plain version, random ones within the
+             bound of the float64 sum, two calls bit-equal, timed as in
+             the kernels phase
   dp         data parallelism (parallel/, the trainers' data axis): (a)
              world size 1 on NCCL at full width: BUDDY at Config defaults
              on synth-ws-200000 through runners.run with --mesh_shape 1 (1
-             epoch, --check_determinism), its epoch loss within rtol 1e-4
-             of the train phase's first epoch without a mesh, and ELPH at
+             epoch of BUDDY_TRAIN_SAMPLES links, --check_determinism),
+             its epoch loss within rtol 1e-4 of the train phase's first
+             epoch without a mesh, and ELPH at
              Config defaults with --mesh_shape 1 (one epoch of 131072
              links) against the train_elph run's first epoch; per model
              the epoch seconds, step ms, 50 / 20 steps on the mesh and
@@ -266,7 +288,9 @@ four gather_rows backward instances, SEAL's label embedding and KGE's
 three, each with its own launches in its run; and the three K1 add
 instances of the dp phase's meshed ELPH step, with the add launches of
 its world-size-1 ELPH run; and the mesh_graph phase's K1 instances, each
-with the launches of the run it came from), the
+with the launches of the run it came from; and the bf16 phase's three K1
+bfloat16 add instances, with the bfloat16 add launches of its ELPH and
+SEALDGCNN runs), the
 nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises: the run exits
 non-zero and prints no last line.  Without a CUDA device it exits 2 at once.
@@ -297,6 +321,12 @@ REPLACES = {"segscan": "subgraph_sketching_tpu/ops/pallas_segscan.py:103",
             "block_prop": "studies/pallas_sketch_prop.py:134",
             "dma_gather": "studies/pallas_dma_gather_rate.py:72"}
 REQUEST_SIZES = (1024, 8192, 65536, 262144)
+# The BUDDY runs of the train, dp and bf16 phases train this many links an
+# epoch (256 steps of the default batch 1024; the full width, cut in
+# depth only, to keep the whole script inside its time limit), and the
+# collab runs COLLAB_TRAIN_SAMPLES
+BUDDY_TRAIN_SAMPLES = 262144
+COLLAB_TRAIN_SAMPLES = 131072
 
 
 START = time.perf_counter()
@@ -442,7 +472,8 @@ def check_add(got, want, v, x, ptr, what: str) -> None:
 
 def k1_record(what: str, op: str, v, x, ptr) -> dict:
     """K1 on one instance's inputs: held against its plain version on the
-    card (min/max bit-equal, add within ADD_TOLERANCE) and against itself
+    card (min/max bit-equal, float32 add within ADD_TOLERANCE, bfloat16
+    add, both, within BF16_ADD_TOLERANCE of the float64 sum) and against itself
     across two calls, then timed beside it, beside one scatter_reduce call
     (a yardstick the port never calls) and beside its bound."""
     import torch
@@ -458,7 +489,11 @@ def k1_record(what: str, op: str, v, x, ptr) -> dict:
     if not torch.equal(got, again):
         raise AssertionError(f"{what}: two calls differ")
     max_err = float((got.double() - want.double()).abs().max())
-    if op == "add":
+    if op == "add" and v.dtype == torch.bfloat16:
+        check_bf16_add(got, v, ptr, what)
+        check_bf16_add(want, v, ptr, f"{what} (plain version)")
+        tolerance = BF16_ADD_TOLERANCE
+    elif op == "add":
         check_add(got, want, v, x, ptr, what)
         tolerance = ADD_TOLERANCE
     else:
@@ -1015,8 +1050,9 @@ def message_graphs(splits) -> int:
 
 def phase_train(splits, seed: int = 4) -> dict:
     """BUDDY training at full width through the runner's entry point:
-    ``runners.run.run`` on synth-ws-200000 at Config defaults, 2 epochs,
-    eval every epoch, --check_determinism and --save_model, with the K1
+    ``runners.run.run`` on synth-ws-200000 at Config defaults, 2 epochs of
+    BUDDY_TRAIN_SAMPLES links, eval every epoch, --check_determinism and
+    --save_model, with the K1
     launch counts read around it.  Then, apart from that run: the device
     idle share over 200 steps under torch.profiler, and the saved
     checkpoint served by ``scorer_from_checkpoint``, whose scores for 65536
@@ -1042,8 +1078,8 @@ def phase_train(splits, seed: int = 4) -> dict:
     ckpt = os.path.join(BUILD_DIR, "smoke_train_checkpoint")
     shutil.rmtree(ckpt, ignore_errors=True)
     cfg = Config(dataset_name="synth-ws-200000", epochs=2, eval_steps=1,
-                 check_determinism=True, save_model=True,
-                 checkpoint_dir=ckpt)
+                 train_samples=BUDDY_TRAIN_SAMPLES, check_determinism=True,
+                 save_model=True, checkpoint_dir=ckpt)
     for k in segscan.launches:
         segscan.launches[k] = 0
     torch.cuda.reset_peak_memory_stats()
@@ -1070,11 +1106,12 @@ def phase_train(splits, seed: int = 4) -> dict:
             or not losses[1] < losses[0]:
         raise AssertionError(f"training losses not finite and falling: "
                              f"{losses}")
-    n_links = len(splits["train"].links)   # every link, every epoch
-    steps = math.ceil(n_links / cfg.batch_size)
+    n_links = len(splits["train"].links)
+    n_used = min(BUDDY_TRAIN_SAMPLES, n_links)   # each epoch's links
+    steps = math.ceil(n_used / cfg.batch_size)
     epochs = [{"epoch": i, "loss": r["rep0_loss"],
                "train_s": r["rep0_train_time"], "eval_s": r["rep0_eval_time"],
-               "trained_links_per_s": n_links / r["rep0_train_time"],
+               "trained_links_per_s": n_used / r["rep0_train_time"],
                "steps_per_s": steps / r["rep0_train_time"],
                "hits@100": {"train": r["rep0_TrainHits@100"] / 100,
                             "valid": r["rep0_tmp_valHits@100"] / 100,
@@ -1137,7 +1174,8 @@ def phase_train(splits, seed: int = 4) -> dict:
             "batch_size": cfg.batch_size,
             "minhash_num_perm": cfg.minhash_num_perm, "hll_p": cfg.hll_p,
             "max_hash_hops": cfg.max_hash_hops, "sign_k": cfg.sign_k,
-            "lr": cfg.lr, "train_links": n_links, "steps_per_epoch": steps,
+            "lr": cfg.lr, "train_links": n_links,
+            "train_samples": n_used, "steps_per_epoch": steps,
             "run_s": run_s, "preprocess_s": rows[0]["rep0_preprocess_time"],
             "epochs": epochs, "results": results,
             "determinism": "epoch 0 bit-identical on two runs",
@@ -1809,7 +1847,8 @@ def write_collab(root: str, seed: int = 6) -> None:
 def phase_datasets_collab(root: str) -> dict:
     """(a) ogbl-collab at its published shape through the runner: the tree
     written under ``root`` (which the caller removes), then the
-    reference's collab BUDDY command, cut to one epoch, run twice with one
+    reference's collab BUDDY command, cut to one epoch of
+    COLLAB_TRAIN_SAMPLES links, run twice with one
     --cache_dir.  The second run reads the caches (the train negatives and
     every split's subgraph features: no sketch is built, so no min/max K1
     launch), and its subgraph features, SIGN features and epoch-0 loss
@@ -1843,7 +1882,9 @@ def phase_datasets_collab(root: str) -> dict:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             results = runner.main(shlex.split(COLLAB_COMMAND) + [
-                "--epochs", "1", "--device", "cuda", "--data_root", root,
+                "--epochs", "1", "--train_samples",
+                str(COLLAB_TRAIN_SAMPLES), "--device", "cuda",
+                "--data_root", root,
                 "--cache_dir", os.path.join(root, "cache"),
                 "--checkpoint_dir", ckpt])
             torch.cuda.synchronize()
@@ -1889,7 +1930,8 @@ def phase_datasets_collab(root: str) -> dict:
     train = first["train"]
     return {"phase": "datasets", "part": "collab",
             "dataset": "ogbl-collab", "shape": COLLAB,
-            "command": COLLAB_COMMAND + " --epochs 1",
+            "command": COLLAB_COMMAND + " --epochs 1 --train_samples "
+                       + str(COLLAB_TRAIN_SAMPLES),
             "write_s": write_s, "nodes": train.num_nodes,
             "train_message_edges": int(train.edge_index.shape[1]),
             "train_links": int(train.num_links),
@@ -4018,8 +4060,9 @@ def _degrees_twice(g, seed: int) -> dict:
 def phase_dp(splits, train: dict, elph: dict, alongside=None) -> tuple:
     """Data parallelism (parallel/, the trainers' data axis) on the card.
     (a) world size 1 on NCCL at full width: BUDDY at Config defaults on
-    synth-ws-200000 through runners.run with --mesh_shape 1 (1 epoch,
-    --check_determinism) held against the first epoch of the train
+    synth-ws-200000 through runners.run with --mesh_shape 1 (1 epoch of
+    BUDDY_TRAIN_SAMPLES links, --check_determinism) held against the
+    first epoch of the train
     phase's run without a mesh, and ELPH at Config defaults with
     --mesh_shape 1 (one epoch of DP_ELPH_SAMPLES links) held against the
     train_elph run's first epoch;
@@ -4048,6 +4091,7 @@ def phase_dp(splits, train: dict, elph: dict, alongside=None) -> tuple:
         # one epoch (the train phase ran two): room for mesh_graph
         buddy_cfg = Config(dataset_name="synth-ws-200000", epochs=1,
                            eval_steps=1, check_determinism=True,
+                           train_samples=BUDDY_TRAIN_SAMPLES,
                            mesh_shape=[1], mesh_axes=["data"],
                            checkpoint_dir=os.path.join(work, "buddy"))
         _, buddy = _world1(buddy_cfg, {k: train[k] for k in (
@@ -4621,6 +4665,607 @@ def phase_mesh_graph(splits, elph: dict, work: str,
     return k1, records
 
 
+# -------------------------------------------------------------- bfloat16 --
+
+BF16_ELPH_SAMPLES = 131072     # 128 steps of the default batch 1024
+BF16_PROFILE_STEPS = 20
+BF16_TIMED_STEPS = 5           # steps a turn, float32 against bfloat16
+BF16_SEAL_BATCHES = 16         # SEALDGCNN's train links: 16 batches of 1024
+BF16_SEAL_PROFILE_STEPS = 10
+# K1 launches of one training step at --dtype bfloat16, by instance
+BF16_ELPH_ADDS = {"segscan_add_bf16": 4,   # PlanSpmm each way, 2 convs
+                  "segscan_add_f32": 1}    # gather_rows' backward (float32
+#                                            GCN output: its float32 bias)
+BF16_SEAL_ADDS = {"segscan_add_bf16": 9,   # 4 union SpMMs each way, the
+                  "segscan_add_f32": 1}    # label table's backward; degrees
+BF16_ADD_TOLERANCE = ("dyadic inputs bit-equal to the plain version; random "
+                      "ones |err| <= 2^-8 |sum| + 2 k 2^-24 sum|v| of the "
+                      "float64 sum of a row's k terms (half a bfloat16 ulp "
+                      "and the float32 accumulation), kernel and plain alike")
+BF16_CARD_TOLERANCE = ("logits rtol = atol = 0.05 (tests/test_dtype.py's); "
+                       "each gradient within 0.1 of the CPU's by norm, "
+                       "but the pre-BN biases' (a true gradient of 0)")
+
+
+def check_bf16_add(got, v, ptr, what: str) -> float:
+    """K1's bfloat16 add (summed in float32, rounded once) within its bound
+    of the float64 sum; returns the largest |err|."""
+    import torch
+
+    from subgraph_sketching_tpu_torch.ops import segscan
+    n, width = got.shape
+    ids = segscan.segment_ids(ptr)
+    zeros = torch.zeros((n, width), dtype=torch.float64, device=v.device)
+    want = zeros.index_add(0, ids, v.double())
+    scale = zeros.index_add(0, ids, v.double().abs())
+    k = ptr.diff().double()[:, None]
+    err = (got.double() - want).abs()
+    if bool((err > 2.0 ** -8 * want.abs() + 2 * k * 2.0 ** -24 * scale)
+            .any()):
+        raise AssertionError(f"{what}: beyond the bfloat16 add's bound of "
+                             f"the float64 sum: max |err| {float(err.max())}")
+    return float(err.max())
+
+
+def bf16_k1_record(what: str, v, ptr, seed: int) -> dict:
+    """K1's bfloat16 add on one shape: a dyadic [S, W] input (multiples of
+    1/4 in [-8, 8): every float32 partial sum exact) bit-equal to the
+    plain version, then the real input ``v`` held by ``k1_record``
+    (kernel and plain version within BF16_ADD_TOLERANCE of the float64
+    sum, two calls bit-equal) and timed."""
+    import torch
+
+    from subgraph_sketching_tpu_torch.ops import segscan
+    n = ptr.shape[0] - 1
+    x = torch.empty((n, v.shape[1]), dtype=torch.bfloat16, device=v.device)
+    g = torch.Generator(device=v.device).manual_seed(seed)
+    dy = (torch.randint(-32, 32, v.shape, generator=g, device=v.device)
+          .float() / 4).to(torch.bfloat16)
+    got = segscan.segment_combine(dy, x, "add", ptr)
+    want = segscan.segment_combine_plain(dy, x, "add", ptr)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+        raise AssertionError(f"{what}: dyadic inputs not bit-equal to the "
+                             f"plain version")
+    del dy, got, want
+    return {**k1_record(what, "add", v, x, ptr),
+            "dyadic": "bit-equal to the plain version"}
+
+
+def _bf16_trainer_pair(trainer, cfg):
+    """A float32 twin of a bfloat16 trainer: the same staged data, the
+    model built at float32 (the staging does not read --dtype)."""
+    import copy
+    import dataclasses
+    twin = copy.copy(trainer)
+    twin.cfg = dataclasses.replace(cfg, dtype="float32")
+    twin.dtype = None
+    return twin
+
+
+def _turns_ms(timed, a, b) -> tuple:
+    """(a ms, b ms): ``timed`` over each of a and b in turns a, b, b, a;
+    each the mean of its two turns."""
+    ta = [timed(a)]
+    tb = [timed(b), timed(b)]
+    ta.append(timed(a))
+    return sum(ta) / 2, sum(tb) / 2
+
+
+def _bf16_elph(splits, elph: dict, work: str, seed: int) -> tuple:
+    """ELPH at full width at --dtype bfloat16 through runners.run.run (the
+    train_elph phase's run: synth-ws-200000, Config defaults, 2 epochs of
+    BF16_ELPH_SAMPLES links, --check_determinism, --save_model) with
+    --profile_dir: the trace of epoch 1 names the bfloat16 K1 kernel.
+    Returns (the PlanSpmm-forward K1 record, the run's record)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from subgraph_sketching_tpu_torch.config import Config
+    from subgraph_sketching_tpu_torch.graph.preprocess import (
+        build_all_splits, build_link_dataset,
+    )
+    from subgraph_sketching_tpu_torch.graph.splits import SplitData
+    from subgraph_sketching_tpu_torch.ops import segscan
+    from subgraph_sketching_tpu_torch.runners.run import build_trainer, run
+    from subgraph_sketching_tpu_torch.serving import scorer_from_checkpoint
+    from subgraph_sketching_tpu_torch.train import checkpoint
+    from subgraph_sketching_tpu_torch.train.loops import make_optimizer
+
+    ckpt, prof = os.path.join(work, "elph"), os.path.join(work, "elph_trace")
+    cfg = Config(dataset_name="synth-ws-200000", model="ELPH", epochs=2,
+                 eval_steps=1, train_samples=BF16_ELPH_SAMPLES,
+                 check_determinism=True, save_model=True,
+                 checkpoint_dir=ckpt, profile_dir=prof, dtype="bfloat16")
+    _reset_k1()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(cfg, device="cuda")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(segscan.launches)
+    peak = torch.cuda.max_memory_allocated()
+    steps = math.ceil(BF16_ELPH_SAMPLES / cfg.batch_size)
+    trained = steps * (cfg.epochs + 2)   # + the determinism check's 2
+    for name, per_step in BF16_ELPH_ADDS.items():
+        if launches[name] < per_step * trained:
+            raise AssertionError(f"bf16 ELPH run: K1 launches {launches}, "
+                                 f"{per_step} {name} a step expected")
+    traces = glob.glob(os.path.join(prof, "*.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"bf16 ELPH run: traces {traces}")
+    trace_bytes = os.path.getsize(traces[0])
+    with open(traces[0]) as f:
+        named = "AddBF16" in f.read()
+    if not named:
+        raise AssertionError("the epoch-1 trace does not name K1's "
+                             "bfloat16 kernel")
+    shutil.rmtree(prof)
+    rows = _metric_rows(ckpt)
+    losses = [r["rep0_loss"] for r in rows]
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"bf16 ELPH losses {losses}")
+
+    # the trained state: parameters and Adam moments float32
+    datasets = build_all_splits(splits, cfg, device="cuda")
+    trainer = build_trainer(cfg, datasets, datasets["train"].x.shape[-1],
+                            "cuda")
+    model = trainer.init_model(0)
+    opt = make_optimizer(cfg, model.parameters())
+    checkpoint.restore_into(ckpt, model, opt)
+    kinds = {str(t.dtype) for t in model.state_dict().values()} | {
+        str(t.dtype) for st in opt.state.values() for k, t in st.items()
+        if k != "step"}
+    if kinds - {"torch.float32", "torch.int64"}:
+        raise AssertionError(f"bf16 ELPH state dtypes {kinds}")
+
+    # 20 steps under torch.profiler: idle share, top kernels, K1 launches
+    # by instance; then a step at bfloat16 beside one at float32 (the same
+    # staged data), in turns
+    n_links = trainer.num_links("train")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    order = torch.randperm(n_links, generator=g, device="cuda")
+    bs = cfg.batch_size
+    window_s, busy_ms, per = profile_window(
+        lambda: trainer.run_epoch(model, opt, seed, order=order[:3 * bs]),
+        lambda: trainer.run_epoch(model, opt, seed,
+                                  order=order[:BF16_PROFILE_STEPS * bs]))
+    window = {k: v for k, v in segscan.launches.items() if v}
+    if window != {k: v * BF16_PROFILE_STEPS
+                  for k, v in BF16_ELPH_ADDS.items()}:
+        raise AssertionError(f"bf16 ELPH: {BF16_PROFILE_STEPS} steps, K1 "
+                             f"launches {window}")
+    twin = _bf16_trainer_pair(trainer, cfg)
+
+    def timed(tr) -> float:
+        m = tr.init_model(1)
+        o = make_optimizer(cfg, m.parameters())
+        tr.run_epoch(m, o, seed, order=order[:2 * bs])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tr.run_epoch(m, o, seed,
+                     order=order[2 * bs:(2 + BF16_TIMED_STEPS) * bs])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / BF16_TIMED_STEPS
+
+    f32_ms, bf16_ms = _turns_ms(timed, twin, trainer)
+
+    # K1 on the PlanSpmm forward's sub-run results at bfloat16 (one step's
+    # GCN input width, random rows through the staged plan)
+    ps = trainer._data["train"]["plan"]
+    xb = torch.randn((trainer._data["train"]["num_nodes"],
+                      cfg.hidden_channels), generator=g,
+                     device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        v = ps.fwd.reduce_subruns(xb, "add", ps._w_fwd).contiguous()
+    del xb
+    k1 = {"phase": "bf16", "part": "k1", "launches":
+          launches["segscan_add_bf16"],
+          "name": f"segscan_add_bf16 (PlanSpmm forward, "
+                  f"W={cfg.hidden_channels})",
+          **bf16_k1_record("bf16 PlanSpmm forward", v, ps.fwd.sub_ptr, seed)}
+    del v
+
+    # serve what was trained: the scorer rebuilt from the checkpoint (its
+    # config: bfloat16) against the trainer's predict
+    model = trainer.init_model(0)
+    checkpoint.restore_into(ckpt, model, step=cfg.epochs)
+    links = np.random.default_rng(seed).integers(
+        0, datasets["train"].num_nodes, (65536, 2))
+    query = SplitData(splits["train"].graph, links,
+                      np.zeros((0, 2), np.int64))
+    trainer.stage("query", build_link_dataset(
+        query, cfg, "query", reuse_from=datasets["train"], device="cuda"))
+    want, _ = trainer.predict(model, "query")
+    del datasets, trainer, twin, model, opt
+    scorer = scorer_from_checkpoint(ckpt, device="cuda")
+    got = scorer.score(links)
+    serve_err = float(np.abs(got - want).max())
+    if not np.isfinite(got).all() or serve_err > 1e-2:
+        raise AssertionError(f"bf16 ELPH served scores differ from predict: "
+                             f"max |err| {serve_err}")
+    del scorer
+    shutil.rmtree(ckpt)
+    return k1, {
+        "phase": "bf16", "part": "elph", "dataset": cfg.dataset_name,
+        "dtype": cfg.dtype, "hidden_channels": cfg.hidden_channels,
+        "train_samples": BF16_ELPH_SAMPLES, "steps_per_epoch": steps,
+        "trained_steps": trained, "run_s": run_s,
+        "epochs": [{"epoch": i, "loss": r["rep0_loss"],
+                    "train_s": r["rep0_train_time"],
+                    "eval_s": r["rep0_eval_time"],
+                    "step_ms": r["rep0_train_time"] * 1e3 / steps}
+                   for i, r in enumerate(rows)],
+        "determinism": "epoch 0 bit-identical on two runs",
+        "trace": {"epoch": 1, "bytes": trace_bytes,
+                  "names_bf16_kernel": named},
+        "k1_launches": launches,
+        "k1_launches_per_step": {k: launches[k] / trained
+                                 for k in BF16_ELPH_ADDS},
+        "state_dtypes": sorted(kinds), "peak_memory_bytes": peak,
+        "step_ms": {"bfloat16": bf16_ms, "float32": f32_ms,
+                    "timed_steps": BF16_TIMED_STEPS,
+                    "turns": "float32, bfloat16, bfloat16, float32",
+                    "train_elph_plan_step_ms_float32":
+                        elph.get("plan_step_ms")},
+        "profile": {"steps": BF16_PROFILE_STEPS,
+                    "window_ms": window_s * 1e3,
+                    "step_ms": window_s * 1e3 / BF16_PROFILE_STEPS,
+                    "device_busy_ms": busy_ms,
+                    "device_idle_share": 1 - busy_ms / (window_s * 1e3),
+                    "k1_launches": window,
+                    "top_kernels": sorted(([k, v[0], v[1]]
+                                           for k, v in per.items()),
+                                          key=lambda r: -r[1])[:10]},
+        "served_links": len(links), "served_max_abs_err": serve_err,
+        "serve_tolerance": 1e-2}
+
+
+def _bf16_buddy(work: str, seed: int) -> dict:
+    """BUDDY at full width at --dtype bfloat16 through runners.run.run (one
+    epoch of BUDDY_TRAIN_SAMPLES links, synth-ws-200000, Config defaults,
+    --save_model), then served from its checkpoint in bfloat16."""
+    import numpy as np
+    import torch
+
+    from subgraph_sketching_tpu_torch.config import Config
+    from subgraph_sketching_tpu_torch.ops import segscan
+    from subgraph_sketching_tpu_torch.runners.run import run
+    from subgraph_sketching_tpu_torch.serving import scorer_from_checkpoint
+
+    ckpt = os.path.join(work, "buddy")
+    cfg = Config(dataset_name="synth-ws-200000", epochs=1, save_model=True,
+                 train_samples=BUDDY_TRAIN_SAMPLES, checkpoint_dir=ckpt,
+                 dtype="bfloat16")
+    _reset_k1()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run(cfg, device="cuda")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    (row,) = _metric_rows(ckpt)
+    launches = dict(segscan.launches)
+    peak = torch.cuda.max_memory_allocated()
+    t1 = time.perf_counter()
+    scorer = scorer_from_checkpoint(ckpt, device="cuda")
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t1
+    if scorer.model.lin.dtype != torch.bfloat16:
+        raise AssertionError("the bf16 BUDDY checkpoint served at "
+                             f"{scorer.model.lin.dtype}")
+    links = np.random.default_rng(seed).integers(0, scorer.num_nodes,
+                                                 (65536, 2))
+    scores = scorer.score(links)
+    del scorer
+    shutil.rmtree(ckpt)
+    if not (np.isfinite(scores).all() and np.isfinite(row["rep0_loss"])):
+        raise AssertionError(f"bf16 BUDDY: loss {row['rep0_loss']}, scores "
+                             f"finite {np.isfinite(scores).all()}")
+    return {"phase": "bf16", "part": "buddy", "dtype": cfg.dtype,
+            "dataset": cfg.dataset_name, "run_s": run_s,
+            "loss": row["rep0_loss"], "epoch_s": row["rep0_train_time"],
+            "eval_s": row["rep0_eval_time"],
+            "preprocess_s": row["rep0_preprocess_time"],
+            "k1_launches": launches, "peak_memory_bytes": peak,
+            "serve_rebuild_s": rebuild_s, "served_links": len(links),
+            "served_finite": True}
+
+
+def _bf16_seal(root: str, splits_memo: dict, seed: int) -> tuple:
+    """SEALDGCNN at --dtype bfloat16 at Config defaults on the collab tree
+    (SEAL_COMMAND cut to BF16_SEAL_BATCHES train batches) through the
+    runner; then BF16_SEAL_PROFILE_STEPS steps under torch.profiler (K1
+    launches a step by instance) and a step at bfloat16 beside one at
+    float32 in turns; K1's bfloat16 add on one batch's union at W = 1024
+    and W = 1.  Returns (K1 records, the record)."""
+    import shlex
+
+    import numpy as np
+    import torch
+
+    from subgraph_sketching_tpu_torch.ops import segscan
+    from subgraph_sketching_tpu_torch.train.loops import make_optimizer
+
+    cut = ["--train_samples", str(BF16_SEAL_BATCHES * 1024),
+           "--val_samples", "4096", "--test_samples", "4096",
+           "--dtype", "bfloat16"]
+    trainer, row, run_s, peak, launches = _runner_run(
+        root, "seal_dgcnn_bf16", shlex.split(SEAL_COMMAND) + cut,
+        splits_memo)
+    cfg = trainer.cfg
+    if launches["segscan_add_bf16"] < BF16_SEAL_ADDS["segscan_add_bf16"] \
+            * BF16_SEAL_BATCHES:
+        raise AssertionError(f"bf16 SEAL run: K1 launches {launches}")
+    ds, bs = trainer.datasets["train"], cfg.batch_size
+    order = np.random.default_rng(seed).permutation(len(ds))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    full = np.ones(bs, bool)
+    model = trainer.init_model(seed)
+    opt = make_optimizer(cfg, model.parameters())
+
+    def steps(tr, m, o, lo: int, k: int) -> None:
+        for i in range(lo, lo + k):
+            tr.step(m, o, ds.batch(order[i * bs:(i + 1) * bs]), full, g)
+
+    window_s, busy_ms, per = profile_window(
+        lambda: steps(trainer, model, opt, 0, 2),
+        lambda: steps(trainer, model, opt, 2, BF16_SEAL_PROFILE_STEPS))
+    window = {k: v for k, v in segscan.launches.items() if v}
+    if window != {k: v * BF16_SEAL_PROFILE_STEPS
+                  for k, v in BF16_SEAL_ADDS.items()}:
+        raise AssertionError(f"bf16 SEAL: {BF16_SEAL_PROFILE_STEPS} steps, "
+                             f"K1 launches {window}")
+    twin = _bf16_trainer_pair(trainer, cfg)
+
+    def timed(tr) -> float:
+        m = tr.init_model(seed)
+        o = make_optimizer(cfg, m.parameters())
+        steps(tr, m, o, 0, 1)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        steps(tr, m, o, 1, BF16_TIMED_STEPS)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / BF16_TIMED_STEPS
+
+    f32_ms, bf16_ms = _turns_ms(timed, twin, trainer)
+    batch, _ = trainer.to_device(ds.batch(order[:bs]))
+    ei, w, ((perm, ptr), _) = batch["graph"].gcn()
+    n = batch["graph"].num_nodes
+    k1 = []
+    for width in (cfg.hidden_channels, 1):
+        x = torch.randn((n, width), generator=g,
+                        device="cuda").to(torch.bfloat16)
+        v = (x.index_select(0, ei[0][perm])
+             * w[perm, None].to(torch.bfloat16)).contiguous()
+        k1.append({"phase": "bf16", "part": "k1",
+                   "launches": launches["segscan_add_bf16"],
+                   "name": f"segscan_add_bf16 (SEAL union, W={width})",
+                   **bf16_k1_record(f"bf16 SEAL union W={width}", v, ptr,
+                                    seed + width)})
+        del x, v
+    del batch, trainer, twin, model, opt
+    return k1, {
+        "phase": "bf16", "part": "seal", "model": "SEALDGCNN",
+        "dtype": "bfloat16",
+        "command": SEAL_COMMAND + " " + " ".join(cut),
+        "train_batches": BF16_SEAL_BATCHES, "run_s": run_s,
+        "epoch_s": row["rep0_train_time"], "loss": row["rep0_loss"],
+        "peak_memory_bytes": peak, "k1_launches": launches,
+        "step_ms": {"bfloat16": bf16_ms, "float32": f32_ms,
+                    "timed_steps": BF16_TIMED_STEPS,
+                    "turns": "float32, bfloat16, bfloat16, float32"},
+        "profile": {"steps": BF16_SEAL_PROFILE_STEPS,
+                    "step_ms": window_s * 1e3 / BF16_SEAL_PROFILE_STEPS,
+                    "device_busy_ms": busy_ms,
+                    "device_idle_share": 1 - busy_ms / (window_s * 1e3),
+                    "k1_launches_per_step": {
+                        k: v / BF16_SEAL_PROFILE_STEPS
+                        for k, v in window.items()},
+                    "top_kernels": sorted(([k, v[0], v[1]]
+                                           for k, v in per.items()),
+                                          key=lambda r: -r[1])[:10]}}
+
+
+# the biases that feed a BatchNorm in the card-vs-CPU ELPH (its head and
+# the diffused table's SIGN): a true gradient of zero, and each device's
+# own rounding noise
+BF16_PRE_BN_BIAS = (r"(predictor\.(label_lin_layer|lin_out|lin_emb_out)"
+                    r"|embedding\.sign_embedding\.lin_\d+)\.bias")
+
+
+def _grads_by_norm(card: dict, cpu: dict, what: str) -> float:
+    """The largest ||card - cpu|| / ||cpu|| over the gradients but those of
+    BF16_PRE_BN_BIAS; each must be within 0.1."""
+    import re
+    worst = 0.0
+    for k, want in cpu.items():
+        if re.fullmatch(BF16_PRE_BN_BIAS, k):
+            continue
+        d = float((card[k].double().cpu() - want.double()).norm())
+        rel = d / max(float(want.double().norm()), 1e-30)
+        worst = max(worst, rel)
+        if rel > 0.1:
+            raise AssertionError(f"{what}: gradient {k} is {rel} of its "
+                                 f"norm from the CPU's")
+    return worst
+
+
+def _bf16_card_vs_cpu(seed: int, card: str = "cuda") -> dict:
+    """A small ELPH with a SIGN-diffused node-embedding table (the ddi
+    kind: synth-ws, hidden 32, sign_k 2) and a small SEALDGCNN (synth-ba,
+    hidden 32) at --dtype bfloat16 from one init on the card and on the
+    CPU: eval logits and one training step's gradients (dropout off),
+    within BF16_CARD_TOLERANCE; the card's step went through K1's
+    bfloat16 add (the embedding path's gather_rows backward included).
+    Then ``GCN``, ``SAGE`` and ``MLPLinkPredictor`` forward and backward
+    on the card against the CPU in float32 (rtol 1e-4, atol 1e-5)."""
+    import numpy as np
+    import torch
+
+    from subgraph_sketching_tpu_torch.config import Config
+    from subgraph_sketching_tpu_torch.graph.datasets import get_data
+    from subgraph_sketching_tpu_torch.graph.preprocess import build_all_splits
+    from subgraph_sketching_tpu_torch.graph.synthetic import (
+        watts_strogatz_graph,
+    )
+    from subgraph_sketching_tpu_torch.models import gnn
+    from subgraph_sketching_tpu_torch.ops import segscan
+    from subgraph_sketching_tpu_torch.ops.segment_scan import gather_rows
+    from subgraph_sketching_tpu_torch.train.loops import ElphTrainer
+    from subgraph_sketching_tpu_torch.train.seal_loop import (
+        build_seal_trainer,
+    )
+
+    devices = {"cpu": "cpu", "card": card}
+
+    def no_dropout(m):
+        for mod in m.modules():
+            if isinstance(mod, gnn.Dropout):
+                mod.p = 0.0
+        return m
+
+    def grads(model) -> dict:
+        return {k: p.grad.detach().cpu() for k, p in model.named_parameters()
+                if p.grad is not None}
+
+    def held(res, what) -> dict:
+        np.testing.assert_allclose(res["card"][0], res["cpu"][0], rtol=0.05,
+                                   atol=0.05)
+        return {"max_logit_abs_diff": float((res["card"][0]
+                                             - res["cpu"][0]).abs().max()),
+                "max_grad_rel_diff": _grads_by_norm(res["card"][1],
+                                                    res["cpu"][1], what),
+                "card_k1_launches_one_step": res["card"][2]}
+
+    out = {}
+    # ELPH with the diffused table
+    cfg = Config(dataset_name="synth-ws", model="ELPH", hidden_channels=32,
+                 train_node_embedding=True, propagate_embeddings=True,
+                 sign_k=2, dtype="bfloat16")
+    splits, directed, _ = get_data(cfg)
+    ds = build_all_splits(splits, cfg, directed=directed, device="cpu")
+    width = ds["train"].x.shape[-1]
+    trainers = {k: ElphTrainer(cfg, ds["train"], width, device=d)
+                for k, d in devices.items()}
+    state = trainers["cpu"].init_model(seed).state_dict()
+    sf = trainers["cpu"]._data["train"]["sf"]
+    res = {}
+    for k, tr in trainers.items():
+        d = devices[k]
+        model = tr.init_model(seed)
+        model.load_state_dict(state)
+        data = tr._data["train"]
+        data["sf"] = sf.to(d)
+        idx = torch.arange(512, device=d)
+        links = data["links"][idx]
+        model.eval()
+        with torch.no_grad():
+            feats = tr.node_features(model, data)
+            emb = tr.embedding_table(model, data)[links]
+            logits = model.predictor(data["sf"][idx], feats[links],
+                                     emb).float().cpu()
+        no_dropout(model).train()
+        _reset_k1()
+        feats = tr.node_features(model, data)
+        emb = gather_rows(tr.embedding_table(model, data), links)
+        y = model.predictor(data["sf"][idx], gather_rows(feats, links), emb)
+        y.float().square().mean().backward()
+        res[k] = (logits, grads(model), dict(segscan.launches))
+    # the GCN's PlanSpmm each way for 2 convolutions, and the diffused
+    # table's gather_rows backward (the diffusion itself runs on the
+    # float32 table, as in JAX)
+    if res["card"][2]["segscan_add_bf16"] != 5:
+        raise AssertionError(f"bf16 ELPH with embeddings on the card: K1 "
+                             f"launches {res['card'][2]}")
+    out["elph_embedding"] = held(res, "bf16 ELPH")
+    # SEALDGCNN
+    cfg = Config(dataset_name="synth-ba", model="SEALDGCNN",
+                 hidden_channels=32, dtype="bfloat16")
+    splits, _, _ = get_data(cfg)
+    trainers = {k: build_seal_trainer(cfg, splits, d)
+                for k, d in devices.items()}
+    state = trainers["cpu"].init_model(seed).state_dict()
+    raw = trainers["cpu"].datasets["train"].batch(np.arange(256))
+    res = {}
+    for k, tr in trainers.items():
+        model = tr.init_model(seed)
+        model.load_state_dict(state)
+        batch, y = tr.to_device(raw)
+        model.eval()
+        with torch.no_grad():
+            logits = model(batch).float().cpu()
+        no_dropout(model).train()
+        _reset_k1()
+        tr.loss_fn(model(batch), y, torch.ones(
+            len(y), dtype=torch.bool, device=devices[k])).backward()
+        res[k] = (logits, grads(model), dict(segscan.launches))
+    if res["card"][2]["segscan_add_bf16"] != BF16_SEAL_ADDS[
+            "segscan_add_bf16"]:
+        raise AssertionError(f"bf16 SEALDGCNN on the card: K1 launches "
+                             f"{res['card'][2]}")
+    out["seal_dgcnn"] = held(res, "bf16 SEALDGCNN")
+    # the last classes, float32
+    n = 2000
+    ei = torch.from_numpy(watts_strogatz_graph(n, 8, 0.2, seed=seed)
+                          .astype(np.int64))
+    x = torch.randn((n, 64), generator=torch.Generator().manual_seed(seed))
+    cases = {"GCN": (lambda: gnn.GCN(64, 128, 32, 3, 0.0), (ei, n)),
+             "SAGE": (lambda: gnn.SAGE(64, 128, 32, 3, 0.0), (ei, n)),
+             "MLPLinkPredictor": (lambda: gnn.MLPLinkPredictor(
+                 64, 128, 1, 3, 0.0), None)}
+    for name, (make, rest) in cases.items():
+        torch.manual_seed(seed)
+        ref = make().eval()
+        got = {}
+        for k, d in devices.items():
+            m = make().to(d).eval()
+            m.load_state_dict(ref.state_dict())
+            xd = x.to(d).requires_grad_()
+            y = (m(xd, *(r.to(d) if torch.is_tensor(r) else r
+                         for r in rest)) if rest is not None
+                 else m(xd[:1000], xd[1000:]))
+            (g_x,) = torch.autograd.grad(y.square().sum(), xd)
+            got[k] = (y.detach().cpu(), g_x.cpu())
+        for a, b in zip(got["card"], got["cpu"]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+        out[name] = {"max_abs_diff": max(float((a - b).abs().max())
+                                         for a, b in zip(got["card"],
+                                                         got["cpu"]))}
+    return {"phase": "bf16", "part": "card_vs_cpu", **out,
+            "tolerance": BF16_CARD_TOLERANCE + "; the classes in float32: "
+                         "rtol 1e-4, atol 1e-5"}
+
+
+def phase_bf16(splits, elph: dict, collab_root: str, splits_memo: dict,
+               seed: int = 20) -> tuple:
+    """The bfloat16 compute dtype (``--dtype bfloat16``) at full width:
+    ELPH (``_bf16_elph``), BUDDY (``_bf16_buddy``) and SEALDGCNN
+    (``_bf16_seal``) through the runner, the card against the CPU on
+    small runs (``_bf16_card_vs_cpu``), and K1's bfloat16 add at three
+    shapes (PlanSpmm's forward at W = 1024, SEAL's union at W = 1024 and
+    W = 1).  Returns (the K1 records, the phase's records)."""
+    work = tempfile.mkdtemp(prefix="smoke_bf16_")
+    try:
+        t0 = time.perf_counter()
+        k1_elph, elph_rec = _bf16_elph(splits, elph, work, seed)
+        elph_rec["part_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        buddy = _bf16_buddy(work, seed)
+        buddy["part_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        k1_seal, seal = _bf16_seal(collab_root, splits_memo, seed)
+        seal["part_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        card = _bf16_card_vs_cpu(seed)
+        card["part_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return [k1_elph, *k1_seal], [elph_rec, buddy, seal, card]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4703,6 +5348,9 @@ def main() -> int:
         kge, k1_kge = phase_kge(collab_root, splits_memo)
         emit(kge)
         for r in k1_kge:
+            emit(r)
+        k1_bf16, bf16 = phase_bf16(splits, elph, collab_root, splits_memo)
+        for r in bf16 + k1_bf16:
             emit(r)
         del splits_memo
         # mesh_graph's two-rank launch runs beside dp's (untimed) ones
@@ -4838,7 +5486,19 @@ def main() -> int:
          "graph_ms": r["graph_ms"],
          "launches_of": next(v for k, v in MG_LAUNCHES_OF.items()
                              if k in r["name"])}
-        for r in k1_mg]})
+        for r in k1_mg] + [
+        {"name": r["name"], "route": "cuda", "source": f"{CSRC}/segscan.cu",
+         "replaces": REPLACES["segscan"], "launches": r["launches"],
+         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+         "graph_ms": r["graph_ms"],
+         "launches_of": "segscan_add_bf16 in the bf16 phase's "
+                        + ("ELPH run (PlanSpmm each way)" if "PlanSpmm"
+                           in r["name"] else "SEALDGCNN run (the union "
+                           "SpMMs each way, both widths, and the label "
+                           "table's backward)")}
+        for r in k1_bf16]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

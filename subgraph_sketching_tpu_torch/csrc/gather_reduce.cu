@@ -88,7 +88,8 @@ gather_reduce_kernel(const U* __restrict__ rows,
   }
   __syncwarp(t.mask);
   walk_share<Op, U, T, true>(t, s, ptr, rows, out, carry, carry_row, num_rows,
-                             units, GatherLoad<U>{rows, slab, s.j0, units});
+                             units, shares,
+                             GatherLoad<U>{rows, slab, s.j0, units});
 }
 
 template <class Op, class U, int T>

@@ -100,6 +100,26 @@ __device__ __forceinline__ uint4 combine(uint4 a, uint4 b) {
                     Op::op(a.w, b.w));
 }
 
+// Float32 accumulators of an add that stores a narrower type (K1's
+// bfloat16 add, segscan.cu, via Accum below): one float a lane, or an F8,
+// the eight sums of a 16-byte unit of eight bfloat16.
+struct __align__(16) F8 {
+  float v[8];
+};
+
+template <class Op>
+__device__ __forceinline__ float combine(float a, float b) {
+  return a + b;
+}
+
+template <class Op>
+__device__ __forceinline__ F8 combine(F8 a, F8 b) {
+  F8 r;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) r.v[k] = a.v[k] + b.v[k];
+  return r;
+}
+
 template <class U>
 __device__ __forceinline__ U splat(uint32_t w);
 
@@ -110,6 +130,37 @@ template <>
 __device__ __forceinline__ uint4 splat<uint4>(uint32_t w) {
   return make_uint4(w, w, w, w);
 }
+
+template <>
+__device__ __forceinline__ float splat<float>(uint32_t w) {
+  return __uint_as_float(w);
+}
+
+template <>
+__device__ __forceinline__ F8 splat<F8>(uint32_t w) {
+  F8 r;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) r.v[k] = __uint_as_float(w);
+  return r;
+}
+
+// ---- accumulators -----------------------------------------------------------
+
+// How an op sums the units it loads: by default in the unit itself.  An op
+// that reads narrower data than it sums (segscan.cu's bfloat16 add, which
+// sums in float32) specialises it: A is the accumulator, widen converts a
+// loaded unit, narrow rounds a finished row once for its store, and kWide
+// says that a row split across shares is finished in A: the share that
+// ends it leaves its part as a "head" (scratch rows [shares, 2 shares) of
+// carry) instead of storing it, and the carry pass combines the head with
+// the row's carry-outs before the one rounding.
+template <class Op, class U>
+struct Accum {
+  using A = U;
+  static constexpr bool kWide = false;
+  static __device__ __forceinline__ A widen(U u) { return u; }
+  static __device__ __forceinline__ U narrow(A a) { return a; }
+};
 
 // ---- teams and shares -------------------------------------------------------
 
@@ -199,12 +250,30 @@ struct RowLoad {
   }
 };
 
-// acc combined with the items [a, b), kUnroll loads in flight at a time.
-template <class Op, class U, class Load>
-__device__ __forceinline__ U fold(U acc, int64_t a, int64_t b, int64_t col,
+// An F8 unit of a float32 row (K1's bfloat16 carry scratch), as two
+// 16-byte loads.
+template <>
+struct RowLoad<F8> {
+  const F8* base;
+  int64_t units;
+  __device__ __forceinline__ F8 operator()(int64_t item, int64_t col) const {
+    const float4* p =
+        reinterpret_cast<const float4*>(base + item * units + col);
+    const float4 a = __ldg(p), b = __ldg(p + 1);
+    F8 r;
+    r.v[0] = a.x; r.v[1] = a.y; r.v[2] = a.z; r.v[3] = a.w;
+    r.v[4] = b.x; r.v[5] = b.y; r.v[6] = b.z; r.v[7] = b.w;
+    return r;
+  }
+};
+
+// acc combined with the items [a, b), kUnroll loads in flight at a time
+// (load returns the accumulator type A).
+template <class Op, class A, class Load>
+__device__ __forceinline__ A fold(A acc, int64_t a, int64_t b, int64_t col,
                                   const Load& load) {
   for (; a + kUnroll <= b; a += kUnroll) {
-    U t[kUnroll];
+    A t[kUnroll];
 #pragma unroll
     for (int k = 0; k < kUnroll; ++k) t[k] = load(a + k, col);
 #pragma unroll
@@ -221,22 +290,31 @@ __device__ __forceinline__ U fold(U acc, int64_t a, int64_t b, int64_t col,
 }
 
 // Reduce and write the share's whole rows [i0, i1); write the carry-out of
-// row i1 (its items in [j, j1)) and its id, or -1.
+// row i1 (its items in [j, j1)) and its id, or -1.  carry holds `shares`
+// rows of carry-outs, and for a kWide op `shares` more of heads.
 template <class Op, class U, int T, bool kFoldSelf, class Load>
 __device__ __forceinline__ void walk_share(
     const Team<T>& t, const Share& s, const int64_t* __restrict__ ptr,
-    const U* __restrict__ self, U* __restrict__ out, U* __restrict__ carry,
+    const U* __restrict__ self, U* __restrict__ out,
+    typename Accum<Op, U>::A* __restrict__ carry,
     int64_t* __restrict__ carry_row, int64_t num_rows, int64_t units,
-    const Load& load) {
+    int64_t shares, const Load& load) {
+  using Acc = Accum<Op, U>;
+  using A = typename Acc::A;
   const int64_t c = static_cast<int64_t>(blockIdx.y) * T + t.lane;
   const bool active = c < units;
   const int64_t col = active ? c : 0;
+  const auto wide_load = [&load](int64_t item, int64_t cl) {
+    return Acc::widen(load(item, cl));
+  };
+  // a kWide op's first row, begun in an earlier share, is left as a head
+  const bool head = Acc::kWide && s.i0 < s.i1 && ptr[s.i0] < s.j0;
   int64_t j = s.j0;
   int64_t base = s.i0 - T;   // row ends ptr[base + 1 + lane], T rows a load
   int64_t ends = 0;
   // the next row's own row is loaded one row ahead
-  U next = kFoldSelf && s.i0 < s.i1 ? __ldg(self + s.i0 * units + col)
-                                    : splat<U>(Op::kIdent);
+  A next = kFoldSelf && s.i0 < s.i1
+      ? Acc::widen(__ldg(self + s.i0 * units + col)) : splat<A>(Op::kIdent);
   for (int64_t r = s.i0; r < s.i1; ++r) {
     if (r - base == T) {
       base = r;
@@ -244,15 +322,23 @@ __device__ __forceinline__ void walk_share(
       ends = q <= num_rows ? ptr[q] : 0;
     }
     const int64_t e = __shfl_sync(t.mask, ends, static_cast<int>(r - base), T);
-    U acc = next;
-    if (kFoldSelf && r + 1 < s.i1) next = __ldg(self + (r + 1) * units + col);
-    acc = fold<Op, U>(acc, j, e, col, load);
-    if (active) out[r * units + c] = acc;
+    A acc = next;
+    if (kFoldSelf && r + 1 < s.i1) {
+      next = Acc::widen(__ldg(self + (r + 1) * units + col));
+    }
+    acc = fold<Op, A>(acc, j, e, col, wide_load);
+    if (active) {
+      if (head && r == s.i0) {
+        carry[(shares + t.id) * units + c] = acc;
+      } else {
+        out[r * units + c] = Acc::narrow(acc);
+      }
+    }
     j = e;
   }
   int64_t row = -1;
   if (s.i1 < num_rows && j < s.j1) {
-    const U acc = fold<Op, U>(splat<U>(Op::kIdent), j, s.j1, col, load);
+    const A acc = fold<Op, A>(splat<A>(Op::kIdent), j, s.j1, col, wide_load);
     if (active) carry[t.id * units + c] = acc;
     row = s.i1;
   }
@@ -260,12 +346,16 @@ __device__ __forceinline__ void walk_share(
 }
 
 // The second launch: the first share of each run of carry-outs of one row
-// combines the run in share order and folds it into that row of out.
+// combines the run in share order and folds it into that row of out (for
+// a kWide op: into the head that the row's ending share, the run's next,
+// left, then rounds once).
 template <class Op, class U, int T>
 __global__ void __launch_bounds__(kBlock)
-carry_kernel(const U* __restrict__ carry,
+carry_kernel(const typename Accum<Op, U>::A* __restrict__ carry,
              const int64_t* __restrict__ carry_row, U* __restrict__ out,
              int64_t units, int64_t shares) {
+  using Acc = Accum<Op, U>;
+  using A = typename Acc::A;
   const Team<T> t;
   if (t.id >= shares) return;   // uniform across the team
   const int64_t row = carry_row[t.id];
@@ -282,9 +372,15 @@ carry_kernel(const U* __restrict__ carry,
     end += T;
   }
   const int64_t c = static_cast<int64_t>(blockIdx.y) * T + t.lane;
-  const U acc = fold<Op, U>(splat<U>(Op::kIdent), t.id, end, c < units ? c : 0,
-                            RowLoad<U>{carry, units});
-  if (c < units) out[row * units + c] = combine<Op>(out[row * units + c], acc);
+  const A acc = fold<Op, A>(splat<A>(Op::kIdent), t.id, end, c < units ? c : 0,
+                            RowLoad<A>{carry, units});
+  if (c >= units) return;
+  if constexpr (Acc::kWide) {
+    out[row * units + c] =
+        Acc::narrow(combine<Op>(carry[(shares + end) * units + c], acc));
+  } else {
+    out[row * units + c] = combine<Op>(out[row * units + c], acc);
+  }
 }
 
 // The grid of both launches: kPerBlock teams a CTA along x, one grid row

@@ -40,11 +40,29 @@
 // its time is its bytes at the card's rate plus the carry pass over its
 // ~S_hub/64 carry-outs, no longer one warp walking the whole run.
 //
+// bfloat16 add (the bfloat16 compute dtype of training: the SpMMs and the
+// row-gather backwards, JAX `--dtype bfloat16`; the TPU kernel took float32
+// add only, so the JAX package sums bfloat16 by XLA).  It reads bfloat16
+// and sums in float32: a share's rows and carry-outs are float32, and a
+// row is rounded to bfloat16 once, on its store (__float2bfloat16_rn).  A
+// row split across shares is finished by the carry pass: the share that
+// ends it leaves its part as a float32 head, and the carry pass adds the
+// head and the row's carry-outs (in share order) before the one rounding.
+// So the result is sum-then-round, as the plain version computes it, and
+// does not depend on where the shares cut a hub beyond float32 order.
+// Rows of a multiple of 8 elements (16 bytes) are read as 16-byte units,
+// eight float32 sums a lane; other widths (DGCNN's last layer, W = 1) as
+// one 16-bit element a lane, so no width is refused and nothing is padded.
+// Its scratch is float32: carry [2 shares, W] (carry-outs, then heads).
+// Bound: HBM bytes, S*W*2 read + N*W*2 written + 8(N+1), plus the float32
+// carry-outs and heads (two rows per share that a row crosses).
+//
 // Plain C interface (ctypes): each entry point launches both kernels on
 // the given stream, allocates nothing (the caller passes carry [shares,
 // words] and carry_row [shares]), and returns the first cudaError.
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "merge_path.cuh"
@@ -74,6 +92,58 @@ __device__ __forceinline__ uint4 combine<AddF64>(uint4 a, uint4 b) {
                     static_cast<uint32_t>(__double2hiint(s1)));
 }
 
+// bfloat16 add, summed in float32.  Its units: uint4 (eight bfloat16,
+// summed as an F8 of float32, merge_path.cuh) or uint16_t (one bfloat16,
+// summed as a float).
+struct AddBF16 {
+  static constexpr uint32_t kIdent = 0u;   // +0.0f
+};
+
+__device__ __forceinline__ float bf16_to_float(uint32_t bits16) {
+  return __bfloat162float(
+      __ushort_as_bfloat16(static_cast<unsigned short>(bits16)));
+}
+
+__device__ __forceinline__ uint32_t float_to_bf16(float f) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(f));
+}
+
+template <>
+struct Accum<AddBF16, uint4> {
+  using A = F8;
+  static constexpr bool kWide = true;
+  static __device__ __forceinline__ F8 widen(uint4 u) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+    F8 r;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {   // element 2k in the low half
+      r.v[2 * k] = bf16_to_float(w[k] & 0xffffu);
+      r.v[2 * k + 1] = bf16_to_float(w[k] >> 16);
+    }
+    return r;
+  }
+  static __device__ __forceinline__ uint4 narrow(const F8& a) {
+    uint32_t w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      w[k] = float_to_bf16(a.v[2 * k]) | (float_to_bf16(a.v[2 * k + 1]) << 16);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+
+template <>
+struct Accum<AddBF16, uint16_t> {
+  using A = float;
+  static constexpr bool kWide = true;
+  static __device__ __forceinline__ float widen(uint16_t u) {
+    return bf16_to_float(u);
+  }
+  static __device__ __forceinline__ uint16_t narrow(float a) {
+    return static_cast<uint16_t>(float_to_bf16(a));
+  }
+};
+
 }  // namespace merge_path
 
 namespace {
@@ -92,14 +162,15 @@ template <class Op, class U, int T, bool kFoldSelf>
 __global__ void __launch_bounds__(kBlock)
 segscan_kernel(const U* __restrict__ v, const U* __restrict__ x,
                const int64_t* __restrict__ ptr, U* __restrict__ out,
-               U* __restrict__ carry, int64_t* __restrict__ carry_row,
-               int64_t num_rows, int64_t num_items, int64_t units,
-               int64_t shares) {
+               typename Accum<Op, U>::A* __restrict__ carry,
+               int64_t* __restrict__ carry_row, int64_t num_rows,
+               int64_t num_items, int64_t units, int64_t shares) {
   const Team<T> t;
   if (t.id >= shares) return;   // uniform across the team
   const Share s = find_share<T, kShareSteps>(t, ptr, num_rows, num_items);
   walk_share<Op, U, T, kFoldSelf>(t, s, ptr, x, out, carry, carry_row,
-                                  num_rows, units, RowLoad<U>{v, units});
+                                  num_rows, units, shares,
+                                  RowLoad<U>{v, units});
 }
 
 template <class Op, bool kFoldSelf, class U, int T>
@@ -107,16 +178,17 @@ cudaError_t run(const void* v, const void* x, const void* ptr, void* out,
                 void* carry, void* carry_row, int64_t num_rows,
                 int64_t num_items, int64_t units, int64_t shares,
                 cudaStream_t stream) {
+  using A = typename Accum<Op, U>::A;
   const dim3 grid = grid_for<T>(shares, units);
   segscan_kernel<Op, U, T, kFoldSelf><<<grid, kBlock, 0, stream>>>(
       static_cast<const U*>(v), static_cast<const U*>(x),
       static_cast<const int64_t*>(ptr), static_cast<U*>(out),
-      static_cast<U*>(carry), static_cast<int64_t*>(carry_row), num_rows,
+      static_cast<A*>(carry), static_cast<int64_t*>(carry_row), num_rows,
       num_items, units, shares);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   carry_kernel<Op, U, T><<<grid, kBlock, 0, stream>>>(
-      static_cast<const U*>(carry), static_cast<const int64_t*>(carry_row),
+      static_cast<const A*>(carry), static_cast<const int64_t*>(carry_row),
       static_cast<U*>(out), units, shares);
   return cudaGetLastError();
 }
@@ -152,6 +224,43 @@ int launch(const void* v, const void* x, const void* ptr, void* out,
         : run<Op, kFoldSelf, uint32_t, 32>(v, x, ptr, out, carry, carry_row,
                                            num_rows, num_items, units, shares,
                                            st);
+  }
+  return static_cast<int>(err);
+}
+
+// The bfloat16 add: `width` bfloat16 elements a row; 16-byte units when
+// the width is a multiple of 8 and v, out and carry are 16-byte aligned,
+// else one element a lane.  carry is float32 [2 shares, width].
+int launch_add_bf16(const void* v, const void* ptr, void* out, void* carry,
+                    void* carry_row, int64_t num_rows, int64_t num_items,
+                    int64_t width, int64_t shares, void* stream) {
+  if (num_rows <= 0 || width <= 0) {
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (num_items < 0 || shares != num_shares(num_rows, num_items, kShareSteps)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto st = static_cast<cudaStream_t>(stream);
+  const bool vec = width % 8 == 0 && aligned16(v) && aligned16(out) &&
+                   aligned16(carry);
+  const int64_t units = vec ? width / 8 : width;
+  cudaError_t err;
+  if (vec) {
+    err = units <= 16
+        ? run<AddBF16, false, uint4, 16>(v, nullptr, ptr, out, carry,
+                                         carry_row, num_rows, num_items,
+                                         units, shares, st)
+        : run<AddBF16, false, uint4, 32>(v, nullptr, ptr, out, carry,
+                                         carry_row, num_rows, num_items,
+                                         units, shares, st);
+  } else {
+    err = units <= 16
+        ? run<AddBF16, false, uint16_t, 16>(v, nullptr, ptr, out, carry,
+                                            carry_row, num_rows, num_items,
+                                            units, shares, st)
+        : run<AddBF16, false, uint16_t, 32>(v, nullptr, ptr, out, carry,
+                                            carry_row, num_rows, num_items,
+                                            units, shares, st);
   }
   return static_cast<int>(err);
 }
@@ -210,6 +319,17 @@ int segscan_add_f64(const void* v, const void* x, const void* ptr, void* out,
   (void)x;
   return launch<AddF64, false>(v, nullptr, ptr, out, carry, carry_row,
                                num_rows, num_items, words, shares, stream);
+}
+
+// bfloat16 add, summed in float32: `words` is the row's width W in
+// bfloat16 elements (any W), and carry is float32 [2 shares, W].
+int segscan_add_bf16(const void* v, const void* x, const void* ptr, void* out,
+                     void* carry, void* carry_row, int64_t num_rows,
+                     int64_t num_items, int64_t words, int64_t shares,
+                     void* stream) {
+  (void)x;
+  return launch_add_bf16(v, ptr, out, carry, carry_row, num_rows, num_items,
+                         words, shares, stream);
 }
 
 }  // extern "C"

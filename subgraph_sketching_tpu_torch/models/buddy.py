@@ -14,7 +14,9 @@ from typing import Optional
 import torch
 from torch import nn
 
-from subgraph_sketching_tpu_torch.models.gnn import SIGN, Dropout, batch_norm
+from subgraph_sketching_tpu_torch.models.gnn import (
+    SIGN, Dense, Dropout, at_least_float32, batch_norm, compute_dtype,
+)
 
 
 class BUDDY(nn.Module):
@@ -27,7 +29,9 @@ class BUDDY(nn.Module):
       RA            [B] resource-allocation scores (with ``use_RA``)
       emb           [B, 2, emb_dim] node-embedding rows (with
                     ``use_embedding``; emb_dim defaults to hidden_channels)
-    Returns logits [B, 1].
+    Returns float32 logits [B, 1]; ``dtype`` is the compute dtype of the
+    dense layers and BatchNorms (the JAX package's ``dtype`` field; the
+    parameters stay float32).
     """
 
     def __init__(self, sf_dim: int, hidden_channels: int,
@@ -35,14 +39,15 @@ class BUDDY(nn.Module):
                  sign_k: int = 0, append_normalised: bool = False,
                  use_RA: bool = False, use_embedding: bool = False,
                  label_dropout: float = 0.5, feature_dropout: float = 0.5,
-                 sign_dropout: float = 0.5, emb_dim: Optional[int] = None):
+                 sign_dropout: float = 0.5, emb_dim: Optional[int] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.use_feature = use_feature and num_features is not None
         self.sign_k = sign_k
         self.append_normalised = append_normalised
         dim = sf_dim * 2 if append_normalised else sf_dim
-        self.label_lin_layer = nn.Linear(dim, dim)
-        self.bn_labels = batch_norm(dim)
+        self.label_lin_layer = Dense(dim, dim, dtype=dtype)
+        self.bn_labels = batch_norm(dim, dtype)
         self.label_dropout = Dropout(label_dropout)
         self.feature_dropout = Dropout(feature_dropout)
         out_dim = dim
@@ -50,26 +55,30 @@ class BUDDY(nn.Module):
             # (reference feature_forward, src/models/elph.py:295-311)
             if sign_k != 0:
                 self.sign = SIGN(num_features, hidden_channels,
-                                 hidden_channels, sign_k, sign_dropout)
+                                 hidden_channels, sign_k, sign_dropout,
+                                 dtype=dtype)
             else:
-                self.lin_feat = nn.Linear(num_features, hidden_channels)
-            self.lin_out = nn.Linear(hidden_channels, hidden_channels)
-            self.bn_feats = batch_norm(hidden_channels)
+                self.lin_feat = Dense(num_features, hidden_channels,
+                                      dtype=dtype)
+            self.lin_out = Dense(hidden_channels, hidden_channels,
+                                 dtype=dtype)
+            self.bn_feats = batch_norm(hidden_channels, dtype)
             out_dim += hidden_channels
         self.use_embedding = use_embedding
         if use_embedding:
             # (reference embedding_forward, src/models/elph.py:313-322)
-            self.lin_emb = nn.Linear(emb_dim or hidden_channels,
-                                     hidden_channels)
-            self.lin_emb_out = nn.Linear(hidden_channels, hidden_channels)
-            self.bn_embs = batch_norm(hidden_channels)
+            self.lin_emb = Dense(emb_dim or hidden_channels, hidden_channels,
+                                 dtype=dtype)
+            self.lin_emb_out = Dense(hidden_channels, hidden_channels,
+                                     dtype=dtype)
+            self.bn_embs = batch_norm(hidden_channels, dtype)
             out_dim += hidden_channels
         self.use_RA = use_RA
         if use_RA:
             # the RA score, batch-normalised, joins the last layer's input
-            self.bn_RA = batch_norm(1)
+            self.bn_RA = batch_norm(1, dtype)
             out_dim += 1
-        self.lin = nn.Linear(out_dim, 1)
+        self.lin = Dense(out_dim, 1, dtype=dtype)
 
     @classmethod
     def from_config(cls, cfg, num_features: Optional[int],
@@ -90,7 +99,8 @@ class BUDDY(nn.Module):
                                   or cfg.pretrained_node_embedding is not None),
                    label_dropout=cfg.label_dropout,
                    feature_dropout=cfg.feature_dropout,
-                   sign_dropout=cfg.sign_dropout, emb_dim=emb_dim)
+                   sign_dropout=cfg.sign_dropout, emb_dim=emb_dim,
+                   dtype=compute_dtype(cfg.dtype))
 
     @staticmethod
     def _append_degree_normalised(x, src_degree, dst_degree):
@@ -120,12 +130,12 @@ class BUDDY(nn.Module):
                 h = self.lin_feat(node_features)
             h = self.lin_out(h[:, 0, :] * h[:, 1, :])
             h = self.feature_dropout(torch.relu(self.bn_feats(h)), generator)
-            x = torch.cat([x, h], dim=1)
+            x = torch.cat([x, h.to(x.dtype)], dim=1)
         if self.use_embedding and emb is not None:
             e = self.lin_emb(emb)
             e = self.lin_emb_out(e[:, 0, :] * e[:, 1, :])
             e = self.feature_dropout(torch.relu(self.bn_embs(e)), generator)
-            x = torch.cat([x, e], dim=1)
+            x = torch.cat([x, e.to(x.dtype)], dim=1)
         if self.use_RA and RA is not None:
             x = torch.cat([x, self.bn_RA(RA[:, None].to(x.dtype))], dim=1)
-        return self.lin(x)
+        return at_least_float32(self.lin(x))

@@ -13,7 +13,9 @@ over without the port importing jax:
         jax.tree.map(np.asarray, state.opt_state), model, optimizer))
 
 (``elph_state_dict_from_flax`` for an ELPH trainer's state,
-``seal_state_dict_from_flax`` for a SEAL model's.)
+``seal_state_dict_from_flax`` for a SEAL model's; ``gcn_``, ``sage_``,
+``sage_conv_`` and ``mlp_link_predictor_state_dict_from_flax`` for the
+JAX package's ``GCN``, ``SAGE``, ``SAGEConv`` and ``MLPLinkPredictor``.)
 """
 
 from __future__ import annotations
@@ -68,17 +70,22 @@ def _unwrap(tree: Mapping, wrapped: bool) -> Mapping:
 
 # flax's automatic submodule names -> the port's: a GCNConv's Dense
 _RENAME = {"Dense_0": "lin"}
+# ... and a SAGEConv's two
+_SAGE_RENAME = {"Dense_0": "lin", "Dense_1": "lin_root"}
 
 
-def _parameters_from_flax(params: dict, prefix: str = ""
+def _parameters_from_flax(params: dict, prefix: str = "",
+                          rename: Optional[dict] = None
                           ) -> Dict[str, torch.Tensor]:
     """torch parameter name -> tensor for a flax ``params``-shaped tree:
     each Dense kernel [in, out] becomes a Linear weight [out, in]; each
     BatchNorm (scale, bias) becomes (weight, bias); a module's own
-    parameter (a GCNConv's ``bias``) keeps its name."""
+    parameter (a GCNConv's ``bias``) keeps its name; ``rename`` maps
+    flax's automatic names (default: a GCNConv's)."""
+    rename = _RENAME if rename is None else rename
     out: Dict[str, torch.Tensor] = {}
     for name, sub in params.items():
-        key = prefix + _RENAME.get(name, name)
+        key = prefix + rename.get(name, name)
         if not isinstance(sub, Mapping):
             out[key] = _tensor(sub)
         elif "kernel" in sub:
@@ -89,7 +96,7 @@ def _parameters_from_flax(params: dict, prefix: str = ""
             out[key + ".weight"] = _tensor(sub["scale"])
             out[key + ".bias"] = _tensor(sub["bias"])
         else:
-            out.update(_parameters_from_flax(sub, key + "."))
+            out.update(_parameters_from_flax(sub, key + ".", rename))
     return out
 
 
@@ -171,6 +178,41 @@ def seal_state_dict_from_flax(params: dict,
     out.update(_parameters_from_flax(tree))
     out.update(_batch_stats_from_flax(batch_stats or {}))
     return out
+
+
+def _numbered(params: dict, flax_prefix: str, port_name: str) -> dict:
+    """flax's ``<flax_prefix>_<i>`` entries as ``<port_name>.<i>`` (a
+    ``ModuleList``'s children)."""
+    return {f"{port_name}.{name[len(flax_prefix) + 1:]}": sub
+            for name, sub in params.items()}
+
+
+def sage_conv_state_dict_from_flax(params: dict) -> Dict[str, torch.Tensor]:
+    """A ``SAGEConv`` state_dict from the JAX ``SAGEConv``'s params:
+    ``Dense_0`` (the neighbour mean's) is ``lin``, ``Dense_1`` (the root
+    weight, no bias) ``lin_root``."""
+    return _parameters_from_flax(params, rename=_SAGE_RENAME)
+
+
+def gcn_state_dict_from_flax(params: dict) -> Dict[str, torch.Tensor]:
+    """A ``GCN`` state_dict from the JAX ``GCN``'s params:
+    ``GCNConv_<i>/{Dense_0, bias}`` is ``convs.<i>.{lin, bias}``."""
+    return _parameters_from_flax(_numbered(params, "GCNConv", "convs"))
+
+
+def sage_state_dict_from_flax(params: dict) -> Dict[str, torch.Tensor]:
+    """A ``SAGE`` state_dict from the JAX ``SAGE``'s params:
+    ``SAGEConv_<i>`` is ``convs.<i>``, each as
+    :func:`sage_conv_state_dict_from_flax`."""
+    return _parameters_from_flax(_numbered(params, "SAGEConv", "convs"),
+                                 rename=_SAGE_RENAME)
+
+
+def mlp_link_predictor_state_dict_from_flax(params: dict
+                                            ) -> Dict[str, torch.Tensor]:
+    """An ``MLPLinkPredictor`` state_dict from the JAX one's params:
+    ``Dense_<i>`` is ``lins.<i>``."""
+    return _parameters_from_flax(_numbered(params, "Dense", "lins"))
 
 
 def _find_adam_state(opt_state):

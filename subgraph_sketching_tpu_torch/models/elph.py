@@ -18,7 +18,9 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from subgraph_sketching_tpu_torch.models.gnn import Dropout, GCNConv
+from subgraph_sketching_tpu_torch.models.gnn import (
+    Dense, Dropout, GCNConv, compute_dtype,
+)
 from subgraph_sketching_tpu_torch.models.predictor import LinkPredictor
 from subgraph_sketching_tpu_torch.ops.graph_ops import gcn_norm
 from subgraph_sketching_tpu_torch.sketch.elph import (
@@ -35,13 +37,16 @@ class ELPH(nn.Module):
     src/models/elph.py:113; 'residual' and 'cat' first encode the raw
     features to hidden_channels with ``feature_encoder``, :131-139, and
     'residual' adds skip connections).  Submodules ``feature_encoder`` and
-    ``conv_{k}`` mirror the flax names.
+    ``conv_{k}`` mirror the flax names.  ``dtype`` is their compute dtype;
+    each ``GCNConv`` returns float32 (its float32 bias), so the node
+    features that leave the model are float32, as in JAX.
     """
 
     def __init__(self, sketch_params: SketchParams,
                  num_features: Optional[int], hidden_channels: int,
                  use_feature: bool = True, feature_prop: str = "gcn",
-                 feature_dropout: float = 0.5):
+                 feature_dropout: float = 0.5,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if feature_prop not in ("gcn", "residual", "cat"):
             raise ValueError(f"feature_prop {feature_prop!r}: gcn, residual "
@@ -53,11 +58,12 @@ class ELPH(nn.Module):
         if self.use_feature:
             width = num_features
             if feature_prop in ("residual", "cat"):
-                self.feature_encoder = nn.Linear(num_features,
-                                                 hidden_channels)
+                self.feature_encoder = Dense(num_features, hidden_channels,
+                                             dtype=dtype)
                 width = hidden_channels
             for k in range(sketch_params.max_hops):
-                self.add_module(f"conv_{k}", GCNConv(width, hidden_channels))
+                self.add_module(f"conv_{k}", GCNConv(width, hidden_channels,
+                                                     dtype=dtype))
                 width = hidden_channels
 
     def forward(self, x: Optional[torch.Tensor], edge_index: torch.Tensor,
@@ -114,14 +120,15 @@ class ELPHPredictor(nn.Module):
                  num_features: Optional[int], hidden_channels: int,
                  use_feature: bool = True, use_embedding: bool = False,
                  feature_prop: str = "gcn", label_dropout: float = 0.5,
-                 feature_dropout: float = 0.5, emb_dim: Optional[int] = None):
+                 feature_dropout: float = 0.5, emb_dim: Optional[int] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.sketch_params = sketch_params
         self.gnn = ELPH(sketch_params, num_features, hidden_channels,
-                        use_feature, feature_prop, feature_dropout)
+                        use_feature, feature_prop, feature_dropout, dtype)
         self.predictor = LinkPredictor(
             sketch_params.sf_dim, hidden_channels, self.gnn.use_feature,
-            use_embedding, label_dropout, feature_dropout, emb_dim)
+            use_embedding, label_dropout, feature_dropout, emb_dim, dtype)
 
     @classmethod
     def from_config(cls, cfg, sketch_params: SketchParams,
@@ -139,7 +146,8 @@ class ELPHPredictor(nn.Module):
                                   is not None),
                    feature_prop=cfg.feature_prop,
                    label_dropout=cfg.label_dropout,
-                   feature_dropout=cfg.feature_dropout, emb_dim=emb_dim)
+                   feature_dropout=cfg.feature_dropout, emb_dim=emb_dim,
+                   dtype=compute_dtype(cfg.dtype))
 
     def forward(self, x, edge_index, num_nodes, init_minhash, init_hll,
                 links, edge_weight=None, emb=None,

@@ -1,8 +1,19 @@
-"""GNN building blocks of the port: batch norm, dropout, SIGN, the SIGN
-embedding diffusion and the GCN convolution.
+"""GNN building blocks of the port: the dense layer, batch norm, dropout,
+SIGN, the SIGN embedding diffusion, the GCN and SAGE convolutions and
+stacks, and the Hadamard MLP scorer.
 
 BatchNorm: flax momentum 0.9 (the JAX package's ``BN_MOMENTUM``) is torch
 momentum 0.1; eps 1e-5 in both.
+
+The compute dtype (``--dtype bfloat16``) follows flax's ``dtype`` field
+module by module, not autocast: a module with a ``dtype`` (None: its
+inputs' and parameters' promoted type, float32 here) computes in it while
+its parameters and BatchNorm statistics stay float32.  ``Dense`` casts
+its input, weight and bias to the dtype and returns it; ``BatchNorm``
+takes its statistics and normalises in at least float32 and returns the
+dtype; ``Dropout``, ReLU and tanh keep their input's dtype; a float32
+bias added to a bfloat16 product gives float32, as in JAX (``GCNConv``'s
+output).
 
 Data parallelism (``parallel/mesh.py``): :func:`shard_batch_axis` gives
 the BatchNorms and Dropouts that see the link batch the run's mesh.  Each
@@ -30,13 +41,55 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from subgraph_sketching_tpu_torch.ops.graph_ops import gcn_norm, spmm
+from subgraph_sketching_tpu_torch.ops.graph_ops import (
+    edge_orders, gcn_norm, spmm,
+)
+from subgraph_sketching_tpu_torch.ops.segment_scan import ordered_segment_add
 from subgraph_sketching_tpu_torch.parallel.collectives import (
     replicate_into, sum_across_ranks, sum_replicated,
 )
 
 BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
+
+# --dtype values -> the compute dtype (None: float32, the default path)
+_COMPUTE_DTYPES = {"float32": None, "f32": None, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(name: Optional[str]) -> Optional[torch.dtype]:
+    """``--dtype`` as the models' compute dtype (the JAX package's
+    ``_dtype_from_cfg``): None for float32, ``torch.bfloat16`` for
+    bfloat16."""
+    if name is None:
+        return None
+    if name not in _COMPUTE_DTYPES:
+        raise ValueError(f"--dtype {name}: one of "
+                         f"{', '.join(_COMPUTE_DTYPES)}")
+    return _COMPUTE_DTYPES[name]
+
+
+def at_least_float32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32 if it is narrower (a bfloat16 model's logits, as
+    flax's ``.astype(jnp.float32)``, and BatchNorm's statistics); a float64
+    run keeps float64."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+class Dense(nn.Linear):
+    """flax's ``nn.Dense``: with ``dtype`` the input, weight and bias are
+    cast to it and the product is returned in it; without, in their
+    promoted type.  The parameters stay as they are (float32); the
+    state_dict is ``nn.Linear``'s."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True, dtype: Optional[torch.dtype] = None):
+        super().__init__(in_features, out_features, bias=bias)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class BatchNorm(nn.BatchNorm1d):
@@ -61,16 +114,28 @@ class BatchNorm(nn.BatchNorm1d):
     of the batch, and training mode takes the mean and the biased variance
     over the global batch (:meth:`_across_ranks`).  ``nn.SyncBatchNorm``
     is not used: it updates ``running_var`` from the unbiased variance.
+
+    ``dtype`` (flax's compute dtype): the statistics, the normalisation
+    and the cross-rank sums are taken in at least float32 from the upcast
+    input, the running statistics stay float32, and the output is cast to
+    ``dtype`` (None: the promoted type of the input and the parameters).
     """
 
-    def __init__(self, *args, **kwargs):
+    def __init__(self, *args, dtype: Optional[torch.dtype] = None,
+                 **kwargs):
         super().__init__(*args, **kwargs)
+        self.dtype = dtype
         # the data-parallel mesh whose ranks each hold a block of the
         # batch (None: the batch is whole here)
         self.mesh = None
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        return self._normalise(at_least_float32(x), mask).to(dt)
+
+    def _normalise(self, x: torch.Tensor,
+                   mask: Optional[torch.Tensor]) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         if mask is not None:
@@ -125,8 +190,10 @@ class BatchNorm(nn.BatchNorm1d):
         self.num_batches_tracked.add_(1)
 
 
-def batch_norm(num_features: int) -> BatchNorm:
-    return BatchNorm(num_features, momentum=BN_MOMENTUM, eps=BN_EPS)
+def batch_norm(num_features: int,
+               dtype: Optional[torch.dtype] = None) -> BatchNorm:
+    return BatchNorm(num_features, momentum=BN_MOMENTUM, eps=BN_EPS,
+                     dtype=dtype)
 
 
 class Dropout(nn.Module):
@@ -139,7 +206,9 @@ class Dropout(nn.Module):
     of the batch: the mask is drawn for the whole batch, as one device
     draws it, and the rank keeps its block, so every rank's generator
     stays in step and the masks are the single-device ones (the graph and
-    lane peers of a rank, which hold its block, draw its mask)."""
+    lane peers of a rank, which hold its block, draw its mask).  The mask
+    is drawn in at least float32, so a bfloat16 run draws the float32
+    run's masks; the output keeps the input's dtype."""
 
     def __init__(self, p: float):
         super().__init__()
@@ -152,11 +221,9 @@ class Dropout(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if not self.training or self.p == 0:
             return x
-        if self.mesh is None:
-            keep = torch.empty_like(x)
-        else:
-            keep = x.new_empty((x.shape[0] * self.mesh.data_size,
-                                *x.shape[1:]))
+        rows = x.shape[0] * (1 if self.mesh is None else self.mesh.data_size)
+        keep = torch.empty((rows, *x.shape[1:]), device=x.device,
+                           dtype=torch.promote_types(x.dtype, torch.float32))
         keep.bernoulli_(1 - self.p, generator=generator)
         if self.mesh is not None:
             keep = self.mesh.shard(keep)
@@ -181,17 +248,21 @@ class SIGN(nn.Module):
     (reference src/models/gnn.py:169-191).  BatchNorm is applied per link
     endpoint with shared parameters, like the reference's bn(h[:,0])/bn(h[:,1])
     (in training mode each call updates the running statistics, as in flax).
-    Submodules ``lin_{k}``, ``bn_{k}``, ``lin_out`` mirror the flax names.
+    Submodules ``lin_{k}``, ``bn_{k}``, ``lin_out`` mirror the flax names;
+    ``dtype`` is their compute dtype.
     """
 
     def __init__(self, in_channels: int, hidden_channels: int,
-                 out_channels: int, K: int, dropout: float):
+                 out_channels: int, K: int, dropout: float,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.K = K
         for k in range(K + 1):
-            self.add_module(f"lin_{k}", nn.Linear(in_channels, hidden_channels))
-            self.add_module(f"bn_{k}", batch_norm(hidden_channels))
-        self.lin_out = nn.Linear(hidden_channels * (K + 1), out_channels)
+            self.add_module(f"lin_{k}", Dense(in_channels, hidden_channels,
+                                              dtype=dtype))
+            self.add_module(f"bn_{k}", batch_norm(hidden_channels, dtype))
+        self.lin_out = Dense(hidden_channels * (K + 1), out_channels,
+                             dtype=dtype)
         self.dropout = Dropout(dropout)
 
     def forward(self, xs: torch.Tensor,
@@ -217,17 +288,22 @@ class SIGNEmbedding(nn.Module):
     else the scatter ``spmm`` over ``norm`` (gcn_norm(edge_index, None,
     N), computed here when absent).  The JAX loop also computes x_{K+1},
     which nothing reads and XLA drops; eager PyTorch would pay for it, so
-    only K propagations run.
+    only K propagations run.  ``dtype`` is the compute dtype of the dense
+    layers and BatchNorms, as in JAX: the diffusion runs on the table in
+    its own dtype (float32), and the output is in ``dtype``.
     """
 
     def __init__(self, in_channels: int, hidden_channels: int,
-                 out_channels: int, K: int, dropout: float):
+                 out_channels: int, K: int, dropout: float,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.K = K
         for k in range(K + 1):
-            self.add_module(f"lin_{k}", nn.Linear(in_channels, hidden_channels))
-            self.add_module(f"bn_{k}", batch_norm(hidden_channels))
-        self.lin_out = nn.Linear(hidden_channels * (K + 1), out_channels)
+            self.add_module(f"lin_{k}", Dense(in_channels, hidden_channels,
+                                              dtype=dtype))
+            self.add_module(f"bn_{k}", batch_norm(hidden_channels, dtype))
+        self.lin_out = Dense(hidden_channels * (K + 1), out_channels,
+                             dtype=dtype)
         self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor, edge_index: Optional[torch.Tensor],
@@ -257,12 +333,16 @@ class GCNConv(nn.Module):
     ``PlanSpmm`` when one is given (its gcn_norm weights are in its slot
     tables), else ``gcn_norm`` (or the ``norm`` passed in) and the scatter
     ``spmm``; then the separate ``bias``.  In flax ``lin`` is
-    ``Dense_0``, initialised glorot-uniform, and the bias zeros.
+    ``Dense_0``, initialised glorot-uniform, and the bias zeros.  With
+    ``dtype`` bfloat16 the product and the SpMM run in bfloat16 (K1's
+    bfloat16 add), and the float32 bias makes the output float32, as in
+    JAX.
     """
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.lin = nn.Linear(in_channels, out_channels, bias=False)
+        self.lin = Dense(in_channels, out_channels, bias=False, dtype=dtype)
         self.bias = nn.Parameter(torch.zeros(out_channels))
 
     def forward(self, x: torch.Tensor, edge_index: torch.Tensor,
@@ -283,7 +363,10 @@ class EdgeShardSpmm:
     graph axis's ``group``: forward Σ_r A_r x on every rank, backward
     Σ_r A_rᵀ g into the replicated ``x``.  ``spmm`` is the block's own
     SpMM (a ``PlanSpmm``, each way one K1 add, or the scatter ``spmm``);
-    the wrapper is what ``GCNConv`` takes as its ``plan``."""
+    the wrapper is what ``GCNConv`` takes as its ``plan``.  At bfloat16
+    the sums over the axis stay bfloat16, as JAX's psum of the bfloat16
+    product does (half the bytes on the wire; each rank's partial is
+    rounded before the sum)."""
 
     def __init__(self, spmm, group):
         self.spmm, self.group = spmm, group
@@ -291,3 +374,112 @@ class EdgeShardSpmm:
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         return sum_replicated(self.spmm(replicate_into(x, self.group)),
                               self.group)
+
+
+class SAGEConv(nn.Module):
+    """GraphSAGE mean aggregation, ``lin(mean over in-neighbours of x) +
+    lin_root(x)`` (the JAX package's ``SAGEConv``; reference
+    src/models/gnn.py:90-113, PyG ``SAGEConv``).  The in-neighbour sums
+    and the in-degrees go through the sorted ``spmm`` and K1's add, so
+    the card computes them in a fixed order.  ``mask`` [E] bool drops the
+    edges where it is False.  flax's ``Dense_0`` / ``Dense_1`` are
+    ``lin`` / ``lin_root``."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 root_weight: bool = True):
+        super().__init__()
+        self.lin = Dense(in_channels, out_channels)
+        self.root_weight = root_weight
+        if root_weight:
+            self.lin_root = Dense(in_channels, out_channels, bias=False)
+
+    def forward(self, x: torch.Tensor, edge_index: torch.Tensor,
+                num_nodes: int, mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        ei = edge_index.long()
+        w = (torch.ones(ei.shape[1], dtype=x.dtype, device=x.device)
+             if mask is None else mask.to(x.dtype))
+        orders = edge_orders(ei, num_nodes)
+        perm, ptr = orders[0]
+        deg = ordered_segment_add(w[perm, None], ptr, num_nodes)[:, 0]
+        agg = spmm(ei, w, x, num_nodes, orders) \
+            / torch.clamp(deg, min=1.0)[:, None]
+        out = self.lin(agg)
+        if self.root_weight:
+            out = out + self.lin_root(x)
+        return out
+
+
+class GCN(nn.Module):
+    """A plain GCN stack (the JAX package's ``GCN``; reference
+    src/models/gnn.py:18-42): ``num_layers`` ``GCNConv`` over the graph's
+    gcn_norm (one for the stack; ``mask`` drops edges), ReLU and dropout
+    between them.  flax's ``GCNConv_<i>`` are ``convs.<i>``."""
+
+    def __init__(self, in_channels: int, hidden_channels: int,
+                 out_channels: int, num_layers: int, dropout: float):
+        super().__init__()
+        dims = [in_channels] + [hidden_channels] * (num_layers - 1) \
+            + [out_channels]
+        self.convs = nn.ModuleList(GCNConv(dims[i], dims[i + 1])
+                                   for i in range(num_layers))
+        self.dropout = Dropout(dropout)
+
+    def forward(self, x: torch.Tensor, edge_index: torch.Tensor,
+                num_nodes: int, mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        w = None if mask is None else mask.to(torch.float32)
+        norm = gcn_norm(edge_index.long(), w, num_nodes)
+        for conv in self.convs[:-1]:
+            x = self.dropout(torch.relu(conv(x, None, num_nodes, norm=norm)),
+                             generator)
+        return self.convs[-1](x, None, num_nodes, norm=norm)
+
+
+class SAGE(nn.Module):
+    """A GraphSAGE stack (the JAX package's ``SAGE``; reference
+    src/models/gnn.py:90-113): ``num_layers`` ``SAGEConv`` (with their
+    root weight when ``residual``), ReLU and dropout between them.
+    flax's ``SAGEConv_<i>`` are ``convs.<i>``."""
+
+    def __init__(self, in_channels: int, hidden_channels: int,
+                 out_channels: int, num_layers: int, dropout: float,
+                 residual: bool = True):
+        super().__init__()
+        dims = [in_channels] + [hidden_channels] * (num_layers - 1) \
+            + [out_channels]
+        self.convs = nn.ModuleList(
+            SAGEConv(dims[i], dims[i + 1], root_weight=residual)
+            for i in range(num_layers))
+        self.dropout = Dropout(dropout)
+
+    def forward(self, x: torch.Tensor, edge_index: torch.Tensor,
+                num_nodes: int, mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        for conv in self.convs[:-1]:
+            x = self.dropout(torch.relu(conv(x, edge_index, num_nodes, mask)),
+                             generator)
+        return self.convs[-1](x, edge_index, num_nodes, mask)
+
+
+class MLPLinkPredictor(nn.Module):
+    """The Hadamard-product MLP scorer (the JAX package's
+    ``MLPLinkPredictor``; reference src/models/gnn.py:194-218): x_i * x_j
+    through ``num_layers`` dense layers, ReLU and dropout between them,
+    then a sigmoid.  flax's ``Dense_<i>`` are ``lins.<i>``."""
+
+    def __init__(self, in_channels: int, hidden_channels: int,
+                 out_channels: int, num_layers: int, dropout: float):
+        super().__init__()
+        dims = [in_channels] + [hidden_channels] * (num_layers - 1) \
+            + [out_channels]
+        self.lins = nn.ModuleList(Dense(dims[i], dims[i + 1])
+                                  for i in range(num_layers))
+        self.dropout = Dropout(dropout)
+
+    def forward(self, x_i: torch.Tensor, x_j: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = x_i * x_j
+        for lin in self.lins[:-1]:
+            x = self.dropout(torch.relu(lin(x)), generator)
+        return torch.sigmoid(self.lins[-1](x))

@@ -12,7 +12,9 @@ from typing import Optional
 import torch
 from torch import nn
 
-from subgraph_sketching_tpu_torch.models.gnn import Dropout, batch_norm
+from subgraph_sketching_tpu_torch.models.gnn import (
+    Dense, Dropout, at_least_float32, batch_norm,
+)
 
 
 class LinkPredictor(nn.Module):
@@ -21,18 +23,20 @@ class LinkPredictor(nn.Module):
 
     sf [B, sf_dim]; node_features [B, 2, hidden]; emb [B, 2, emb_dim]
     (reference LinkPredictor.forward, src/models/elph.py:73-86).  Returns
-    logits [B, 1].
+    float32 logits [B, 1]; ``dtype`` is the compute dtype of its dense
+    layers and BatchNorms (the JAX package's ``dtype`` field).
     """
 
     def __init__(self, sf_dim: int, hidden_channels: int,
                  use_feature: bool = True, use_embedding: bool = False,
                  label_dropout: float = 0.5, feature_dropout: float = 0.5,
-                 emb_dim: Optional[int] = None):
+                 emb_dim: Optional[int] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.use_feature = use_feature
         self.use_embedding = use_embedding
-        self.label_lin_layer = nn.Linear(sf_dim, sf_dim)
-        self.bn_labels = batch_norm(sf_dim)
+        self.label_lin_layer = Dense(sf_dim, sf_dim, dtype=dtype)
+        self.bn_labels = batch_norm(sf_dim, dtype)
         self.label_dropout = Dropout(label_dropout)
         self.feature_dropout = Dropout(feature_dropout)
         out_dim = sf_dim
@@ -40,17 +44,19 @@ class LinkPredictor(nn.Module):
             # the Hadamard product of the two endpoints, then an MLP
             # (reference feature_forward, src/models/elph.py:48-60; the
             # reference defines lin_feat but applies only lin_out)
-            self.lin_out = nn.Linear(hidden_channels, hidden_channels)
-            self.bn_feats = batch_norm(hidden_channels)
+            self.lin_out = Dense(hidden_channels, hidden_channels,
+                                 dtype=dtype)
+            self.bn_feats = batch_norm(hidden_channels, dtype)
             out_dim += hidden_channels
         if use_embedding:
             # (reference embedding_forward, src/models/elph.py:62-71)
-            self.lin_emb = nn.Linear(emb_dim or hidden_channels,
-                                     hidden_channels)
-            self.lin_emb_out = nn.Linear(hidden_channels, hidden_channels)
-            self.bn_embs = batch_norm(hidden_channels)
+            self.lin_emb = Dense(emb_dim or hidden_channels, hidden_channels,
+                                 dtype=dtype)
+            self.lin_emb_out = Dense(hidden_channels, hidden_channels,
+                                     dtype=dtype)
+            self.bn_embs = batch_norm(hidden_channels, dtype)
             out_dim += hidden_channels
-        self.lin = nn.Linear(out_dim, 1)
+        self.lin = Dense(out_dim, 1, dtype=dtype)
 
     def forward(self, sf: torch.Tensor,
                 node_features: Optional[torch.Tensor] = None,
@@ -69,4 +75,4 @@ class LinkPredictor(nn.Module):
             e = self.lin_emb_out(e[:, 0, :] * e[:, 1, :])
             e = self.feature_dropout(torch.relu(self.bn_embs(e)), generator)
             x = torch.cat([x, e.to(x.dtype)], dim=1)
-        return self.lin(x)
+        return at_least_float32(self.lin(x))

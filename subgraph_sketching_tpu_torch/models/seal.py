@@ -16,6 +16,13 @@ windows.  So a training step is the same from run to run on the card.
 Module names follow the flax ones (``conv_dense_0``, ``z_embedding``,
 ``gin_bn_1``, ...), so ``models/convert.py`` ``seal_state_dict_from_flax``
 carries JAX weights over by name.
+
+``dtype`` is each model's compute dtype (the JAX models' ``dtype``
+field): the dense layers, DGCNN's convolution and GIN's BatchNorms run in
+it, the label and node-embedding tables are cast to it before the lookup
+(flax's ``nn.Embed(dtype=...)``, so their gradients are summed in it by
+K1's add), the union SpMMs run in their input's dtype, and the logits
+come back float32.
 """
 
 from __future__ import annotations
@@ -27,7 +34,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from subgraph_sketching_tpu_torch.models.gnn import Dropout, batch_norm
+from subgraph_sketching_tpu_torch.models.gnn import (
+    Dense, Dropout, at_least_float32, batch_norm,
+)
 from subgraph_sketching_tpu_torch.ops.graph_ops import (
     add_self_loops, edge_orders, spmm,
 )
@@ -176,12 +185,12 @@ class SEALMLP(nn.Module):
     flax's ``Dense_0`` / ``Dense_1`` are ``lin1`` / ``lin2``)."""
 
     def __init__(self, emb_dim: int, dropout: float = 0.5,
-                 pooling: str = "add"):
+                 pooling: str = "add", dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.emb_dim = emb_dim
         self.pooling = pooling
-        self.lin1 = nn.Linear(emb_dim, emb_dim)
-        self.lin2 = nn.Linear(emb_dim, 1)
+        self.lin1 = Dense(emb_dim, emb_dim, dtype=dtype)
+        self.lin2 = Dense(emb_dim, 1, dtype=dtype)
         self.drop = Dropout(dropout)
 
     def forward(self, batch: dict,
@@ -194,7 +203,7 @@ class SEALMLP(nn.Module):
         x = (global_add_pool(x, mask) if self.pooling == "add"
              else global_mean_pool(x, mask))
         x = self.drop(F.relu(self.lin1(x)), generator)
-        return self.lin2(x)
+        return at_least_float32(self.lin2(x))
 
 
 class _SealBase(nn.Module):
@@ -207,8 +216,10 @@ class _SealBase(nn.Module):
     def __init__(self, hidden_channels: int, num_layers: int, max_z: int,
                  use_feature: bool = False, num_features: int = 0,
                  dropout: float = 0.5, use_node_embedding: bool = False,
-                 num_nodes: int = 0, node_emb_dim: int = 0):
+                 num_nodes: int = 0, node_emb_dim: int = 0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.hidden_channels = hidden_channels
         self.num_layers = num_layers
         self.max_z = max_z
@@ -223,19 +234,28 @@ class _SealBase(nn.Module):
                             + node_emb_dim)
         self.dropout = dropout
 
+    def _dense(self, d_in: int, d_out: int, bias: bool = True) -> Dense:
+        return Dense(d_in, d_out, bias=bias, dtype=self.dtype)
+
+    def _lookup(self, table: nn.Embedding, ids: torch.Tensor) -> torch.Tensor:
+        """``table``'s rows ``ids``: the table cast to the compute dtype
+        first, then gathered (flax ``nn.Embed``)."""
+        w = table.weight if self.dtype is None else table.weight.to(self.dtype)
+        return gather_rows(w, ids)
+
     def embed_inputs(self, batch: dict) -> torch.Tensor:
         # clamp labels into the table: disconnected pairs give DRNL labels
         # >> max_z when max_dist is large (reference run.py:192 hides it
         # with --max_dist 4)
         z = torch.clamp(batch["z"], max=self.max_z - 1)
-        x = gather_rows(self.z_embedding.weight, z)
+        x = self._lookup(self.z_embedding, z)
         if x.dim() == 4:   # DE / DE+: sum the two labels' embeddings
             x = x.sum(dim=2)
         if self.use_feature and batch.get("x") is not None:
             x = torch.cat([x, batch["x"]], dim=-1)
         if self.use_node_embedding:
             ids = torch.clamp(batch["node_ids"], min=0)   # -1 pads -> row 0
-            x = torch.cat([x, gather_rows(self.node_embedding.weight, ids)],
+            x = torch.cat([x, self._lookup(self.node_embedding, ids)],
                           dim=-1)
         elif batch.get("node_emb") is not None:   # frozen pretrained rows
             x = torch.cat([x, batch["node_emb"]], dim=-1)
@@ -252,9 +272,9 @@ class SEALGCN(_SealBase):
         h = self.hidden_channels
         for li in range(self.num_layers):
             setattr(self, f"conv_dense_{li}",
-                    nn.Linear(self.in_channels if li == 0 else h, h))
-        self.lin1 = nn.Linear(h, h)
-        self.lin2 = nn.Linear(h, 1)
+                    self._dense(self.in_channels if li == 0 else h, h))
+        self.lin1 = self._dense(h, h)
+        self.lin2 = self._dense(h, 1)
         self.drop = Dropout(self.dropout)
 
     def forward(self, batch: dict,
@@ -268,7 +288,7 @@ class SEALGCN(_SealBase):
         h = (_center_pool(x) if self.pooling == "edge"
              else global_add_pool(x, mask))
         h = self.drop(F.relu(self.lin1(h)), generator)
-        return self.lin2(h)
+        return at_least_float32(self.lin2(h))
 
 
 class SEALSAGE(_SealBase):
@@ -279,10 +299,10 @@ class SEALSAGE(_SealBase):
         h = self.hidden_channels
         for li in range(self.num_layers):
             d = self.in_channels if li == 0 else h
-            setattr(self, f"sage_n_{li}", nn.Linear(d, h))
-            setattr(self, f"sage_r_{li}", nn.Linear(d, h, bias=False))
-        self.lin1 = nn.Linear(h, h)
-        self.lin2 = nn.Linear(h, 1)
+            setattr(self, f"sage_n_{li}", self._dense(d, h))
+            setattr(self, f"sage_r_{li}", self._dense(d, h, bias=False))
+        self.lin1 = self._dense(h, h)
+        self.lin2 = self._dense(h, 1)
         self.drop = Dropout(self.dropout)
 
     def forward(self, batch: dict,
@@ -296,7 +316,7 @@ class SEALSAGE(_SealBase):
             if li < self.num_layers - 1:
                 x = self.drop(F.relu(x), generator)
         h = self.drop(F.relu(self.lin1(_center_pool(x))), generator)
-        return self.lin2(h)
+        return at_least_float32(self.lin2(h))
 
 
 class SEALGIN(_SealBase):
@@ -313,13 +333,13 @@ class SEALGIN(_SealBase):
         h = self.hidden_channels
         for li in range(self.num_layers):
             setattr(self, f"gin_a_{li}",
-                    nn.Linear(self.in_channels if li == 0 else h, h))
-            setattr(self, f"gin_b_{li}", nn.Linear(h, h))
-            setattr(self, f"gin_bn_{li}", batch_norm(h))
+                    self._dense(self.in_channels if li == 0 else h, h))
+            setattr(self, f"gin_b_{li}", self._dense(h, h))
+            setattr(self, f"gin_bn_{li}", batch_norm(h, self.dtype))
             if train_eps:
                 setattr(self, f"eps_{li}", nn.Parameter(torch.zeros(())))
-        self.lin1 = nn.Linear(h * self.num_layers if jk else h, h)
-        self.lin2 = nn.Linear(h, 1)
+        self.lin1 = self._dense(h * self.num_layers if jk else h, h)
+        self.lin2 = self._dense(h, 1)
         self.drop = Dropout(self.dropout)
 
     def forward(self, batch: dict,
@@ -329,8 +349,13 @@ class SEALGIN(_SealBase):
         xs = []
         for li in range(self.num_layers):
             agg = sum_agg(x, graph, mask)
-            h = (1.0 + getattr(self, f"eps_{li}")) * x if self.train_eps \
-                else x
+            if self.train_eps:
+                # a float32 (1 + eps) promotes x, as jnp promotes it
+                eps = getattr(self, f"eps_{li}")
+                h = (1.0 + eps) * x.to(torch.promote_types(x.dtype,
+                                                           eps.dtype))
+            else:
+                h = x
             h = h + agg
             h = F.relu(getattr(self, f"gin_a_{li}")(h))
             h = F.relu(getattr(self, f"gin_b_{li}")(h))
@@ -341,7 +366,7 @@ class SEALGIN(_SealBase):
         h = torch.cat(xs, dim=-1) if self.jk else xs[-1]
         h = self.drop(F.relu(self.lin1(global_mean_pool(h, mask))),
                       generator)
-        return self.lin2(h)
+        return at_least_float32(self.lin2(h))
 
 
 class SEALDGCNN(_SealBase):
@@ -359,23 +384,26 @@ class SEALDGCNN(_SealBase):
         dims = [h] * self.num_layers + [1]
         for li, dim in enumerate(dims):
             setattr(self, f"conv_dense_{li}",
-                    nn.Linear(self.in_channels if li == 0 else dims[li - 1],
-                              dim))
+                    self._dense(self.in_channels if li == 0 else dims[li - 1],
+                                dim))
         self.num_convs = len(dims)
-        self.conv1 = nn.Linear(h * self.num_layers + 1, 16)
+        self.conv1 = self._dense(h * self.num_layers + 1, 16)
         self.conv2 = nn.Conv1d(16, 32, 5)
-        self.lin1 = nn.Linear((k // 2 - 4) * 32, 128)
-        self.lin2 = nn.Linear(128, 1)
+        self.lin1 = self._dense((k // 2 - 4) * 32, 128)
+        self.lin2 = self._dense(128, 1)
         self.drop = Dropout(0.5)
 
     def _conv2(self, h: torch.Tensor) -> torch.Tensor:
         """[B, L, 16] -> [B, L - 4, 32]: the VALID convolution as a matmul
         over the windows (whose backward is slicing and a matmul, the same
-        from run to run)."""
+        from run to run), in the compute dtype as flax's ``nn.Conv``."""
+        dt = self.dtype or torch.promote_types(h.dtype,
+                                               self.conv2.weight.dtype)
         out_len = h.shape[1] - 4
         win = torch.stack([h[:, t:t + out_len] for t in range(5)], dim=-1)
         w = self.conv2.weight.reshape(32, -1)          # [32, 16 * 5]
-        return F.linear(win.reshape(*win.shape[:2], -1), w, self.conv2.bias)
+        return F.linear(win.reshape(*win.shape[:2], -1).to(dt), w.to(dt),
+                        self.conv2.bias.to(dt))
 
     def forward(self, batch: dict,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -392,4 +420,4 @@ class SEALDGCNN(_SealBase):
         h = h[:, :(k // 2) * 2].reshape(b, k // 2, 2, c).amax(dim=2)
         h = F.relu(self._conv2(h)).reshape(b, -1)
         h = self.drop(F.relu(self.lin1(h)), generator)
-        return self.lin2(h)
+        return at_least_float32(self.lin2(h))

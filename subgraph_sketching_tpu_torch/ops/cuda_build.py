@@ -7,9 +7,11 @@ and the C++ plan builder.
 ``graph/native.py``) by ``g++ -O3 -fopenmp``, each into a shared
 library with a plain C interface, loaded with ctypes.  The build runs at
 first use, from the sources in this package only, into ``_build/`` beside
-it; the library's file name carries a hash of its source, the shared
-headers (``csrc/*.cuh``, for the CUDA sources) and the flags, so an
-edited source or header is rebuilt and a current one is reused.  The
+it, or the directory that :func:`set_build_dir` names (the runner's
+``--compilation_cache_dir``); the library's file name carries a hash of
+its source, the shared headers (``csrc/*.cuh``, for the CUDA sources) and
+the flags, so an edited source or header is rebuilt and a current one is
+reused.  The
 compiler's output (for nvcc ``-Xptxas -v``: registers and spills) is kept
 beside it as ``.log``.  ``load_all`` starts one compiler per source, all
 at once.
@@ -39,7 +41,19 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 GXX_FLAGS = ["-O3", "-fopenmp", "-shared", "-fPIC", "-std=c++17"]
 
+# library path -> the loaded library
 _LIBS: dict = {}
+
+
+def set_build_dir(path: str) -> None:
+    """Build into and load from ``path`` from now on, in this process (the
+    counterpart of the JAX package's persistent compilation cache,
+    ``--compilation_cache_dir``): a library already there is reused, a
+    missing one built there at first use."""
+    global BUILD_DIR
+    BUILD_DIR = os.path.abspath(path)
+    entry.cache_clear()
+    share_steps.cache_clear()
 
 
 def _nvcc() -> str:
@@ -103,7 +117,7 @@ def load_all(names) -> dict:
     running = {}
     for name in names:
         out = library_path(name)
-        if name in _LIBS or os.path.exists(out):
+        if out in _LIBS or os.path.exists(out):
             continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
@@ -126,17 +140,19 @@ def load_all(names) -> dict:
     if failed:
         raise RuntimeError("\n".join(failed))
     for name in names:
-        if name not in _LIBS:
-            _LIBS[name] = ctypes.CDLL(library_path(name))
+        path = library_path(name)
+        if path not in _LIBS:
+            _LIBS[path] = ctypes.CDLL(path)
     return seconds
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu`` (or ``.cpp``), built if
     needed."""
-    if name not in _LIBS:
+    path = library_path(name)
+    if path not in _LIBS:
         load_all([name])
-    return _LIBS[name]
+    return _LIBS[path]
 
 
 @functools.lru_cache(maxsize=None)
@@ -168,29 +184,33 @@ def merge_path_shares(num_rows: int, num_items: int, steps: int) -> int:
 
 
 def merge_path_scratch(name: str, num_rows: int, num_items: int, words: int,
-                       device):
+                       device, heads: bool = False):
     """The carry-out scratch of one launch of ``csrc/<name>.cu``'s
     merge-path kernels: (shares, carry int32 [shares, words], carry_row
-    int64 [shares]), uninitialised (the kernels write before they read)."""
+    int64 [shares]), uninitialised (the kernels write before they read).
+    ``heads``: an op that sums wider than it stores (K1's bfloat16 add)
+    also keeps the head of each row it finishes in the carry pass, in
+    ``shares`` more rows of carry."""
     import torch
     shares = merge_path_shares(num_rows, num_items, share_steps(name))
+    rows = 2 * shares if heads else shares
     return (shares,
-            torch.empty((shares, words), dtype=torch.int32, device=device),
+            torch.empty((rows, words), dtype=torch.int32, device=device),
             torch.empty(shares, dtype=torch.int64, device=device))
 
 
-def check_tensors(what: str, **tensors) -> None:
+def check_tensors(what: str, align: int = 4, **tensors) -> None:
     """Raise unless every tensor lies on the first one's CUDA device, is
-    contiguous and starts on a 4-byte boundary (the kernels read 32-bit
-    words)."""
+    contiguous and starts on an ``align``-byte boundary (the kernels read
+    32-bit words; K1's bfloat16 add reads 16-bit elements, ``align`` 2)."""
     device = next(iter(tensors.values())).device
     for name, t in tensors.items():
         if t.device != device:
             raise ValueError(f"{what}: {name} is on {t.device}, not {device}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} is not contiguous")
-        if t.data_ptr() % 4:
-            raise ValueError(f"{what}: {name} is not 4-byte aligned")
+        if t.data_ptr() % align:
+            raise ValueError(f"{what}: {name} is not {align}-byte aligned")
 
 
 def launch(fn, what: str, device, *args) -> None:

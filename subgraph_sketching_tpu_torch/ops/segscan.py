@@ -17,7 +17,13 @@ end leaves a carry-out that a second launch folds into ``out`` in share
 order.  No atomics on values: min/max are exact and the float32 add is the
 same from run to run.  Rows whose bytes are a multiple of 16 are read as
 16-byte units, others as 32-bit words; float64 add (the float64 reference
-runs of training) takes 16-byte units only, two lanes a unit.  It is
+runs of training) takes 16-byte units only, two lanes a unit.  The
+bfloat16 add (the ``--dtype bfloat16`` SpMMs and row-gather backwards)
+reads bfloat16 and sums in float32 into float32 scratch ([2 shares, W]:
+carry-outs, then the heads of rows that cross a share), rounding each
+row once; it takes any width, those that are not a multiple of 8 as one
+16-bit element a lane, so DGCNN's W = 1 is neither refused nor padded.  Its plain version upcasts,
+sums and rounds, which is what the kernel computes.  It is
 bound by HBM bytes: S*W*b read of v, N*W*b read of x (min/max only),
 N*W*b write, plus the (N+1)-entry pointer; the carry-outs add one row per
 share that ends inside a row.  A hub's sub-runs spread over many shares, so its time is
@@ -39,14 +45,19 @@ import torch
 from subgraph_sketching_tpu_torch.ops import cuda_build
 
 # (op, dtype) -> (C entry point, the multiple a row's width must be: int8
-# rows are read as 32-bit words, float64 rows as 16-byte units)
+# rows are read as 32-bit words, float64 rows as 16-byte units, bfloat16
+# rows element by element where they are not whole 16-byte units)
 _ENTRY = {
     ("min", torch.int32): ("segscan_min_i32", 1),
     ("max", torch.int32): ("segscan_max_i32", 1),
     ("max", torch.int8): ("segscan_max_i8", 4),
     ("add", torch.float32): ("segscan_add_f32", 1),
     ("add", torch.float64): ("segscan_add_f64", 2),
+    ("add", torch.bfloat16): ("segscan_add_bf16", 1),
 }
+# the instances whose sums are taken in a wider type than they store
+# (float32 scratch, one rounding a row)
+_WIDE = {torch.bfloat16}
 _ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int64,) * 4 + (ctypes.c_void_p,)
 
 # kernel launches per instance, counted where segment_combine launches
@@ -59,15 +70,17 @@ _IDENTITY = {
     ("max", torch.int8): torch.iinfo(torch.int8).min,
     ("add", torch.float32): 0.0,
     ("add", torch.float64): 0.0,
+    ("add", torch.bfloat16): 0.0,
 }
 
 _REDUCE = {"min": "amin", "max": "amax", "add": "sum"}
 
 
 def supported(op: str, dtype: torch.dtype) -> bool:
-    """The five K1 instances: biased-int32 min (MinHash), int8 max (HLL),
-    int32 max, float32 add (SpMM) and float64 add (the float64 reference
-    runs of training)."""
+    """The six K1 instances: biased-int32 min (MinHash), int8 max (HLL),
+    int32 max, float32 add (SpMM), float64 add (the float64 reference
+    runs of training) and bfloat16 add, summed in float32 (the bfloat16
+    compute dtype)."""
     return (op, dtype) in _ENTRY
 
 
@@ -87,7 +100,10 @@ def segment_combine_plain(v: torch.Tensor, x: torch.Tensor, op: str,
     """The same function as the kernel in plain torch: a segment
     amin/amax/sum of ``v`` over the sub-runs' destinations (from ``ptr``)
     with ``scatter_reduce``, then the closed-neighbourhood fold-in of ``x``
-    for min/max."""
+    for min/max.  A bfloat16 add is summed in float32 and rounded once."""
+    if v.dtype in _WIDE:
+        return segment_combine_plain(v.float(), x.float(), op,
+                                     ptr).to(v.dtype)
     n, w = x.shape
     init = torch.full((n, w), identity(op, v.dtype), dtype=v.dtype,
                       device=v.device)
@@ -112,7 +128,9 @@ def _check_cuda_args(v, x, ptr, op):
     if ptr.dtype != torch.int64 or ptr.dim() != 1 \
             or ptr.shape[0] != x.shape[0] + 1:
         raise ValueError("segment_combine: ptr must be int64 [N + 1]")
-    cuda_build.check_tensors("segment_combine", x=x, v=v, ptr=ptr)
+    cuda_build.check_tensors("segment_combine",
+                             align=2 if v.dtype in _WIDE else 4,
+                             x=x, v=v, ptr=ptr)
     multiple = _ENTRY[(op, v.dtype)][1]
     if v.shape[1] % multiple:
         raise ValueError(f"segment_combine: {v.dtype} rows need a width "
@@ -132,9 +150,12 @@ def segment_combine(v: torch.Tensor, x: torch.Tensor, op: str,
     _check_cuda_args(v, x, ptr, op)
     fn_name = _ENTRY[(op, v.dtype)][0]
     n, s = x.shape[0], v.shape[0]
-    words = x.shape[1] * x.element_size() // 4
+    wide = v.dtype in _WIDE
+    # a wide instance takes its width in elements and sums into float32
+    # scratch rows of that width, twice as many (the heads)
+    words = x.shape[1] if wide else x.shape[1] * x.element_size() // 4
     shares, carry, carry_row = cuda_build.merge_path_scratch(
-        "segscan", n, s, words, x.device)
+        "segscan", n, s, words, x.device, heads=wide)
     out = torch.empty_like(x)
     cuda_build.launch(cuda_build.entry("segscan", fn_name, _ARGTYPES),
                       fn_name, x.device, v.data_ptr(), x.data_ptr(),

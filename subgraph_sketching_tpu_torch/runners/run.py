@@ -55,13 +55,21 @@ not match the process group raise ValueError, as does
 under a process group of several ranks raise NotImplementedError: their
 trainers have no mesh.
 
-Not ported yet (queued, each raises NotImplementedError):
-``--profile_dir`` and ``--compilation_cache_dir``.
+``--dtype bfloat16`` runs BUDDY, ELPH and the SEAL models in bfloat16
+compute (``train/loops.py``; KGE trains in float32 whatever it says, as
+in the JAX package).  ``--profile_dir D`` traces epoch 1 of repetition 0
+with ``torch.profiler`` (CPU and, on the card, CUDA activity) into
+``D/epoch1_rank<r>.pt.trace.json``, as the JAX runner traces that epoch;
+with ``--epochs 1`` nothing is traced.  ``--compilation_cache_dir D`` is
+where the native code (the CUDA kernels, the plan builder, the SEAL
+extractor; ``ops/cuda_build.py``) is built and loaded from, the
+counterpart of the JAX runner's compilation cache.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -82,6 +90,7 @@ from subgraph_sketching_tpu_torch.graph.preprocess import (
 from subgraph_sketching_tpu_torch.metrics_logging import (
     MetricsLogger, apply_sweep_overrides,
 )
+from subgraph_sketching_tpu_torch.ops import cuda_build
 from subgraph_sketching_tpu_torch.parallel import fault, multihost
 from subgraph_sketching_tpu_torch.parallel.mesh import check_axes
 from subgraph_sketching_tpu_torch.train import checkpoint
@@ -114,9 +123,6 @@ def _refuse_unported(cfg: Config) -> None:
         raise NotImplementedError(
             f"model {cfg.model} is not wired into the runner (available: "
             f"{', '.join((*TRAINERS, *SEAL_MODELS, *KGE_MODELS))})")
-    for flag in ("profile_dir", "compilation_cache_dir"):
-        if getattr(cfg, flag):
-            raise NotImplementedError(f"--{flag} is not ported yet")
     if cfg.model in (*SEAL_MODELS, *KGE_MODELS) and (
             cfg.mesh_shape or multihost.world_size() > 1):
         raise NotImplementedError(
@@ -155,6 +161,22 @@ def _heartbeat(cfg: Config):
                              timeout=cfg.heartbeat_timeout)
 
 
+@contextlib.contextmanager
+def _profile(profile_dir: str, dev):
+    """``torch.profiler`` over the block (host activity, and the card's
+    kernels on a CUDA device), its trace written to
+    ``profile_dir/epoch1_rank<r>.pt.trace.json``."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield prof
+    os.makedirs(profile_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(
+        profile_dir, f"epoch1_rank{multihost.rank()}.pt.trace.json"))
+
+
 def run(cfg: Config, device=None):
     """Rep loop with best-val model selection (reference run.py:50-110).
 
@@ -169,6 +191,8 @@ def run(cfg: Config, device=None):
     the ranks must hold the same state bits."""
     dev = resolve_device(device_from_flags(device, cfg.platform))
     _refuse_unported(cfg)
+    if cfg.compilation_cache_dir:
+        cuda_build.set_build_dir(cfg.compilation_cache_dir)
     print(f"executing on {dev} (rank {multihost.rank()} of "
           f"{multihost.world_size()})")
     detector = _heartbeat(cfg)
@@ -261,8 +285,16 @@ def _run(cfg: Config, dev, detector):
                 # instead of hanging this rank inside the fabric
                 detector.barrier(f"rep{rep}_ep{epoch}")
             t0 = time.time()
-            loss = trainer.train_epoch(model, optimizer,
-                                       epoch_seed(rep, epoch))
+            if cfg.profile_dir and epoch == 1 and rep == 0:
+                # epoch 1, as the JAX runner: epoch 0's first calls (kernel
+                # builds, allocator growth) stay out of the trace
+                with _profile(cfg.profile_dir, dev):
+                    loss = trainer.train_epoch(model, optimizer,
+                                               epoch_seed(rep, epoch))
+                print(f"wrote profiler trace to {cfg.profile_dir}")
+            else:
+                loss = trainer.train_epoch(model, optimizer,
+                                           epoch_seed(rep, epoch))
             train_time = time.time() - t0
             if detector is not None:
                 detector.check()

@@ -16,7 +16,9 @@ Checkpoints: a directory holding ``config.json`` (the ``Config``) and
 either ``step_<N>.pt`` files from a training run (``runners/run.py`` with
 ``--checkpoint_dir``) or ``buddy.pt`` (a ``BUDDY`` state_dict), written by
 :func:`save_buddy_checkpoint`.  Weights trained by the JAX package cross
-over through ``models/convert.py``.
+over through ``models/convert.py``.  A checkpoint of a ``--dtype
+bfloat16`` run serves in bfloat16: the model is rebuilt from its config,
+whose compute dtype it keeps (its weights are float32 either way).
 
 A ``use_RA`` model is served as the JAX package serves it: the message
 graph's CSR stays on the host, and each query chunk's RA scores come from

@@ -11,7 +11,9 @@ loss (transx.py:241-298).  The permutation and the negatives come from a
 ``torch.Generator`` on the device seeded with the epoch's seed; ``step``
 takes one batch's (positives, negatives, mode), so a test can drive it
 with the JAX package's draws.  Eval scores the split's links with
-``score_links`` in ``eval_batch_size`` batches.
+``score_links`` in ``eval_batch_size`` batches.  It trains in float32
+whatever ``--dtype`` says, as the JAX package's kge_loop.py, which never
+reads it.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from subgraph_sketching_tpu_torch.config import Config
 from subgraph_sketching_tpu_torch.device import resolve_device
 from subgraph_sketching_tpu_torch.models.transx import KGE_MODELS, KGEModel
 from subgraph_sketching_tpu_torch.train.loops import (
-    _refuse_unported, batched_predict, eval_subset,
+    batched_predict, eval_subset,
 )
 
 __all__ = ["KGE_MODELS", "KgeTrainer"]
@@ -39,7 +41,6 @@ class KgeTrainer:
     GAMMA = 12.0
 
     def __init__(self, cfg: Config, splits, device="cuda"):
-        _refuse_unported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.num_nodes = splits["train"].graph.num_nodes

@@ -62,7 +62,13 @@ built under a graph mesh carries position-ordered sketches
 (``LinkDataset.sketch_perm``); the ELPH trainer translates through the
 permutation, and refuses them without a graph axis.
 
-Not ported yet (queued): ``dtype`` other than float32.
+``--dtype bfloat16`` (the JAX package's ``_dtype_from_cfg``) is the
+models' compute dtype, module by module as flax's ``dtype`` field
+(``models/gnn.py``): the dense layers, BatchNorm outputs, dropout, the
+GCN's and the diffusion's products and SpMMs run in bfloat16 (K1's
+bfloat16 add), while the parameters, the BatchNorm statistics, the Adam
+moments and the logits stay float32, so a bfloat16 run's checkpoint
+has the float32 run's keys and dtypes.  Preprocessing does not read it.
 """
 
 from __future__ import annotations
@@ -83,7 +89,7 @@ from subgraph_sketching_tpu_torch.graph.preprocess import (
 from subgraph_sketching_tpu_torch.models.buddy import BUDDY
 from subgraph_sketching_tpu_torch.models.elph import ELPHPredictor
 from subgraph_sketching_tpu_torch.models.gnn import (
-    EdgeShardSpmm, GCNConv, SIGNEmbedding, shard_batch_axis,
+    EdgeShardSpmm, GCNConv, SIGNEmbedding, compute_dtype, shard_batch_axis,
 )
 from subgraph_sketching_tpu_torch.ops.graph_ops import gcn_norm, spmm
 from subgraph_sketching_tpu_torch.ops.segment_scan import (
@@ -248,12 +254,6 @@ def _epoch_order(num_links: int, cfg: Config, g: torch.Generator,
     return order if mesh is None else mesh.shard(order, dim=1)
 
 
-def _refuse_unported(cfg: Config) -> None:
-    if cfg.dtype not in (None, "float32", "f32"):
-        raise NotImplementedError(f"--dtype {cfg.dtype} is not ported "
-                                  f"yet (float32 only)")
-
-
 # ------------------------------------------------------ node embeddings --
 
 def uses_embedding(cfg: Config) -> bool:
@@ -288,7 +288,8 @@ class ElphEmbedding(nn.Module):
     def __init__(self, num_nodes: int, hidden_channels: int,
                  propagate: bool = False, sign_k: int = 1,
                  sign_dropout: float = 0.5,
-                 frozen_table: Optional[torch.Tensor] = None):
+                 frozen_table: Optional[torch.Tensor] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.trainable = frozen_table is None
         if self.trainable:
@@ -303,7 +304,7 @@ class ElphEmbedding(nn.Module):
         if propagate:
             self.sign_embedding = SIGNEmbedding(
                 width, hidden_channels, hidden_channels, sign_k,
-                sign_dropout)
+                sign_dropout, dtype=dtype)
 
     def table(self, plan: Optional[PlanSpmm] = None,
               norm: Optional[tuple] = None,
@@ -328,9 +329,10 @@ class BuddyWithEmbedding(ElphEmbedding):
     def __init__(self, buddy: BUDDY, num_nodes: int, hidden_channels: int,
                  propagate: bool = False, sign_k: int = 1,
                  sign_dropout: float = 0.5,
-                 frozen_table: Optional[torch.Tensor] = None):
+                 frozen_table: Optional[torch.Tensor] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__(num_nodes, hidden_channels, propagate, sign_k,
-                         sign_dropout, frozen_table)
+                         sign_dropout, frozen_table, dtype)
         self.buddy = buddy
 
 
@@ -348,7 +350,7 @@ def _embedding_args(cfg: Config, num_nodes: int,
     return dict(num_nodes=num_nodes, hidden_channels=cfg.hidden_channels,
                 propagate=cfg.propagate_embeddings,
                 sign_k=max(cfg.sign_k, 1), sign_dropout=cfg.sign_dropout,
-                frozen_table=frozen)
+                frozen_table=frozen, dtype=compute_dtype(cfg.dtype))
 
 
 def build_buddy(cfg: Config, num_features: Optional[int], num_nodes: int,
@@ -459,8 +461,8 @@ class BuddyTrainer(_Trainer):
 
     def __init__(self, cfg: Config, dataset: LinkDataset,
                  num_features: Optional[int], device="cuda"):
-        _refuse_unported(cfg)
         self.cfg = cfg
+        self.dtype = compute_dtype(cfg.dtype)   # raises on an unknown one
         self.device = resolve_device(device)
         self._init_mesh()
         self.use_feature = cfg.use_feature and dataset.x is not None
@@ -612,8 +614,8 @@ class ElphTrainer(_Trainer):
 
     def __init__(self, cfg: Config, dataset: LinkDataset,
                  num_features: Optional[int], device="cuda"):
-        _refuse_unported(cfg)
         self.cfg = cfg
+        self.dtype = compute_dtype(cfg.dtype)   # raises on an unknown one
         self.device = resolve_device(device)
         self._init_mesh()
         axes = self.mesh.axis_names if self.mesh is not None else ()

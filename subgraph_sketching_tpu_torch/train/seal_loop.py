@@ -35,13 +35,13 @@ from subgraph_sketching_tpu_torch.device import resolve_device
 from subgraph_sketching_tpu_torch.graph.seal import (
     SEALDataset, SealBatchArrays,
 )
+from subgraph_sketching_tpu_torch.models.gnn import compute_dtype
 from subgraph_sketching_tpu_torch.models.seal import (
     SEALDGCNN, SEALGCN, SEALGIN, SEALMLP, SEALSAGE, UnionGraph, upload,
 )
 from subgraph_sketching_tpu_torch.train.losses import get_loss
 from subgraph_sketching_tpu_torch.train.loops import (
-    _init_like_flax, _refuse_unported, batched_predict, eval_subset,
-    load_frozen_embedding,
+    _init_like_flax, batched_predict, eval_subset, load_frozen_embedding,
 )
 
 SEAL_MODELS = ("SEALDGCNN", "SEALGCN", "SEALSAGE", "SEALGIN", "SEALMLP")
@@ -66,13 +66,14 @@ def build_seal_model(cfg: Config, num_nodes: int,
     (``num_features``: the node features' width, None without them;
     ``frozen_width``: the width of a pretrained table's rows, 0 without
     one; ``k``: DGCNN's sort-pool size, from ``dgcnn_k``)."""
+    dtype = compute_dtype(cfg.dtype)
     if cfg.model == "SEALMLP":
         # structure-free baseline; --label_pooling picks add/mean pooling
         # (reference seal.py:22-40 defines it but never dispatches it)
         return SEALMLP(cfg.max_z, dropout=cfg.dropout,
-                       pooling=cfg.label_pooling)
+                       pooling=cfg.label_pooling, dtype=dtype)
     use_feature = bool(cfg.use_feature and num_features)
-    common = dict(hidden_channels=cfg.hidden_channels,
+    common = dict(hidden_channels=cfg.hidden_channels, dtype=dtype,
                   num_layers=cfg.num_seal_layers, max_z=cfg.max_z,
                   use_feature=use_feature,
                   num_features=num_features if use_feature else 0,
@@ -109,7 +110,6 @@ class SealTrainer:
     def __init__(self, cfg: Config, datasets: Dict[str, SEALDataset],
                  features: Optional[Dict[str, np.ndarray]] = None,
                  device="cuda"):
-        _refuse_unported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.datasets = datasets

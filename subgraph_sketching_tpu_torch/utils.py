@@ -20,6 +20,26 @@ def str2bool(x) -> bool:
     raise ValueError(f"unrecognised type {type(x)}")
 
 
+def get_num_samples(sample_arg: float, dataset_len: int) -> int:
+    """A fraction of ``dataset_len`` if ``sample_arg`` < 1, else a count
+    capped at it (reference utils.py:32-43)."""
+    if sample_arg < 1:
+        return int(sample_arg * dataset_len)
+    return int(min(sample_arg, dataset_len))
+
+
+def get_src_dst_degree(src: int, dst: int, A, max_nodes=None):
+    """The degrees of ``src`` and ``dst`` in the adjacency ``A`` (their
+    row sums), each capped at ``max_nodes`` (reference
+    utils.py:118-129)."""
+    sd = A[src].sum()
+    dd = A[dst].sum()
+    if max_nodes is not None:
+        sd = min(sd, max_nodes)
+        dd = min(dd, max_nodes)
+    return sd, dd
+
+
 def neighbors(fringe, A, outgoing: bool = True) -> set:
     """The neighbour set of a set of nodes over a scipy CSR adjacency
     (reference utils.py:102-115): out-neighbours through the rows, or

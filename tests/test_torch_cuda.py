@@ -13,7 +13,8 @@ blocks, a short last block and a star whose hub spans many pieces; K4
 sorts each block's indices, so it is run on indices in random, sorted and
 reverse order, all one index and many repeats.  ELPH's uses of K1 are
 held at its widths (float32 add at W = 1024 and 32, the float64 add of
-the reference runs): ``PlanSpmm`` forward and backward, one launch each
+the reference runs, the bfloat16 add of ``--dtype bfloat16`` at 16-byte
+and 16-bit widths, W = 1 included): ``PlanSpmm`` forward and backward, one launch each
 way, ``gather_rows``' backward and the scatter ``spmm`` (K1's add each
 way), the same bit for bit on two runs, and two ELPH epochs by the
 scatter route trained twice bit for bit.  The node embeddings' ddi
@@ -284,7 +285,8 @@ PROFILES = {
 # (op, dtype, widths): every instance at a width of 16-byte units and at
 # widths of 32-bit words only
 K1_CASES = [("min", torch.int32, (128, 40, 1)), ("max", torch.int32, (128, 40, 1)),
-            ("add", torch.float32, (128, 40, 1)), ("max", torch.int8, (256, 8, 4))]
+            ("add", torch.float32, (128, 40, 1)), ("max", torch.int8, (256, 8, 4)),
+            ("add", torch.bfloat16, (128, 6, 1))]
 K3_CASES = [("min", torch.int32, (128, 40, 1)), ("max", torch.int8, (256, 8, 4))]
 
 
@@ -294,13 +296,15 @@ def _profile_ptr(profile, steps):
 
 
 def _rows(n, dtype, width, g, dyadic=False):
-    """Random rows; float32 as multiples of 1/4 in [-8, 8) when ``dyadic``
-    (every partial sum of a few thousand is exact, so any order agrees)."""
-    if dtype == torch.float32:
+    """Random rows; float32 and bfloat16 as multiples of 1/4 in [-8, 8)
+    when ``dyadic`` (every partial sum of a few thousand is exact in
+    float32, so any order agrees, and the bfloat16 add rounds the same
+    exact sum once)."""
+    if dtype in (torch.float32, torch.bfloat16):
         if dyadic:
-            return torch.randint(-32, 32, (n, width), generator=g,
-                                 device="cuda").float() / 4
-        return torch.randn((n, width), generator=g, device="cuda")
+            return (torch.randint(-32, 32, (n, width), generator=g,
+                                  device="cuda").float() / 4).to(dtype)
+        return torch.randn((n, width), generator=g, device="cuda").to(dtype)
     return _hop_input(n, dtype, width, g)
 
 
@@ -350,6 +354,47 @@ def test_segscan_add_is_deterministic(cuda, profile):
     k = torch.from_numpy(counts).to(cuda).double()[:, None]
     assert bool(((first.double() - want).abs()
                  <= k * 2.0 ** -23 * scale).all())
+
+
+@pytest.mark.parametrize("width", [1024, 128, 6, 1])
+@pytest.mark.parametrize("profile", ["spans_3_shares", "star", "random_hub"])
+def test_segscan_bf16_add_within_its_bound_and_repeats(cuda, profile, width):
+    """K1's bfloat16 add (summed in float32, rounded once a row) on random
+    inputs with a hub, at 16-byte-unit widths and at 16-bit-element ones
+    (W = 1, DGCNN's last layer): bit-equal to itself across calls, and
+    within half a bfloat16 ulp of the float64 sum plus the float32
+    accumulation's 2·k·2^-24·Σ|v| over a row's k terms."""
+    from subgraph_sketching_tpu_torch.ops import cuda_build
+    ptr_np, counts = _profile_ptr(profile, cuda_build.share_steps("segscan"))
+    n, s = len(counts), int(ptr_np[-1])
+    g = torch.Generator(device="cuda").manual_seed(13)
+    v = torch.randn((s, width), generator=g, device="cuda").to(torch.bfloat16)
+    x = torch.empty((n, width), dtype=torch.bfloat16, device=cuda)
+    ptr = torch.from_numpy(ptr_np).to(cuda)
+    first = segscan.segment_combine(v, x, "add", ptr)
+    second = segscan.segment_combine(v, x, "add", ptr)
+    ids = segscan.segment_ids(ptr)
+    zeros = torch.zeros((n, width), dtype=torch.float64, device=cuda)
+    want = zeros.index_add(0, ids, v.double())
+    scale = zeros.index_add(0, ids, v.abs().double())
+    torch.cuda.synchronize()
+    assert first.dtype == torch.bfloat16
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+    k = torch.from_numpy(counts).to(cuda).double()[:, None]
+    bound = 2.0 ** -8 * want.abs() + 2 * k * 2.0 ** -24 * scale
+    assert bool(((first.double() - want).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.int8, torch.int16])
+def test_segscan_refuses_what_it_does_not_take_on_cuda(cuda, dtype):
+    """An add of a dtype that K1 has no instance for raises on a CUDA
+    tensor, and launches nothing: no fallback to the plain version."""
+    v = torch.zeros((4, 8), dtype=dtype, device=cuda)
+    ptr = torch.tensor([0, 2, 4], device=cuda)
+    before = dict(segscan.launches)
+    with pytest.raises(ValueError, match="no kernel"):
+        segscan.segment_combine(v, v.new_zeros((2, 8)), "add", ptr)
+    assert segscan.launches == before
 
 
 @pytest.mark.parametrize("profile", list(PROFILES))
@@ -686,6 +731,83 @@ def test_elph_scatter_route_trains_the_same_twice_on_the_card(cuda):
     assert torch.equal(runs[0][0], runs[1][0])
     for k, v in runs[0][1].items():
         assert torch.equal(v, runs[1][1][k]), k
+
+
+def test_plan_spmm_bf16_runs_forward_and_backward_on_the_kernel(cuda):
+    """PlanSpmm at bfloat16 (``--dtype bfloat16``'s GCN): one bfloat16 K1
+    launch each way, each within a bfloat16 ulp (2^-7 of the value, plus
+    the float32 sums' 2^-16 of the terms' sum) of the plain merge of the
+    same sub-run results, and both the same on a second call."""
+    ps, _, _, n = _gcn_plan_spmm()
+    g = torch.Generator(device="cuda").manual_seed(17)
+    x = torch.randn((n, 1024), generator=g, device="cuda").to(
+        torch.bfloat16).requires_grad_()
+    t = torch.randn((n, 1024), generator=g, device="cuda").to(torch.bfloat16)
+    before = segscan.launches["segscan_add_bf16"]
+    runs = []
+    for _ in range(2):
+        out = ps(x)
+        (grad,) = torch.autograd.grad(out, x, t)
+        runs.append((out.detach(), grad))
+    torch.cuda.synchronize()
+    assert segscan.launches["segscan_add_bf16"] == before + 4
+    assert runs[0][0].dtype == runs[0][1].dtype == torch.bfloat16
+    for a, b in zip(*runs):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    with torch.no_grad():
+        for plan, w, inp, got in ((ps.fwd, ps._w_fwd, x, runs[0][0]),
+                                  (ps.bwd, ps._w_bwd, t, runs[0][1])):
+            v = plan.reduce_subruns(inp, "add", w).contiguous()
+            want = segscan.segment_combine_plain(v, inp, "add",
+                                                 plan.sub_ptr).float()
+            scale = segscan.segment_combine_plain(
+                v.float().abs(), inp.float(), "add", plan.sub_ptr)
+            assert bool(((got.float() - want).abs()
+                         <= 2.0 ** -7 * want.abs() + 2.0 ** -16 * scale
+                         ).all())
+
+
+@pytest.mark.parametrize("model", ["ELPH", "ELPH_scatter", "SEALDGCNN"])
+def test_bf16_training_is_the_same_twice_on_the_card(cuda, model):
+    """Two bfloat16 epochs (``--dtype bfloat16``) from one init and one
+    seed give the same losses and parameters bit for bit (every sum of
+    the step is K1's fixed order, its bfloat16 add included), the
+    bfloat16 instance is launched, and the state stays float32."""
+    from subgraph_sketching_tpu_torch.config import Config
+    from subgraph_sketching_tpu_torch.graph.datasets import get_data
+    from subgraph_sketching_tpu_torch.graph.preprocess import build_all_splits
+    from subgraph_sketching_tpu_torch.train.loops import (
+        ElphTrainer, make_optimizer,
+    )
+    from subgraph_sketching_tpu_torch.train.seal_loop import (
+        build_seal_trainer,
+    )
+    cfg = Config(dataset_name="synth-ws", model=model.split("_")[0],
+                 hidden_channels=32, dtype="bfloat16",
+                 use_plan=model != "ELPH_scatter", train_samples=2048,
+                 dynamic_train=True)
+    splits, directed, _ = get_data(cfg)
+    if model == "SEALDGCNN":
+        tr = build_seal_trainer(cfg, splits, cuda)
+    else:
+        ds = build_all_splits(splits, cfg, directed=directed, device=cuda)
+        tr = ElphTrainer(cfg, ds["train"], ds["train"].x.shape[-1],
+                         device=cuda)
+    before = segscan.launches["segscan_add_bf16"]
+    runs = []
+    for _ in range(2):
+        model_ = tr.init_model(0)
+        opt = make_optimizer(cfg, model_.parameters())
+        losses = [tr.train_epoch(model_, opt, seed) for seed in (3, 4)]
+        runs.append((losses, model_.state_dict(), opt))
+    torch.cuda.synchronize()
+    assert segscan.launches["segscan_add_bf16"] > before
+    assert runs[0][0] == runs[1][0]
+    for k, v in runs[0][1].items():
+        assert v.dtype in (torch.float32, torch.int64), k
+        assert torch.equal(v, runs[1][1][k]), k
+    assert all(t.dtype == torch.float32 for st in runs[0][2].state.values()
+               for k, t in st.items() if k != "step")
 
 
 # ---- node embeddings: the ddi diffusion at W = 256 ------------------------

@@ -27,6 +27,10 @@ Tolerances:
   * data x graph and data x lane epochs (dropout on) against one
     process's epoch of the same seed: step losses rtol 1e-5 (a sum over
     the world instead of the data axis would count every batch twice);
+  * a bfloat16 data x graph ELPH epoch (dropout on) against one
+    process's bfloat16 epoch: step losses rtol 1e-2 (each edge shard
+    rounds its partial SpMM to bfloat16 before the bfloat16 sum over the
+    graph axis; one process rounds each row once);
   * streaming on position-ordered state against a node-sharded rebuild:
     MinHash and HLL bit-equal in node order, cardinalities rtol 1e-6,
     scores rtol 1e-5, atol 1e-5.
@@ -364,15 +368,16 @@ def _jparams(jcfg):
     return sketch_params_from_config(jcfg)
 
 
-def _single_process(split, model: str) -> np.ndarray:
-    cfg = Config(**TRAIN, model=model)
+def _single_process(split, model: str, dtype: str = "float32",
+                    epochs: int = 2) -> np.ndarray:
+    cfg = Config(**TRAIN, model=model, dtype=dtype)
     ds = build_link_dataset(split["train"], cfg, "train", device="cpu")
     tr = (loops.BuddyTrainer if model == "BUDDY" else loops.ElphTrainer)(
         cfg, ds, ds.x.shape[-1], device="cpu")
     m = tr.init_model(0)
     opt = loops.make_optimizer(cfg, m.parameters())
     return torch.cat([tr.run_epoch(m, opt, loops.epoch_seed(0, e))
-                      for e in range(2)]).numpy(), ds
+                      for e in range(epochs)]).numpy(), ds
 
 
 def _stream_graphs():
@@ -411,6 +416,9 @@ def _session(work: str) -> dict:
             cases[f"{model}/{m}"] = dict(mesh=m, epochs=2, orders=None,
                                          state=None, frozen=None,
                                          cfg={**TRAIN, "model": model})
+    cases["ELPH_bf16/data_graph"] = dict(
+        mesh="data_graph", epochs=1, orders=None, state=None, frozen=None,
+        cfg={**TRAIN, "model": "ELPH", "dtype": "bfloat16"})
     inputs = dict(edge_index=ei, links=links, num_nodes=N, meshes=MESHES,
                   step=dict(x=x, edge_index=torch.from_numpy(ei),
                             links=links,
@@ -431,6 +439,8 @@ def _session(work: str) -> dict:
     try:   # the references, while the ranks run
         jax_side = _jax_meshes_features(ei, links.numpy())
         single = {m: _single_process(split, m) for m in ("BUDDY", "ELPH")}
+        single_bf16 = _single_process(split, "ELPH", dtype="bfloat16",
+                                      epochs=1)[0]
     finally:
         outs = [p.communicate(timeout=600)[0] for p in procs]
     for r, (p, out) in enumerate(zip(procs, outs)):
@@ -439,6 +449,7 @@ def _session(work: str) -> dict:
              for r in range(WORLD)]
     return dict(ranks=ranks, jax=jax_side, jax_elph_losses=jlosses,
                 single={m: v[0] for m, v in single.items()},
+                single_bf16=single_bf16,
                 unsharded_sf=single["BUDDY"][1].subgraph_features,
                 stream=dict(small=ei_small, full=ei_full, dropped=dropped),
                 split=split, edge_index=ei, links=links)
@@ -584,6 +595,20 @@ def test_no_sum_runs_over_the_world(session, case):
               for r in session["ranks"]]
     for got in losses:
         np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert all(np.array_equal(losses[0], got) for got in losses)
+
+
+def test_bf16_elph_epoch_on_a_data_graph_mesh(session):
+    """One bfloat16 ELPH epoch, dropout on, on the [2, 2] data x graph
+    mesh (each rank's edge shard through the bfloat16 SpMM, summed over
+    the graph axis in bfloat16 by gloo): one process's bfloat16 epoch of
+    the same seed, and the four ranks' losses bit-equal."""
+    want = session["single_bf16"]
+    losses = [r["trainer/ELPH_bf16/data_graph"]["losses"].numpy()
+              for r in session["ranks"]]
+    for got in losses:
+        assert np.all(np.isfinite(got))
+        np.testing.assert_allclose(got, want, rtol=1e-2)
     assert all(np.array_equal(losses[0], got) for got in losses)
 
 

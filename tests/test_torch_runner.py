@@ -92,12 +92,13 @@ def test_main_without_device_needs_cuda():
 @pytest.mark.parametrize("extra", [
     ["--model", "GCN"], ["--model", "SAGE"],
     ["--model", "transE", "--mesh_shape", "1", "--mesh_axes", "graph"],
-    ["--profile_dir", "p"], ["--model", "SEALGCN", "--mesh_shape", "1"],
-    ["--compilation_cache_dir", "c"]])
+    ["--model", "SEALDGCNN", "--mesh_shape", "1", "--mesh_axes", "graph"],
+    ["--model", "SEALGCN", "--mesh_shape", "1"],
+    ["--model", "rotatE", "--mesh_shape", "1"]])
 def test_unported_options_raise(extra):
     """What the port does not run: models the runner has no trainer for,
-    the flags of ROADMAP item 10, and SEAL or KGE on a mesh (their
-    trainers have no mesh)."""
+    and SEAL or KGE on a mesh (their trainers have no mesh, as the JAX
+    package's)."""
     with pytest.raises(NotImplementedError):
         run.main(SMALL + extra + ["--device", "cpu"])
 

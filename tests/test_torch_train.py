@@ -384,14 +384,14 @@ def test_optimizer_state_carries_across():
 @pytest.mark.parametrize("overrides", [
     {"mesh_shape": [1], "mesh_axes": ["rows"]},
     {"memory_sharded": True, "mesh_shape": [2], "mesh_axes": ["graph"]},
-    {"dtype": "bfloat16"}])
+    {"dtype": "float16"}])
 def test_trainer_refuses_what_is_not_ported(overrides, trainer):
-    """bfloat16 is not ported (NotImplementedError); an unknown mesh axis
-    and a mesh that one process does not divide into raise ValueError."""
+    """A compute dtype other than float32 and bfloat16, an unknown mesh
+    axis and a mesh that one process does not divide into raise
+    ValueError."""
     ds, _ = _datasets(0)
     cfg = Config(**{**BASE, **overrides})
-    want = ValueError if "mesh_shape" in overrides else NotImplementedError
-    with pytest.raises(want):
+    with pytest.raises(ValueError):
         getattr(loops, trainer)(cfg, ds["train"], 128, device="cpu")
 
 
