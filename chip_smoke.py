@@ -96,6 +96,22 @@ Phases, each printing one JSON line:
              device ms, the K1 launch counts, peak memory; then every
              chunk merge of every reduce, K1 against its plain version,
              and each K1 instance timed over one reduce's chunks
+  citation2_train  BUDDY end to end at citation2 scale through the port's
+             tools/citation2_train.py at the JAX tool's full sizes (a
+             2,927,963-node Watts-Strogatz ring, 29,279,630 directed
+             edges, 28M train and 2M val links and 10,000 MRR positives
+             with 100 same-source negatives each, the chunked plan at
+             max_slots 4 << 20, 2-hop sketches, features for every link,
+             SIGN(k=0), hidden 256, 3 epochs at batch 262,144, eval), one
+             line per stage as it ends (seconds, links/s, peak memory),
+             the K1 launch counts read around the run (exactly 2 min and
+             2 max a chunk, 1 add a chunk); then every chunk merge of hop
+             1's min and max on K1 bit-equal to its plain version and of
+             the SIGN add within the add bound, the epoch losses finite
+             and falling, val AUC >= 0.90 and MRR >= 0.50, the shifted
+             last prediction chunk equal to whole chunks on the MRR set,
+             20 training steps under torch.profiler (idle share, top
+             kernels), and each K1 instance timed over one reduce's chunks
 
   plan_spmm  ELPH's differentiable SpMM at full width: PlanSpmm over the
              gcn_norm'd synth-ws-200000 train graph at W=1024 float32,
@@ -273,9 +289,11 @@ then the per-kernel summary line (each K1, K2 and K3 entry also carries
 its ``bench_hub`` time, bound and yardstick: ``hub_ms``, ``hub_bound_ms``,
 ``hub_library_ms``; each K1 entry its launches in the train phase,
 ``train_launches``; and the three K1 instances of the citation2-scale
-chunk merges, their ``ms`` summed over one reduce's chunks; and the three
-K1 add instances of the ELPH step at W=1024, PlanSpmm forward and
-backward and gather_rows' backward, each with the add launches of the
+chunk merges, their ``ms`` summed over one reduce's chunks, and the three
+of the citation2_train phase's chunk merges, timed so, with that run's
+launches; and the three K1 add instances of the ELPH step at W=1024,
+PlanSpmm forward and backward and gather_rows' backward, each with the
+add launches of the
 train_elph run, which the three share, and the launches a step counted in
 the profiled window; and the two K1 add instances of the ddi diffusion at
 W=256, forward and backward, with the add launches of the ddi runs; each
@@ -2230,6 +2248,154 @@ def phase_datasets_citation2(seed: int = 7) -> tuple:
         "merge_check": "every chunk of every reduce: K1 bit-equal (min/max) "
                        f"to segment_combine_plain, add {ADD_TOLERANCE}",
         "instances": instances}
+    return record, instances
+
+
+# ------------------------------------------ citation2-scale BUDDY training --
+
+# what a model that learned gives on the WS graph, at least (one that
+# learned nothing gives about 0.5 and 0.05)
+C2_FLOORS = {"auc": 0.90, "mrr": 0.50}
+C2_PROFILE_STEPS = 20
+
+
+def phase_citation2_train(seed: int = 0) -> tuple:
+    """BUDDY end to end at citation2 scale through the port's
+    ``tools/citation2_train.py`` at the JAX tool's full sizes (2,927,963
+    nodes, 29,279,630 directed edges, 28M train and 2M val links and the
+    MRR set, batch 262,144, hidden 256, 3 epochs, max_slots 4 << 20), K1's
+    counts set to 0 just before the run and read just after: exactly 2
+    min and 2 max launches a chunk (2 hops) and 1 add a chunk (SIGN).
+    Then every chunk merge of hop 1's min and max on K1 against its plain
+    version (bit-equal), and of the SIGN add (within the add bound); the
+    epoch losses finite and falling; val AUC and MRR over C2_FLOORS; the
+    shifted last prediction chunk against whole chunks on the MRR set;
+    C2_PROFILE_STEPS training steps under torch.profiler (idle share, top
+    kernels); each K1 instance timed over one reduce's chunks.  Returns
+    (the record, the instances)."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from subgraph_sketching_tpu_torch.ops import segscan
+    from subgraph_sketching_tpu_torch.tools import citation2_train as c2
+
+    sizes = c2.FULL
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _reset_k1()
+    torch.cuda.synchronize()
+    st = c2.run(sizes, "cuda", seed=seed, keep_inputs=True,
+                log=lambda r: emit({"phase": "citation2_train", **r}))
+    launches = dict(segscan.launches)
+    plan, chunks = st.plan, st.plan.num_chunks
+    if chunks < 2:
+        raise AssertionError(f"citation2_train: the plan took {chunks} "
+                             f"chunk(s), not the chunked form")
+    need = {**{k: 0 for k in launches},
+            "segscan_min_i32": c2.MAX_HOPS * chunks,
+            "segscan_max_i8": c2.MAX_HOPS * chunks,
+            "segscan_add_f32": chunks}
+    if launches != need:
+        raise AssertionError(f"citation2_train: K1 launches {launches}, one "
+                             f"per chunk of every reduce is {need}")
+    losses = st.metrics["epoch_loss"]
+    if not (all(math.isfinite(v) for v in losses)
+            and all(b < a for a, b in zip(losses, losses[1:]))):
+        raise AssertionError(f"citation2_train: epoch losses {losses} are "
+                             f"not finite and falling")
+    short = {k: st.metrics[k] for k, floor in C2_FLOORS.items()
+             if not st.metrics[k] >= floor}
+    if short:
+        raise AssertionError(f"citation2_train: {short} below the floors "
+                             f"{C2_FLOORS}")
+
+    # the shifted last chunk against whole chunks on the MRR set
+    bf, n_mrr = sizes.feat_batch, len(st.links.mrr)
+    shifted = c2.predict_range(st.model, st.mrr_tables, 0, n_mrr, bf)
+    whole = torch.cat([
+        c2.predict_range(st.model, st.mrr_tables, s, bf, bf)
+        for s in range(0, len(st.mrr_tables.links), bf)])[:n_mrr]
+    tail_err = float((shifted - whole).abs().max())
+    if tail_err > 1e-5:
+        raise AssertionError(f"citation2_train: the shifted tail's "
+                             f"predictions differ by {tail_err}")
+    del shifted, whole
+
+    # every chunk merge of hop 1 and of SIGN, K1 against its plain version
+    add_err = [0.0]
+
+    def merge(v, win, op, ptr):
+        got = segscan.segment_combine(v, win, op, ptr)
+        want = segscan.segment_combine_plain(v, win, op, ptr)
+        if op == "add":
+            check_add(got, want, v, win, ptr, "citation2_train SIGN chunk")
+            add_err[0] = max(add_err[0], float((got - want).abs().max()))
+        elif not torch.equal(got, want):
+            raise AssertionError(f"citation2_train: a chunk's hop-1 {op} "
+                                 f"merge on K1 is not bit-equal to its "
+                                 f"plain version")
+        return want
+
+    mh0, hll0 = st.hop0
+    for table, op in ((mh0, "min"), (hll0, "max")):
+        plan.reduce(table, op, merge=merge)
+    plan.reduce(st.x, "add", edge_data_slots=st.w_slots, merge=merge)
+    torch.cuda.synchronize()
+
+    # the device's idle share over C2_PROFILE_STEPS steps, after 3 warm
+    B = sizes.batch
+    order = torch.randperm(st.links.n_train, generator=st.generator,
+                           device="cuda")
+    window_s, busy_ms, per = profile_window(
+        lambda: c2.train_epoch(st.model, st.opt, st.tables, order[:3 * B],
+                               B, st.generator),
+        lambda: c2.train_epoch(st.model, st.opt, st.tables,
+                               order[3 * B:(3 + C2_PROFILE_STEPS) * B], B,
+                               st.generator))
+    profile = {"steps": C2_PROFILE_STEPS, "window_ms": window_s * 1e3,
+               "step_ms": window_s * 1e3 / C2_PROFILE_STEPS,
+               "device_busy_ms": busy_ms,
+               "device_idle_share": 1 - busy_ms / (window_s * 1e3),
+               "top_kernels": sorted(([k, v[0], v[1]] for k, v in
+                                      per.items()), key=lambda r: -r[1])[:10]}
+    del order
+
+    instances = {
+        "segscan_min_i32": _chunk_instance(plan, mh0, "min"),
+        "segscan_max_i8": _chunk_instance(plan, hll0, "max"),
+        "segscan_add_f32": _chunk_instance(plan, st.x, "add", st.w_slots)}
+    for name, rec in instances.items():
+        rec.update(launches=launches[name],
+                   max_abs_err=add_err[0] if name == "segscan_add_f32"
+                   else 0.0)
+    def key(r):
+        return r["stage"] + str(r.get("epoch", ""))
+
+    by_stage = {key(r): r["s"] for r in st.records}
+    rates = {key(r): r["links_per_s"] for r in st.records
+             if "links_per_s" in r}
+    record = {
+        "phase": "citation2_train", "sizes": dataclasses.asdict(sizes),
+        "nodes": sizes.nodes, "edges": st.records[0]["edges"],
+        "train_links": st.links.n_train,
+        "val_links": len(st.links.links) - st.links.n_train,
+        "mrr_links": n_mrr, "chunks": chunks, "sign_chunks": chunks,
+        "steps_per_epoch": st.steps, "stage_s": by_stage,
+        "links_per_s": rates, "epoch_loss": losses,
+        "auc": st.metrics["auc"], "hits@50": st.metrics["hits@50"],
+        "mrr": st.metrics["mrr"], "floors": C2_FLOORS,
+        "peak_memory_bytes": max(r.get("peak_memory_bytes", 0)
+                                 for r in st.records),
+        "k1_launches": launches, "shifted_tail_max_abs_err": tail_err,
+        "merge_check": "every chunk of hop 1's min and max: K1 bit-equal to "
+                       "segment_combine_plain; SIGN add "
+                       f"{ADD_TOLERANCE}",
+        "profile": profile, "instances": instances,
+        "phase_s": time.perf_counter() - t0}
+    del st, mh0, hll0
+    torch.cuda.empty_cache()
     return record, instances
 
 
@@ -5330,6 +5496,8 @@ def main() -> int:
         del plans, hub
         citation2, chunked = phase_datasets_citation2()
         emit(citation2)
+        c2_train, c2_k1 = phase_citation2_train()
+        emit(c2_train)
         ddi_k1, ddi_runs, ddi = phase_ddi(ddi_root)
         for r in ddi_runs + [ddi] + list(ddi_k1.values()):
             emit(r)
@@ -5420,6 +5588,16 @@ def main() -> int:
          "chunks": citation2["sign_chunks" if name == "segscan_add_f32"
                              else "chunks"]}
         for name, r in chunked.items()] + [
+        {"name": f"{name} (chunk merge, citation2 training)",
+         "route": "cuda", "source": f"{CSRC}/segscan.cu",
+         "replaces": REPLACES["segscan"], "launches": r["launches"],
+         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+         "chunks": c2_train["chunks"],
+         "launches_of": "this instance in the citation2_train run: the "
+                        "2 hops' sketches and SIGN"}
+        for name, r in c2_k1.items()] + [
         {"name": r["name"], "route": "cuda", "source": f"{CSRC}/segscan.cu",
          "replaces": REPLACES["segscan"], "launches": elph_adds,
          "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],

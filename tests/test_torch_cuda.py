@@ -1137,3 +1137,53 @@ def test_kge_steps_on_the_card_match_the_cpu(cuda, model_name):
         d = (s1[k] - v).abs()
         assert int((d > 1e-6 + 1e-4 * v.abs()).sum()) <= 1e-3 * v.numel(), k
         assert float(d.max()) <= 2 * cfg.lr * 2, k
+
+
+def test_citation2_stages_on_the_card_match_the_cpu(cuda):
+    """tools/citation2_train.py's stages at a small size on the card and
+    on the CPU from the same hop-0 tables and node features: the chunk
+    count equal, both hops' sketches bit-equal with K1 launched once a
+    chunk of every reduce, cards rtol 1e-5, features rtol 1e-5 / atol
+    1e-4, SIGN(k=0) rtol 1e-5 / atol 1e-5, and ``main`` end to end on
+    the card."""
+    import dataclasses
+
+    from subgraph_sketching_tpu_torch.tools import citation2_train as c2
+
+    sizes = c2.Sizes(nodes=3000, n_pos=8000, n_val=2000, mrr_pos=50,
+                     batch=512, feat_batch=1024, epochs=2, num_perm=32,
+                     hidden=16, features=16, max_slots=8192)
+    params = c2.SketchParams(max_hops=c2.MAX_HOPS, num_perm=sizes.num_perm,
+                             hll_p=c2.HLL_P)
+    rng = np.random.default_rng(3)
+    src, dst, deg = c2.ws_graph(sizes.nodes, rng)
+    lk = c2.make_links(src, dst, sizes, rng)
+    gen = torch.Generator().manual_seed(3)
+    mh0, hll0 = c2.hop0_tables(sizes.nodes, sizes.num_perm, c2.HLL_P, gen)
+    x = torch.randn((sizes.nodes, sizes.features), generator=gen)
+    links = torch.from_numpy(c2.pad_rows(lk.links, sizes.feat_batch)).long()
+    out = {}
+    for dev in ("cpu", cuda):
+        plan = c2.make_plan(src, dst, sizes.nodes, sizes.max_slots, dev)
+        for k in segscan.launches:
+            segscan.launches[k] = 0
+        sk = c2.build_sketches(plan, mh0.to(dev), hll0.to(dev), params)
+        x_sign = c2.sign0(plan, x.to(dev), torch.from_numpy(deg).to(dev),
+                          c2.gcn_slots(plan, src, dst, deg))
+        out[str(dev)] = (plan.num_chunks, dict(segscan.launches),
+                         [t.cpu() for t in sk],
+                         c2.features_all(links.to(dev), sk, params,
+                                         sizes.feat_batch).cpu(),
+                         x_sign.cpu())
+    (c_cpu, _, sk_cpu, sf_cpu, xs_cpu), (c, launches, sk, sf, xs) = \
+        out["cpu"], out["cuda"]
+    assert c == c_cpu >= 3
+    assert launches["segscan_min_i32"] == launches["segscan_max_i8"] \
+        == c2.MAX_HOPS * c and launches["segscan_add_f32"] == c
+    assert torch.equal(sk[0], sk_cpu[0]) and torch.equal(sk[1], sk_cpu[1])
+    torch.testing.assert_close(sk[2], sk_cpu[2], rtol=1e-5, atol=0)
+    torch.testing.assert_close(sf, sf_cpu, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(xs, xs_cpu, rtol=1e-5, atol=1e-5)
+    metrics = c2.main([f"--{k}={v}" for k, v in
+                       dataclasses.asdict(sizes).items()])
+    assert all(np.isfinite(metrics["epoch_loss"]))

@@ -28,8 +28,8 @@ print(" ".join(names))
 
 # the training slice's modules, the dataset slice's (loading, LCC, RA
 # and the plan builder's build), ELPH's, the node embeddings', the
-# heuristics tier's, the SEAL and KGE tiers' and the multi-process
-# layer's, which must be among those imported
+# heuristics tier's, the SEAL and KGE tiers', the multi-process layer's
+# and the command-line tools', which must be among those imported
 REQUIRED = {"train", "train.losses", "train.evaluation", "train.inference",
             "train.loops", "train.checkpoint", "train.determinism",
             "runners.run", "metrics_logging", "utils",
@@ -43,7 +43,9 @@ REQUIRED = {"train", "train.losses", "train.evaluation", "train.inference",
             "parallel.multihost", "parallel.fault", "parallel.train",
             "parallel.dryrun", "parallel.collectives",
             "parallel.breakdown", "parallel.node_sharded",
-            "parallel.dist_sketch", "parallel.scaling", "device"}
+            "parallel.dist_sketch", "parallel.scaling", "device",
+            "tools", "tools.citation2_train", "tools.repro_baseline",
+            "tools.run_protocol"}
 
 
 def test_port_imports_no_jax():
