@@ -122,7 +122,7 @@ Phases, each printing one JSON line:
              by each route
   train_elph ELPH training at full width through runners.run.run
              (--model ELPH, synth-ws-200000, Config defaults: hidden 1024,
-             batch 1024, gcn, 2 hops, dropouts 0.5; 2 epochs of 131072
+             batch 1024, gcn, 2 hops, dropouts 0.5; 2 epochs of 65536
              links, eval every epoch, --check_determinism, --save_model),
              the K1 launch counts read around it (at least 5 add launches
              a step: PlanSpmm each way per convolution, gather_rows'
@@ -239,7 +239,7 @@ Phases, each printing one JSON line:
              epoch of BUDDY_TRAIN_SAMPLES links, --check_determinism),
              its epoch loss within rtol 1e-4 of the train phase's first
              epoch without a mesh, and ELPH at
-             Config defaults with --mesh_shape 1 (one epoch of 131072
+             Config defaults with --mesh_shape 1 (one epoch of 65536
              links) against the train_elph run's first epoch; per model
              the epoch seconds, step ms, 50 / 20 steps on the mesh and
              unsharded under torch.profiler (parallel/breakdown.py: idle
@@ -268,7 +268,7 @@ Phases, each printing one JSON line:
              route's (ms per sharded hop beside the plan route's hop, K1
              launches per hop by op, halo rows, bytes the rank holds), the
              edge-sharded build bit-equal too; ELPH with --memory_sharded
-             through runners.run (one epoch of 128 steps) within rtol 1e-4
+             through runners.run (one epoch of 64 steps) within rtol 1e-4
              of train_elph's first epoch, 20 steps profiled (idle share,
              K1 adds a step); BUDDY preprocessing on the graph mesh against
              the unsharded one (rtol 1e-5, atol 1e-4); a seeded BUDDY served
@@ -284,6 +284,22 @@ Phases, each printing one JSON line:
              epoch losses within rtol 1e-5 of world size 1's, the halo
              route printed (the all-reduce route: gloo exchanges no CUDA
              tensor), K1 on rank 0's halo merges held and timed
+  scale_equality  the port's tools/scale_equality.py on the card at
+             synth-ws-200000 (SE_NODES; the JAX artifact's 500,000 took
+             153-231 s of the phase's 120), launched beside the dp
+             phase's two-rank launches (an untimed window) and read here,
+             every sharded phase on two gloo ranks sharing cuda:0: BUDDY's node-sharded preprocessing
+             against one process (MinHash and HLL tables bit-equal in node
+             order, 4,096 probe links' features within 1e-4, each rank
+             holding exactly half), memory-sharded ELPH on a 1,2
+             data,graph mesh against one process (one epoch of 16,384
+             links, 16,384 links a split evaluated; epoch losses within
+             1e-4, metrics within 0.01); K1 on rank 0's halo merges at that
+             scale, rebuilt from the tool's partition (the merged rows
+             bit-equal to rank 0's hop-1 shard), held and timed, with rank
+             0's launches in the build; then tools/gen_hll_tables.py on the
+             card for p = 4..10, every raw and bias array bit-equal to the
+             committed sketch/_hll_tables.npz
 
 then the per-kernel summary line (each K1, K2 and K3 entry also carries
 its ``bench_hub`` time, bound and yardstick: ``hub_ms``, ``hub_bound_ms``,
@@ -306,7 +322,8 @@ four gather_rows backward instances, SEAL's label embedding and KGE's
 three, each with its own launches in its run; and the three K1 add
 instances of the dp phase's meshed ELPH step, with the add launches of
 its world-size-1 ELPH run; and the mesh_graph phase's K1 instances, each
-with the launches of the run it came from; and the bf16 phase's three K1
+with the launches of the run it came from, and the scale_equality
+phase's two, with rank 0's launches in its build; and the bf16 phase's three K1
 bfloat16 add instances, with the bfloat16 add launches of its ELPH and
 SEALDGCNN runs), the
 nvidia-smi line, and as the last
@@ -1431,7 +1448,9 @@ def phase_plan_spmm(g, cfg, seed: int = 8) -> tuple:
                for k, r in k1.items()}}
 
 
-ELPH_TRAIN_SAMPLES = 131072    # 128 steps of the default batch 1024
+# 64 steps of the default batch 1024 (131,072 until the scale_equality
+# phase came: depth cut for the script's time limit)
+ELPH_TRAIN_SAMPLES = 65536
 ELPH_PROFILE_STEPS = 20
 
 
@@ -3802,7 +3821,7 @@ def phase_kge(root: str, splits_memo: dict, seed: int = 19) -> dict:
 
 # ------------------------------------------------------------------ dp --
 
-DP_ELPH_SAMPLES = 131072        # 128 steps of the default batch 1024
+DP_ELPH_SAMPLES = 65536         # train_elph's first epoch: 64 steps
 DP_PROFILE_STEPS = {"BUDDY": 50, "ELPH": 20}
 DP_TIMED_STEPS = 10             # steps a turn, unsharded against mesh
 # the two-rank check on one card: small, on the bundled synth-ba graph
@@ -4063,17 +4082,20 @@ def _two_ranks(name: str, args: list, program: list = None) -> list:
 
 
 class _Launch:
-    """A two-rank launch (``_two_ranks`` of ``program``) in a thread of its
-    own: ``start()``; ``wait()`` for its end; ``result()`` waits, raises
-    its failure and returns its seconds from start to end."""
+    """A two-rank launch (``_two_ranks`` of ``program``), or a call of
+    ``target``, in a thread of its own: ``start()``; ``wait()`` for its
+    end; ``result()`` waits, raises its failure and returns its seconds
+    from start to end; ``value``: what ``target`` returned."""
 
-    def __init__(self, name: str, program: list):
+    def __init__(self, name: str, program: list = None, target=None):
         self.name, self.program = name, program
-        self.thread = self.failure = self.seconds = None
+        self.target = target or (lambda: _two_ranks(name, [],
+                                                    program=program))
+        self.thread = self.failure = self.seconds = self.value = None
 
     def _run(self, t0: float) -> None:
         try:
-            _two_ranks(self.name, [], program=self.program)
+            self.value = self.target()
         except Exception as e:   # raised by result()
             self.failure = e
         self.seconds = time.perf_counter() - t0
@@ -4090,7 +4112,7 @@ class _Launch:
     def result(self) -> float:
         self.wait()
         if self.failure is not None:
-            raise AssertionError(f"{self.name}: the two-rank launch failed: "
+            raise AssertionError(f"{self.name}: the launch failed: "
                                  f"{self.failure}")
         return self.seconds
 
@@ -4223,7 +4245,7 @@ def _degrees_twice(g, seed: int) -> dict:
             "tolerance": ADD_TOLERANCE}
 
 
-def phase_dp(splits, train: dict, elph: dict, alongside=None) -> tuple:
+def phase_dp(splits, train: dict, elph: dict, alongside=()) -> tuple:
     """Data parallelism (parallel/, the trainers' data axis) on the card.
     (a) world size 1 on NCCL at full width: BUDDY at Config defaults on
     synth-ws-200000 through runners.run with --mesh_shape 1 (1 epoch of
@@ -4236,11 +4258,13 @@ def phase_dp(splits, train: dict, elph: dict, alongside=None) -> tuple:
     collectives a step, K1 adds a step); K1 on one meshed ELPH step's
     real inputs.  (b) two gloo ranks on cuda:0 (``_gloo_two_ranks``).
     (c) ``parallel.dryrun.dryrun_multichip(1)`` on NCCL.  Then gcn_norm's
-    degrees on the card (``_degrees_twice``).  ``alongside``: a
-    :class:`_Launch` started with (b) and waited for after it, so that it
-    shares (b)'s untimed window and no timed one.  Returns (the K1
+    degrees on the card (``_degrees_twice``).  ``alongside``: launches
+    (:class:`_Launch`) started with (b) and waited for after it, so that
+    they share (b)'s untimed window and no timed one.  Returns (the K1
     records, the phase's records)."""
     import dataclasses
+
+    import torch
 
     from subgraph_sketching_tpu_torch.config import Config
     from subgraph_sketching_tpu_torch.ops.cuda_build import BUILD_DIR
@@ -4274,13 +4298,14 @@ def phase_dp(splits, train: dict, elph: dict, alongside=None) -> tuple:
             r["launches"] = elph_dp["k1_launches"]["segscan_add_f32"]
         del trainer
         records.append(elph_dp)
-        if alongside is not None:
-            alongside.start()
+        torch.cuda.empty_cache()   # the launches' ranks share this card
+        for launch in alongside:
+            launch.start()
         try:
             records.append(_gloo_two_ranks(work))
         finally:
-            if alongside is not None:
-                alongside.wait()
+            for launch in alongside:
+                launch.wait()
         t1 = time.perf_counter()
         dry = dryrun_multichip(1, device="cuda")
         records.append({"phase": "dp", "part": "dryrun_multichip",
@@ -4297,7 +4322,7 @@ def phase_dp(splits, train: dict, elph: dict, alongside=None) -> tuple:
 
 # ---------------------------------------------------------- mesh_graph --
 
-MG_SAMPLES = 131072     # one ELPH epoch of 128 steps of the default batch
+MG_SAMPLES = 65536      # train_elph's first epoch: 64 steps of batch 1024
 MG_PROFILE_STEPS = 20
 MG_STREAM_EDGES = 100   # undirected train edges deleted, then inserted
 MG_SERVE_LINKS = 65536
@@ -4831,9 +4856,185 @@ def phase_mesh_graph(splits, elph: dict, work: str,
     return k1, records
 
 
+# -------------------------------------------------------- scale_equality --
+
+# the scale of every other phase: at the JAX artifact's 500,000 nodes the
+# phase took 153-231 s of its 120, its evaluation cut too (PERF.md)
+SE_NODES = 200_000
+SE_GRAPH_RANKS = 2        # gloo ranks sharing cuda:0, buddy and ELPH alike
+SE_ELPH_MESH = "1,2"
+SE_EPOCHS = 1             # ELPH cut in depth only: one epoch of 16,384
+SE_TRAIN_SAMPLES = 16384  # links (4 steps of 4096), the JAX test's depth
+SE_EVAL_SAMPLES = 16384   # val and test links evaluated (and train's 16,384)
+SE_FEATURE_ATOL = 1e-4    # sharded probe features against one process's
+SE_LOSS_ATOL = 1e-4       # sharded ELPH epoch losses against one process's
+SE_METRIC_ATOL = 0.01     # and its metrics (the JAX test's envelope)
+SE_HLL_PS = range(4, 11)  # HLL++ tables made on the card, p = 4..10
+
+
+def _se_halo_k1(work: str, launches: dict) -> list:
+    """K1 on rank 0's halo merges at the tool's scale, rebuilt from the
+    partition its buddy phase wrote: rank 0's halo plan, the hop-0 rows
+    each rank sends rank 0 (the exchange's result), folded into rank 0's
+    local merge.  The merged rows are bit-equal to rank 0's hop-1 shard
+    from the run; K1 is held against its plain version and timed
+    (``k1_record``).  ``launches``: rank 0's K1 launches in the build."""
+    import numpy as np
+    import torch
+
+    from subgraph_sketching_tpu_torch.ops.segment_scan import (
+        SortedSegmentPlan,
+    )
+    from subgraph_sketching_tpu_torch.parallel.node_sharded import (
+        _IDENTITY, ShardedHop,
+    )
+    from subgraph_sketching_tpu_torch.sketch.params import SketchParams
+    from subgraph_sketching_tpu_torch.tools import scale_equality as tool
+
+    part = tool.load_partition(os.path.join(work, "partition.npz"))
+    params = SketchParams(max_hops=2)
+    hop = ShardedHop(part, 0, None, "cuda", tool.MAX_GATHER_ROWS)
+    if not isinstance(hop.halo, SortedSegmentPlan):
+        raise AssertionError("scale_equality: rank 0's halo plan is "
+                             "chunked; K1's inputs are a chunk's")
+    rows = [[torch.from_numpy(t).cuda() for t in part.shard_init(params, s)]
+            for s in range(part.n_dev)]
+    shard0 = np.load(os.path.join(work, "shard0.npz"))
+    k1 = []
+    for i, (op, key) in enumerate((("min", "minhash"), ("max", "hll"))):
+        recv = torch.cat([torch.where(
+            torch.from_numpy(part.send_mask[s][0]).cuda()[:, None],
+            rows[s][i][torch.from_numpy(part.send_idx[s][0]).cuda().long()],
+            torch.full((), _IDENTITY[(op, rows[s][i].dtype)],
+                       dtype=rows[s][i].dtype, device="cuda"))
+            for s in range(part.n_dev)])
+        acc = hop.local.reduce(rows[0][i], op)
+        v = hop.halo.reduce_subruns(recv, op).contiguous()
+        merged = hop.halo.merge_subruns(v, acc, op)
+        if not np.array_equal(merged.cpu().numpy(), shard0[key][1]):
+            raise AssertionError(f"scale_equality: rank 0's {key} halo "
+                                 f"merge, rebuilt, differs from its hop-1 "
+                                 f"shard")
+        name = (f"{'segscan_min_i32' if op == 'min' else 'segscan_max_i8'} "
+                f"(scale_equality, node-sharded hop halo merge, "
+                f"N={part.num_nodes}, D={part.n_dev}, rank 0)")
+        k1.append({"phase": "scale_equality", "name": name,
+                   "launches": launches[name.split()[0]],
+                   **k1_record(name, op, v, acc, hop.halo.sub_ptr)})
+    return k1
+
+
+def _se_hll_tables(work: str) -> dict:
+    """``tools/gen_hll_tables.py`` on the card for p = 4..10 at its
+    default seed, one ``--only-p`` run each into one file: every array
+    bit-equal to the committed ``_hll_tables.npz``."""
+    import numpy as np
+
+    from subgraph_sketching_tpu_torch.tools import gen_hll_tables
+
+    out = os.path.join(work, "hll_tables.npz")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        for p in SE_HLL_PS:
+            gen_hll_tables.main(["--only-p", str(p), "--out", out,
+                                 "--device", "cuda"])
+    seconds = time.perf_counter() - t0
+    committed = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "subgraph_sketching_tpu_torch", "sketch",
+                             "_hll_tables.npz")
+    with np.load(out) as got, np.load(committed) as want:
+        for p in SE_HLL_PS:
+            for key in (f"raw_estimate_p{p}", f"bias_p{p}"):
+                if not np.array_equal(got[key], want[key]):
+                    raise AssertionError(f"scale_equality: {key} made on "
+                                         f"the card differs from the "
+                                         f"committed table")
+        arrays = sorted(got.files)
+    return {"phase": "scale_equality", "part": "hll_tables",
+            "p": list(SE_HLL_PS), "seconds": seconds, "arrays": arrays,
+            "raw_and_bias": "bit-equal to the committed _hll_tables.npz"}
+
+
+def _se_launch(work: str) -> _Launch:
+    """The port's ``tools/scale_equality.py`` on the card at N =
+    SE_NODES (synth-ws), every sharded phase on SE_GRAPH_RANKS gloo ranks
+    sharing cuda:0 (the halo exchange's all-reduce route), ELPH on
+    SE_ELPH_MESH cut to one epoch of SE_TRAIN_SAMPLES links, as a
+    :class:`_Launch` (not started) whose value is the tool's report; its
+    files in ``work``."""
+    from subgraph_sketching_tpu_torch.tools import scale_equality as tool
+
+    return _Launch("scale_equality", target=lambda: tool.run(
+        SE_NODES, None, SE_ELPH_MESH, "cuda", graph_ranks=SE_GRAPH_RANKS,
+        epochs=SE_EPOCHS, train_samples=SE_TRAIN_SAMPLES,
+        eval_samples=SE_EVAL_SAMPLES, timeout=600, work=work,
+        log=lambda blob: None))
+
+
+def phase_scale_equality(work: str, launch: _Launch) -> tuple:
+    """The tool's run (``launch``, from ``_se_launch``, which the dp
+    phase ran beside its own two-rank launches) held: MinHash and HLL
+    tables bit-equal in node order to one process's, the probe features
+    within SE_FEATURE_ATOL, each rank holding exactly 1/2 of the tables,
+    the sharded ELPH run's losses and metrics within SE_LOSS_ATOL and
+    SE_METRIC_ATOL of the one-process run's; K1 on rank 0's halo merges
+    (``_se_halo_k1``); then the HLL++ tables made on the card
+    (``_se_hll_tables``).  ``work``: the launch's directory, removed by
+    the caller.  Returns (the K1 records, the phase's records)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    tool_s = launch.result()
+    report = launch.value
+    buddy = report["buddy_preprocessing"]
+    ms = report["elph_memory_sharded"]
+    problems = []
+    if not (buddy["minhash_tables_bit_equal"]
+            and buddy["hll_tables_bit_equal"]):
+        problems.append("the sharded tables differ from one process's")
+    if not buddy["max_feature_delta"] <= SE_FEATURE_ATOL:
+        problems.append(f"probe features off by {buddy['max_feature_delta']}")
+    fractions = [buddy["per_device_fraction"]] + [
+        s["fraction"] for s in report["elph_shard_bytes"].values()]
+    if any(f != 1 / SE_GRAPH_RANKS for f in fractions):
+        problems.append(f"shard fractions {fractions}")
+    losses = ms["sharded"]["losses"] + ms["single_device"]["losses"]
+    if len(losses) != 2 * SE_EPOCHS or not np.isfinite(losses).all():
+        problems.append(f"epoch losses {losses}")
+    if ms["max_loss_delta"] is None or \
+            not ms["max_loss_delta"] <= SE_LOSS_ATOL:
+        problems.append(f"loss delta {ms['max_loss_delta']}")
+    if not ms["max_metric_delta"] <= SE_METRIC_ATOL:
+        problems.append(f"metric delta {ms['max_metric_delta']}")
+    if problems:
+        raise AssertionError("scale_equality: " + "; ".join(problems))
+    launches = buddy["k1_launches_build"][0]
+    k1 = _se_halo_k1(work, launches)
+    idle = [r["name"] for r in k1 if r["launches"] <= 0]
+    if idle:
+        raise AssertionError(f"scale_equality: K1 instances never launched "
+                             f"in rank 0's build: {idle}")
+    tables = _se_hll_tables(work)
+    records = [{"phase": "scale_equality", "part": "tool",
+                "args": f"{SE_NODES} - {SE_ELPH_MESH} --graph_ranks "
+                        f"{SE_GRAPH_RANKS} --epochs {SE_EPOCHS} "
+                        f"--train_samples {SE_TRAIN_SAMPLES} --eval_samples "
+                        f"{SE_EVAL_SAMPLES}",
+                "tool_s": tool_s, "window": "beside the dp phase's "
+                                            "two-rank launches",
+                "tolerances": {"features": SE_FEATURE_ATOL,
+                               "losses": SE_LOSS_ATOL,
+                               "metrics": SE_METRIC_ATOL},
+                "report": report},
+               tables,
+               {"phase": "scale_equality", "part": "summary",
+                "phase_s": time.perf_counter() - t0}]
+    return k1, records
+
+
 # -------------------------------------------------------------- bfloat16 --
 
-BF16_ELPH_SAMPLES = 131072     # 128 steps of the default batch 1024
+BF16_ELPH_SAMPLES = 65536      # 64 steps of the default batch 1024
 BF16_PROFILE_STEPS = 20
 BF16_TIMED_STEPS = 5           # steps a turn, float32 against bfloat16
 BF16_SEAL_BATCHES = 16         # SEALDGCNN's train links: 16 batches of 1024
@@ -5490,6 +5691,7 @@ def main() -> int:
     collab_root = tempfile.mkdtemp(prefix="smoke_collab_")
     ddi_root = tempfile.mkdtemp(prefix="smoke_ddi_")
     mg_work = tempfile.mkdtemp(prefix="smoke_mesh_graph_")
+    se_work = tempfile.mkdtemp(prefix="smoke_scale_equality_")
     try:
         emit(phase_datasets_collab(collab_root))
         emit(phase_datasets_chunked(plans))
@@ -5521,19 +5723,26 @@ def main() -> int:
         for r in bf16 + k1_bf16:
             emit(r)
         del splits_memo
-        # mesh_graph's two-rank launch runs beside dp's (untimed) ones
+        # mesh_graph's two-rank launch and the scale_equality tool run
+        # beside dp's (untimed) two-rank launches
         mg_launch = _mg_launch(mg_work)
-        k1_dp, dp = phase_dp(splits, train, elph, alongside=mg_launch)
+        se_launch = _se_launch(se_work)
+        k1_dp, dp = phase_dp(splits, train, elph,
+                             alongside=(mg_launch, se_launch))
         for r in dp + k1_dp:
             emit(r)
         k1_mg, mesh_graph = phase_mesh_graph(splits, elph, mg_work,
                                              mg_launch)
         for r in mesh_graph + k1_mg:
             emit(r)
+        k1_se, scale_equality = phase_scale_equality(se_work, se_launch)
+        for r in scale_equality + k1_se:
+            emit(r)
     finally:
         shutil.rmtree(collab_root, ignore_errors=True)
         shutil.rmtree(ddi_root, ignore_errors=True)
         shutil.rmtree(mg_work, ignore_errors=True)
+        shutil.rmtree(se_work, ignore_errors=True)
 
     # each K1, K2 and K3 instance's bench_hub record, by name
     at_hub = {r["name"]: r for r in hub_records + hub_routes if "name" in r}
@@ -5665,6 +5874,16 @@ def main() -> int:
          "launches_of": next(v for k, v in MG_LAUNCHES_OF.items()
                              if k in r["name"])}
         for r in k1_mg] + [
+        {"name": r["name"], "route": "cuda", "source": f"{CSRC}/segscan.cu",
+         "replaces": REPLACES["segscan"], "launches": r["launches"],
+         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+         "graph_ms": r["graph_ms"],
+         "launches_of": "this instance's K1 launches in rank 0's "
+                        "node-sharded build in the scale_equality tool run "
+                        "(local and halo merges, 2 hops)"}
+        for r in k1_se] + [
         {"name": r["name"], "route": "cuda", "source": f"{CSRC}/segscan.cu",
          "replaces": REPLACES["segscan"], "launches": r["launches"],
          "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],

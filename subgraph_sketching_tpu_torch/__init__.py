@@ -10,4 +10,7 @@ absent; pass ``device="cpu"`` to run the plain PyTorch versions of the
 kernels on the CPU.
 """
 
+__version__ = "0.1.0"
+
+from subgraph_sketching_tpu_torch.config import Config  # noqa: F401
 from subgraph_sketching_tpu_torch.device import resolve_device  # noqa: F401

@@ -19,6 +19,7 @@ layer's collectives are in ``parallel/collectives.py``.
 
 from __future__ import annotations
 
+import datetime
 import os
 from typing import Optional, Tuple
 
@@ -56,7 +57,8 @@ def initialize(init_method: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None,
                backend: Optional[str] = None,
-               device=None) -> Tuple[int, int]:
+               device=None,
+               timeout: Optional[float] = None) -> Tuple[int, int]:
     """Join the process group; returns (rank, world size).
 
     With no ``init_method`` the group comes from torchrun's environment;
@@ -64,8 +66,10 @@ def initialize(init_method: Optional[str] = None,
     single-process and says so loudly, so that a launcher that failed to
     set it shows instead of W processes running independently.  A CUDA
     ``device`` becomes this process's current device before NCCL binds
-    to it.  Calling it again in a joined process returns the group's
-    rank and size."""
+    to it.  ``timeout``: seconds a collective of the world group may wait
+    before it fails (torch's default, 30 minutes for gloo, when None);
+    subgroups made later keep torch's default.  Calling it again in a
+    joined process returns the group's rank and size."""
     if initialized():
         return rank(), world_size()
     if init_method is None and "WORLD_SIZE" not in os.environ:
@@ -78,6 +82,8 @@ def initialize(init_method: Optional[str] = None,
         torch.cuda.set_device(torch.device(device))
     kw = {} if init_method is None else dict(
         init_method=init_method, world_size=num_processes, rank=process_id)
+    if timeout is not None:
+        kw["timeout"] = datetime.timedelta(seconds=timeout)
     dist.init_process_group(backend=backend, **kw)
     return rank(), world_size()
 

@@ -202,6 +202,51 @@ def inclusion_exclusion_ladder(inter: torch.Tensor, cu: torch.Tensor,
     return feats
 
 
+def pack_sketches(sk: Sketches, params: SketchParams) -> torch.Tensor:
+    """[n, K*(P + m/4)] int32: per node, hops 1..K of (biased MinHash
+    lanes ‖ HLL registers packed four to an int32 lane, a ``view``),
+    concatenated, so that one row gather per endpoint fetches every hop
+    (the JAX package's ``pack_sketches``; its MinHash lanes are the uint32
+    ones, here biased int32, and its packed HLL lanes the same bits as
+    uint32)."""
+    K = params.max_hops
+    s = sk.minhash.shape[0] - K  # 1 for hops 0..K stacks, 0 for hops-only
+    parts = []
+    for k in range(K):
+        parts.append(sk.minhash[s + k])
+        parts.append(sk.hll[s + k].contiguous().view(torch.int32))
+    return torch.cat(parts, dim=1)
+
+
+def _unpack_rows(rows: torch.Tensor, params: SketchParams):
+    """Split gathered packed rows back into ([K, B, P] MinHash, [K, B, m]
+    HLL)."""
+    P = params.num_perm
+    stride = P + params.m // 4
+    mh, hll = [], []
+    for k in range(params.max_hops):
+        seg = rows[:, k * stride:(k + 1) * stride]
+        mh.append(seg[:, :P])
+        hll.append(seg[:, P:].contiguous().view(torch.int8))
+    return torch.stack(mh), torch.stack(hll)
+
+
+def subgraph_features_packed(links: torch.Tensor, packed: torch.Tensor,
+                             cards: torch.Tensor,
+                             params: SketchParams) -> torch.Tensor:
+    """Structure features from a hop-packed table (``pack_sketches``): one
+    row gather per endpoint, then the estimator and the
+    inclusion-exclusion ladder of :func:`subgraph_features`, whose values
+    it gives."""
+    u, v = links[:, 0], links[:, 1]
+    mh_u, hll_u = _unpack_rows(packed[u], params)
+    mh_v, hll_v = _unpack_rows(packed[v], params)
+    jac = jaccard(mh_u[:, None], mh_v[None, :])             # [K, K, B]
+    unions = torch.maximum(hll_u[:, None], hll_v[None, :])  # [K, K, B, m]
+    inter = (jac * hll_count(unions, params.hll_p)).permute(2, 0, 1)
+    return inclusion_exclusion_ladder(inter, cards[u], cards[v], params)
+
+
 def subgraph_features_batched(links, sk: Sketches, params: SketchParams,
                               batch_size: int = 1 << 18) -> torch.Tensor:
     """Subgraph features over link chunks of ``batch_size`` to bound device

@@ -79,6 +79,11 @@ def hll_init_rows(ids: np.ndarray, p: int) -> np.ndarray:
     return regs
 
 
+def hll_merge(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """Union of sketches = register max (src/hashing.py:234-237)."""
+    return torch.maximum(src, dst)
+
+
 @functools.lru_cache(maxsize=None)
 def _bias_step_tables(p: int):
     """Exact step-function form of the reference's 6-NN bias correction.

@@ -9,8 +9,15 @@ raises where there is no card:
   * ``repro_baseline``: the reference README's commands through the
     port's runner, where their datasets are on disk (the real-data gate);
   * ``run_protocol``: the 10-rep leaderboard protocol on the bundled
-    graphs.
+    graphs;
+  * ``scale_equality``: the memory-sharded paths (node-sharded BUDDY
+    preprocessing, memory-sharded ELPH) at production scale against one
+    process, their ranks sharing one card;
+  * ``gen_hll_tables``: the HLL++ bias tables the estimator reads.
 
 The two quality tools write ``QUALITY_torch_r<NN>.json`` in the working
-directory, never the JAX package's ``QUALITY_r<NN>.json`` record.
+directory, never the JAX package's ``QUALITY_r<NN>.json`` record;
+``gen_hll_tables`` writes ``hll_tables_torch.npz`` there, never the
+committed ``sketch/_hll_tables.npz``, and ``scale_equality`` its report
+only where its ``out.json`` argument says.
 """

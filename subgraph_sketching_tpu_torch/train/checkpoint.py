@@ -94,6 +94,10 @@ def load_checkpoint(directory: str, step: Optional[int] = None
     return saved, step
 
 
+# the JAX package's name: the raw saved state and its step
+restore_checkpoint = load_checkpoint
+
+
 def restore_into(directory: str, model: torch.nn.Module,
                  optimizer: Optional[torch.optim.Optimizer] = None,
                  step: Optional[int] = None) -> int:

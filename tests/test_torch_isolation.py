@@ -45,7 +45,8 @@ REQUIRED = {"train", "train.losses", "train.evaluation", "train.inference",
             "parallel.breakdown", "parallel.node_sharded",
             "parallel.dist_sketch", "parallel.scaling", "device",
             "tools", "tools.citation2_train", "tools.repro_baseline",
-            "tools.run_protocol"}
+            "tools.run_protocol", "tools.scale_equality",
+            "tools.gen_hll_tables"}
 
 
 def test_port_imports_no_jax():

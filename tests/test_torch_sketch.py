@@ -145,3 +145,63 @@ def test_features_from_port_sketches_batched(graph):
     got = elph.subgraph_features_batched(links, tsk, tp, batch_size=256)
     assert got.shape == (700, tp.sf_dim)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+
+
+def test_hll_merge_matches_jax():
+    rng = np.random.default_rng(3)
+    a, b = (rng.integers(0, 40, (50, 256)).astype(np.int8) for _ in range(2))
+    want = np.asarray(jhll.hll_merge(jnp.asarray(a), jnp.asarray(b)))
+    got = hll.hll_merge(torch.from_numpy(a), torch.from_numpy(b))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("K,hops_only", [(1, False), (2, True), (3, False)])
+def test_packed_sketches_match_jax(K, hops_only):
+    """``pack_sketches`` equals JAX's lanes (the MinHash lanes after the
+    bias is removed, the packed HLL lanes as they are), and
+    ``subgraph_features_packed`` equals the unpacked path bit for bit and
+    JAX's packed features to rtol 1e-6 (float32 estimator arithmetic in
+    another order than XLA's; atol 1e-4 where a ladder difference is
+    near 0)."""
+    ei, n, jp, tp, jsk, tsk = _build_both("ba", K, hops_only=hops_only)
+    want = np.asarray(jelph.pack_sketches(jsk, jp))
+    got = elph.pack_sketches(tsk, tp)
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    lanes = got.numpy().view(np.uint32).copy()
+    stride = tp.num_perm + tp.m // 4
+    for k in range(K):
+        mh = slice(k * stride, k * stride + tp.num_perm)
+        lanes[:, mh] = minhash.from_biased(got[:, mh])
+    np.testing.assert_array_equal(lanes, want)
+    links = np.random.default_rng(K).integers(0, n, (300, 2)).astype(np.int32)
+    links[:50] = ei.T[:50]
+    tl = torch.from_numpy(links).long()
+    sf = elph.subgraph_features_packed(tl, got, tsk.cards, tp)
+    torch.testing.assert_close(sf, elph.subgraph_features(tl, tsk, tp),
+                               rtol=0, atol=0)
+    jsf = np.asarray(jelph.subgraph_features_packed(
+        jnp.asarray(links), jnp.asarray(want), jsk.cards, jp))
+    np.testing.assert_allclose(sf.numpy(), jsf, rtol=1e-6, atol=1e-4)
+
+
+def test_package_reexports():
+    """The JAX package's package-level names (not its submodules) at the
+    same places in the port."""
+    import types
+
+    import subgraph_sketching_tpu as jpkg
+    import subgraph_sketching_tpu.ops as jops
+    import subgraph_sketching_tpu.sketch as jsketch
+    import subgraph_sketching_tpu_torch as pkg
+    import subgraph_sketching_tpu_torch.ops as ops
+    import subgraph_sketching_tpu_torch.sketch as sketch
+    from subgraph_sketching_tpu_torch.ops import graph_ops
+    for mine, theirs in ((pkg, jpkg), (ops, jops), (sketch, jsketch)):
+        names = {k for k, v in vars(theirs).items()
+                 if not k.startswith("_")
+                 and not isinstance(v, types.ModuleType)}
+        assert names and names <= set(vars(mine)), names - set(vars(mine))
+    assert pkg.__version__ == jpkg.__version__
+    assert ops.spmm is graph_ops.spmm
+    assert sketch.hll_merge is hll.hll_merge
+    assert sketch.propagate_minhash is elph.propagate_minhash

@@ -419,3 +419,28 @@ def test_init_model_is_deterministic_and_flax_like():
     w = a["lin_out.weight"]
     assert float(w.abs().max()) <= 2 * (1 / 32) ** 0.5 / .87962566103423978
     assert float(a["lin_out.bias"].abs().max()) == 0.0
+
+
+def test_restore_checkpoint_round_trip(tmp_path):
+    """``restore_checkpoint`` (the JAX package's name for
+    ``load_checkpoint``): the saved state and its step, the newest when
+    no step is given."""
+    from subgraph_sketching_tpu_torch.train import checkpoint
+    ds, _ = _datasets(0)
+    cfg = Config(**BASE)
+    tr = loops.BuddyTrainer(cfg, ds["train"], 128, device="cpu")
+    model = tr.init_model(0)
+    opt = loops.make_optimizer(cfg, model.parameters())
+    checkpoint.save_checkpoint(str(tmp_path), model, opt, step=1)
+    tr.run_epoch(model, opt, 1)
+    checkpoint.save_checkpoint(str(tmp_path), model, opt, step=2)
+    saved, step = checkpoint.restore_checkpoint(str(tmp_path))
+    assert step == 2 and saved["step"] == 2
+    assert all(torch.equal(v, saved["model"][k])
+               for k, v in model.state_dict().items())
+    first, step = checkpoint.restore_checkpoint(str(tmp_path), step=1)
+    assert step == 1
+    assert not all(torch.equal(v, first["model"][k])
+                   for k, v in model.state_dict().items())
+    with pytest.raises(FileNotFoundError):
+        checkpoint.restore_checkpoint(str(tmp_path / "none"))
