@@ -233,6 +233,20 @@ Phases, each printing one JSON line:
              inputs bit-equal to the plain version, random ones within the
              bound of the float64 sum, two calls bit-equal, timed as in
              the kernels phase
+  f16        the float16 compute dtype (--dtype float16): ELPH at full
+             width through runners.run.run (synth-ws-200000, Config
+             defaults, one epoch of F16_ELPH_SAMPLES links): K1 launches a
+             step by instance, the state float32, 5 steps profiled, a step
+             at float16 beside one at float32 on the same staged data in
+             turns; SEALDGCNN at Config defaults on the collab tree cut to
+             4 train batches; a small ELPH with a diffused node table and a
+             small SEALDGCNN on the card against the CPU at float16; a
+             small float16 ELPH checkpoint served on the card and on the
+             CPU; SEALGCN and transE runs with and without --mesh_shape 1,
+             equal bit for bit; K1's float16 add at PlanSpmm's shape each
+             way (W = 1024), on SEAL's label table backward (W = 1024) and
+             on its union (W = 1024, W = 1), held and timed as in the bf16
+             phase; the phase's seconds
   dp         data parallelism (parallel/, the trainers' data axis): (a)
              world size 1 on NCCL at full width: BUDDY at Config defaults
              on synth-ws-200000 through runners.run with --mesh_shape 1 (1
@@ -325,7 +339,8 @@ its world-size-1 ELPH run; and the mesh_graph phase's K1 instances, each
 with the launches of the run it came from, and the scale_equality
 phase's two, with rank 0's launches in its build; and the bf16 phase's three K1
 bfloat16 add instances, with the bfloat16 add launches of its ELPH and
-SEALDGCNN runs), the
+SEALDGCNN runs; and the f16 phase's five K1 float16 add instances, with
+the float16 add launches of its ELPH and SEALDGCNN runs), the
 nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises: the run exits
 non-zero and prints no last line.  Without a CUDA device it exits 2 at once.
@@ -508,7 +523,8 @@ def check_add(got, want, v, x, ptr, what: str) -> None:
 def k1_record(what: str, op: str, v, x, ptr) -> dict:
     """K1 on one instance's inputs: held against its plain version on the
     card (min/max bit-equal, float32 add within ADD_TOLERANCE, bfloat16
-    add, both, within BF16_ADD_TOLERANCE of the float64 sum) and against itself
+    and float16 add, both, within ``half_add``'s bound of the float64 sum)
+    and against itself
     across two calls, then timed beside it, beside one scatter_reduce call
     (a yardstick the port never calls) and beside its bound."""
     import torch
@@ -524,10 +540,10 @@ def k1_record(what: str, op: str, v, x, ptr) -> dict:
     if not torch.equal(got, again):
         raise AssertionError(f"{what}: two calls differ")
     max_err = float((got.double() - want.double()).abs().max())
-    if op == "add" and v.dtype == torch.bfloat16:
-        check_bf16_add(got, v, ptr, what)
-        check_bf16_add(want, v, ptr, f"{what} (plain version)")
-        tolerance = BF16_ADD_TOLERANCE
+    if op == "add" and half_add(v.dtype) is not None:
+        check_half_add(got, v, ptr, what)
+        check_half_add(want, v, ptr, f"{what} (plain version)")
+        tolerance = half_add(v.dtype)[1]
     elif op == "add":
         check_add(got, want, v, x, ptr, what)
         tolerance = ADD_TOLERANCE
@@ -5052,14 +5068,38 @@ BF16_ADD_TOLERANCE = ("dyadic inputs bit-equal to the plain version; random "
 BF16_CARD_TOLERANCE = ("logits rtol = atol = 0.05 (tests/test_dtype.py's); "
                        "each gradient within 0.1 of the CPU's by norm, "
                        "but the pre-BN biases' (a true gradient of 0)")
+F16_CARD_TOLERANCE = ("logits rtol = atol = 0.01; each gradient within 0.02 "
+                      "of the CPU's by norm, but the pre-BN biases' (a true "
+                      "gradient of 0): a fifth of bfloat16's, as float16 "
+                      "keeps three more bits (measured on an H100: 6.1e-5 "
+                      "and 5.3e-4)")
+# --dtype -> (logit rtol and atol, gradient tolerance by norm, its text) of
+# a small run on the card against the CPU
+CARD_TOLERANCE = {"bfloat16": (0.05, 0.1, BF16_CARD_TOLERANCE),
+                  "float16": (0.01, 0.02, F16_CARD_TOLERANCE)}
 
 
-def check_bf16_add(got, v, ptr, what: str) -> float:
-    """K1's bfloat16 add (summed in float32, rounded once) within its bound
-    of the float64 sum; returns the largest |err|."""
+F16_ADD_TOLERANCE = ("dyadic inputs bit-equal to the plain version; random "
+                     "ones |err| <= 2^-11 |sum| + 2 k 2^-24 sum|v| of the "
+                     "float64 sum of a row's k terms (half a float16 ulp "
+                     "and the float32 accumulation), kernel and plain alike")
+
+
+def half_add(dtype):
+    """(half an ulp, tolerance) of K1's bfloat16 or float16 add, each
+    summed in float32 and rounded once; None for another dtype."""
+    import torch
+    return {torch.bfloat16: (2.0 ** -8, BF16_ADD_TOLERANCE),
+            torch.float16: (2.0 ** -11, F16_ADD_TOLERANCE)}.get(dtype)
+
+
+def check_half_add(got, v, ptr, what: str) -> float:
+    """K1's bfloat16 or float16 add (summed in float32, rounded once)
+    within its bound of the float64 sum; returns the largest |err|."""
     import torch
 
     from subgraph_sketching_tpu_torch.ops import segscan
+    half_ulp = half_add(v.dtype)[0]
     n, width = got.shape
     ids = segscan.segment_ids(ptr)
     zeros = torch.zeros((n, width), dtype=torch.float64, device=v.device)
@@ -5067,27 +5107,27 @@ def check_bf16_add(got, v, ptr, what: str) -> float:
     scale = zeros.index_add(0, ids, v.double().abs())
     k = ptr.diff().double()[:, None]
     err = (got.double() - want).abs()
-    if bool((err > 2.0 ** -8 * want.abs() + 2 * k * 2.0 ** -24 * scale)
+    if bool((err > half_ulp * want.abs() + 2 * k * 2.0 ** -24 * scale)
             .any()):
-        raise AssertionError(f"{what}: beyond the bfloat16 add's bound of "
+        raise AssertionError(f"{what}: beyond the {v.dtype} add's bound of "
                              f"the float64 sum: max |err| {float(err.max())}")
     return float(err.max())
 
 
-def bf16_k1_record(what: str, v, ptr, seed: int) -> dict:
-    """K1's bfloat16 add on one shape: a dyadic [S, W] input (multiples of
-    1/4 in [-8, 8): every float32 partial sum exact) bit-equal to the
-    plain version, then the real input ``v`` held by ``k1_record``
-    (kernel and plain version within BF16_ADD_TOLERANCE of the float64
-    sum, two calls bit-equal) and timed."""
+def half_k1_record(what: str, v, ptr, seed: int) -> dict:
+    """K1's bfloat16 or float16 add (``v``'s dtype) on one shape: a dyadic
+    [S, W] input (multiples of 1/4 in [-8, 8): every float32 partial sum
+    exact) bit-equal to the plain version, then the real input ``v``
+    held by ``k1_record`` (kernel and plain version within ``half_add``'s
+    bound of the float64 sum, two calls bit-equal) and timed."""
     import torch
 
     from subgraph_sketching_tpu_torch.ops import segscan
     n = ptr.shape[0] - 1
-    x = torch.empty((n, v.shape[1]), dtype=torch.bfloat16, device=v.device)
+    x = torch.empty((n, v.shape[1]), dtype=v.dtype, device=v.device)
     g = torch.Generator(device=v.device).manual_seed(seed)
     dy = (torch.randint(-32, 32, v.shape, generator=g, device=v.device)
-          .float() / 4).to(torch.bfloat16)
+          .float() / 4).to(v.dtype)
     got = segscan.segment_combine(dy, x, "add", ptr)
     want = segscan.segment_combine_plain(dy, x, "add", ptr)
     torch.cuda.synchronize()
@@ -5099,9 +5139,10 @@ def bf16_k1_record(what: str, v, ptr, seed: int) -> dict:
             "dyadic": "bit-equal to the plain version"}
 
 
-def _bf16_trainer_pair(trainer, cfg):
-    """A float32 twin of a bfloat16 trainer: the same staged data, the
-    model built at float32 (the staging does not read --dtype)."""
+def _float32_twin(trainer, cfg):
+    """A float32 twin of a bfloat16 or float16 trainer: the same staged
+    data, the model built at float32 (the staging does not read
+    --dtype)."""
     import copy
     import dataclasses
     twin = copy.copy(trainer)
@@ -5166,7 +5207,7 @@ def _bf16_elph(splits, elph: dict, work: str, seed: int) -> tuple:
         raise AssertionError(f"bf16 ELPH run: traces {traces}")
     trace_bytes = os.path.getsize(traces[0])
     with open(traces[0]) as f:
-        named = "AddBF16" in f.read()
+        named = "BF16Bits" in f.read()   # Add16<BF16Bits>, segscan.cu
     if not named:
         raise AssertionError("the epoch-1 trace does not name K1's "
                              "bfloat16 kernel")
@@ -5205,7 +5246,7 @@ def _bf16_elph(splits, elph: dict, work: str, seed: int) -> tuple:
                   for k, v in BF16_ELPH_ADDS.items()}:
         raise AssertionError(f"bf16 ELPH: {BF16_PROFILE_STEPS} steps, K1 "
                              f"launches {window}")
-    twin = _bf16_trainer_pair(trainer, cfg)
+    twin = _float32_twin(trainer, cfg)
 
     def timed(tr) -> float:
         m = tr.init_model(1)
@@ -5233,7 +5274,7 @@ def _bf16_elph(splits, elph: dict, work: str, seed: int) -> tuple:
           launches["segscan_add_bf16"],
           "name": f"segscan_add_bf16 (PlanSpmm forward, "
                   f"W={cfg.hidden_channels})",
-          **bf16_k1_record("bf16 PlanSpmm forward", v, ps.fwd.sub_ptr, seed)}
+          **half_k1_record("bf16 PlanSpmm forward", v, ps.fwd.sub_ptr, seed)}
     del v
 
     # serve what was trained: the scorer rebuilt from the checkpoint (its
@@ -5385,7 +5426,7 @@ def _bf16_seal(root: str, splits_memo: dict, seed: int) -> tuple:
                   for k, v in BF16_SEAL_ADDS.items()}:
         raise AssertionError(f"bf16 SEAL: {BF16_SEAL_PROFILE_STEPS} steps, "
                              f"K1 launches {window}")
-    twin = _bf16_trainer_pair(trainer, cfg)
+    twin = _float32_twin(trainer, cfg)
 
     def timed(tr) -> float:
         m = tr.init_model(seed)
@@ -5410,7 +5451,7 @@ def _bf16_seal(root: str, splits_memo: dict, seed: int) -> tuple:
         k1.append({"phase": "bf16", "part": "k1",
                    "launches": launches["segscan_add_bf16"],
                    "name": f"segscan_add_bf16 (SEAL union, W={width})",
-                   **bf16_k1_record(f"bf16 SEAL union W={width}", v, ptr,
+                   **half_k1_record(f"bf16 SEAL union W={width}", v, ptr,
                                     seed + width)})
         del x, v
     del batch, trainer, twin, model, opt
@@ -5443,9 +5484,10 @@ BF16_PRE_BN_BIAS = (r"(predictor\.(label_lin_layer|lin_out|lin_emb_out)"
                     r"|embedding\.sign_embedding\.lin_\d+)\.bias")
 
 
-def _grads_by_norm(card: dict, cpu: dict, what: str) -> float:
+def _grads_by_norm(card: dict, cpu: dict, what: str,
+                   tol: float = 0.1) -> float:
     """The largest ||card - cpu|| / ||cpu|| over the gradients but those of
-    BF16_PRE_BN_BIAS; each must be within 0.1."""
+    BF16_PRE_BN_BIAS; each must be within ``tol``."""
     import re
     worst = 0.0
     for k, want in cpu.items():
@@ -5454,21 +5496,23 @@ def _grads_by_norm(card: dict, cpu: dict, what: str) -> float:
         d = float((card[k].double().cpu() - want.double()).norm())
         rel = d / max(float(want.double().norm()), 1e-30)
         worst = max(worst, rel)
-        if rel > 0.1:
+        if rel > tol:
             raise AssertionError(f"{what}: gradient {k} is {rel} of its "
                                  f"norm from the CPU's")
     return worst
 
 
-def _bf16_card_vs_cpu(seed: int, card: str = "cuda") -> dict:
+def _card_vs_cpu(seed: int, dtype: str = "bfloat16",
+                 card: str = "cuda") -> dict:
     """A small ELPH with a SIGN-diffused node-embedding table (the ddi
     kind: synth-ws, hidden 32, sign_k 2) and a small SEALDGCNN (synth-ba,
-    hidden 32) at --dtype bfloat16 from one init on the card and on the
-    CPU: eval logits and one training step's gradients (dropout off),
-    within BF16_CARD_TOLERANCE; the card's step went through K1's
-    bfloat16 add (the embedding path's gather_rows backward included).
-    Then ``GCN``, ``SAGE`` and ``MLPLinkPredictor`` forward and backward
-    on the card against the CPU in float32 (rtol 1e-4, atol 1e-5)."""
+    hidden 32) at ``--dtype`` ``dtype`` (bfloat16 or float16) from one
+    init on the card and on the CPU: eval logits and one training step's
+    gradients (dropout off), within CARD_TOLERANCE; the card's step
+    went through K1's add of that dtype (the embedding path's gather_rows
+    backward included).  At bfloat16, then ``GCN``, ``SAGE`` and
+    ``MLPLinkPredictor`` forward and backward on the card against the CPU
+    in float32 (rtol 1e-4, atol 1e-5)."""
     import numpy as np
     import torch
 
@@ -5487,6 +5531,8 @@ def _bf16_card_vs_cpu(seed: int, card: str = "cuda") -> dict:
     )
 
     devices = {"cpu": "cpu", "card": card}
+    instance = segscan._ENTRY[("add", getattr(torch, dtype))][0]
+    phase = {"bfloat16": "bf16", "float16": "f16"}[dtype]
 
     def no_dropout(m):
         for mod in m.modules():
@@ -5498,20 +5544,23 @@ def _bf16_card_vs_cpu(seed: int, card: str = "cuda") -> dict:
         return {k: p.grad.detach().cpu() for k, p in model.named_parameters()
                 if p.grad is not None}
 
+    logit_tol, grad_tol, tolerance = CARD_TOLERANCE[dtype]
+
     def held(res, what) -> dict:
-        np.testing.assert_allclose(res["card"][0], res["cpu"][0], rtol=0.05,
-                                   atol=0.05)
+        np.testing.assert_allclose(res["card"][0], res["cpu"][0],
+                                   rtol=logit_tol, atol=logit_tol)
         return {"max_logit_abs_diff": float((res["card"][0]
                                              - res["cpu"][0]).abs().max()),
                 "max_grad_rel_diff": _grads_by_norm(res["card"][1],
-                                                    res["cpu"][1], what),
+                                                    res["cpu"][1], what,
+                                                    grad_tol),
                 "card_k1_launches_one_step": res["card"][2]}
 
     out = {}
     # ELPH with the diffused table
     cfg = Config(dataset_name="synth-ws", model="ELPH", hidden_channels=32,
                  train_node_embedding=True, propagate_embeddings=True,
-                 sign_k=2, dtype="bfloat16")
+                 sign_k=2, dtype=dtype)
     splits, directed, _ = get_data(cfg)
     ds = build_all_splits(splits, cfg, directed=directed, device="cpu")
     width = ds["train"].x.shape[-1]
@@ -5544,13 +5593,13 @@ def _bf16_card_vs_cpu(seed: int, card: str = "cuda") -> dict:
     # the GCN's PlanSpmm each way for 2 convolutions, and the diffused
     # table's gather_rows backward (the diffusion itself runs on the
     # float32 table, as in JAX)
-    if res["card"][2]["segscan_add_bf16"] != 5:
-        raise AssertionError(f"bf16 ELPH with embeddings on the card: K1 "
+    if res["card"][2][instance] != 5:
+        raise AssertionError(f"{phase} ELPH with embeddings on the card: K1 "
                              f"launches {res['card'][2]}")
-    out["elph_embedding"] = held(res, "bf16 ELPH")
+    out["elph_embedding"] = held(res, f"{phase} ELPH")
     # SEALDGCNN
     cfg = Config(dataset_name="synth-ba", model="SEALDGCNN",
-                 hidden_channels=32, dtype="bfloat16")
+                 hidden_channels=32, dtype=dtype)
     splits, _, _ = get_data(cfg)
     trainers = {k: build_seal_trainer(cfg, splits, d)
                 for k, d in devices.items()}
@@ -5569,11 +5618,13 @@ def _bf16_card_vs_cpu(seed: int, card: str = "cuda") -> dict:
         tr.loss_fn(model(batch), y, torch.ones(
             len(y), dtype=torch.bool, device=devices[k])).backward()
         res[k] = (logits, grads(model), dict(segscan.launches))
-    if res["card"][2]["segscan_add_bf16"] != BF16_SEAL_ADDS[
-            "segscan_add_bf16"]:
-        raise AssertionError(f"bf16 SEALDGCNN on the card: K1 launches "
+    if res["card"][2][instance] != BF16_SEAL_ADDS["segscan_add_bf16"]:
+        raise AssertionError(f"{phase} SEALDGCNN on the card: K1 launches "
                              f"{res['card'][2]}")
-    out["seal_dgcnn"] = held(res, "bf16 SEALDGCNN")
+    out["seal_dgcnn"] = held(res, f"{phase} SEALDGCNN")
+    if dtype != "bfloat16":
+        return {"phase": phase, "part": "card_vs_cpu", **out,
+                "tolerance": tolerance}
     # the last classes, float32
     n = 2000
     ei = torch.from_numpy(watts_strogatz_graph(n, 8, 0.2, seed=seed)
@@ -5602,7 +5653,7 @@ def _bf16_card_vs_cpu(seed: int, card: str = "cuda") -> dict:
                                          for a, b in zip(got["card"],
                                                          got["cpu"]))}
     return {"phase": "bf16", "part": "card_vs_cpu", **out,
-            "tolerance": BF16_CARD_TOLERANCE + "; the classes in float32: "
+            "tolerance": tolerance + "; the classes in float32: "
                          "rtol 1e-4, atol 1e-5"}
 
 
@@ -5611,7 +5662,7 @@ def phase_bf16(splits, elph: dict, collab_root: str, splits_memo: dict,
     """The bfloat16 compute dtype (``--dtype bfloat16``) at full width:
     ELPH (``_bf16_elph``), BUDDY (``_bf16_buddy``) and SEALDGCNN
     (``_bf16_seal``) through the runner, the card against the CPU on
-    small runs (``_bf16_card_vs_cpu``), and K1's bfloat16 add at three
+    small runs (``_card_vs_cpu``), and K1's bfloat16 add at three
     shapes (PlanSpmm's forward at W = 1024, SEAL's union at W = 1024 and
     W = 1).  Returns (the K1 records, the phase's records)."""
     work = tempfile.mkdtemp(prefix="smoke_bf16_")
@@ -5626,11 +5677,288 @@ def phase_bf16(splits, elph: dict, collab_root: str, splits_memo: dict,
         k1_seal, seal = _bf16_seal(collab_root, splits_memo, seed)
         seal["part_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        card = _bf16_card_vs_cpu(seed)
+        card = _card_vs_cpu(seed)
         card["part_s"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return [k1_elph, *k1_seal], [elph_rec, buddy, seal, card]
+
+
+# --------------------------------------------------------------- float16 --
+
+F16_ELPH_SAMPLES = 8192        # 8 steps of the default batch 1024
+F16_PROFILE_STEPS = 5
+F16_TIMED_STEPS = 3            # steps a turn, float32 against float16
+F16_SEAL_BATCHES = 4           # SEALDGCNN's train links: 4 batches of 1024
+# K1 launches of one ELPH training step at --dtype float16, by instance
+# (those of the bfloat16 step, with the float16 add), and the float16 adds
+# of a SEALDGCNN step (the union SpMMs each way, the label table's
+# backward)
+F16_ELPH_ADDS = {"segscan_add_f16": 4, "segscan_add_f32": 1}
+F16_SEAL_ADDS = 9
+F16_SERVE_ATOL = 0.05          # a float16 ELPH served on the card and the CPU
+# small SEAL and KGE runs, each run with and without --mesh_shape 1, which
+# one process ignores for them (as the JAX runner does)
+F16_MESH_RUNS = {
+    "SEALGCN": "--dataset_name synth-ba --model SEALGCN --hidden_channels 32 "
+               "--epochs 1 --train_samples 2048 --val_samples 512 "
+               "--test_samples 512 --dtype float16",
+    "transE": "--dataset_name synth-ba --model transE --hidden_channels 32 "
+              "--epochs 1"}
+
+
+def _f16_elph(data: tuple, work: str, seed: int) -> tuple:
+    """ELPH at full width at --dtype float16 through runners.run.run
+    (synth-ws-200000, Config defaults, one epoch of F16_ELPH_SAMPLES
+    links; its get_data answered by ``data``, the splits the script read
+    at the start): K1 launches a step by instance, F16_PROFILE_STEPS steps
+    profiled (idle share, top kernels), a step at float16 beside one at
+    float32 on the same staged data in turns, and K1's float16 add on the
+    sub-run results of PlanSpmm's forward and backward at W = 1024.
+    Returns (the K1 records, the run's record)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from subgraph_sketching_tpu_torch.config import Config
+    from subgraph_sketching_tpu_torch.ops import segscan
+    from subgraph_sketching_tpu_torch.runners import run as runner
+    from subgraph_sketching_tpu_torch.train.loops import make_optimizer
+
+    cfg = Config(dataset_name="synth-ws-200000", model="ELPH", epochs=1,
+                 train_samples=F16_ELPH_SAMPLES,
+                 checkpoint_dir=os.path.join(work, "elph"), dtype="float16")
+    with _patched(runner, "get_data", lambda _: data):
+        trainer, results, run_s, rows, launches, _, peak = _kept_run(cfg)
+    steps = math.ceil(F16_ELPH_SAMPLES / cfg.batch_size)
+    for name, per_step in F16_ELPH_ADDS.items():
+        if launches[name] < per_step * steps:
+            raise AssertionError(f"f16 ELPH run: K1 launches {launches}, "
+                                 f"{per_step} {name} a step expected")
+    (row,) = rows
+    if not (math.isfinite(row["rep0_loss"]) and np.isfinite(results).all()):
+        raise AssertionError(f"f16 ELPH: loss {row['rep0_loss']}, results "
+                             f"{results}")
+    model = trainer.init_model(0)
+    opt = make_optimizer(cfg, model.parameters())
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    order = torch.randperm(trainer.num_links("train"), generator=g,
+                           device="cuda")
+    bs = cfg.batch_size
+    window_s, busy_ms, per = profile_window(
+        lambda: trainer.run_epoch(model, opt, seed, order=order[:2 * bs]),
+        lambda: trainer.run_epoch(model, opt, seed,
+                                  order=order[:F16_PROFILE_STEPS * bs]))
+    window = {k: v for k, v in segscan.launches.items() if v}
+    if window != {k: v * F16_PROFILE_STEPS
+                  for k, v in F16_ELPH_ADDS.items()}:
+        raise AssertionError(f"f16 ELPH: {F16_PROFILE_STEPS} steps, K1 "
+                             f"launches {window}")
+    kinds = {str(t.dtype) for t in model.state_dict().values()} | {
+        str(t.dtype) for st in opt.state.values() for k, t in st.items()
+        if k != "step"}
+    if kinds - {"torch.float32", "torch.int64"}:
+        raise AssertionError(f"f16 ELPH state dtypes {kinds}")
+    twin = _float32_twin(trainer, cfg)
+
+    def timed(tr) -> float:
+        m = tr.init_model(1)
+        o = make_optimizer(cfg, m.parameters())
+        tr.run_epoch(m, o, seed, order=order[:bs])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tr.run_epoch(m, o, seed, order=order[bs:(1 + F16_TIMED_STEPS) * bs])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / F16_TIMED_STEPS
+
+    f32_ms, f16_ms = _turns_ms(timed, twin, trainer)
+    del twin, model, opt
+    # K1 on PlanSpmm's sub-run results each way at float16 (random rows of
+    # the GCN's width through the staged plans)
+    ps = trainer._data["train"]["plan"]
+    n = trainer._data["train"]["num_nodes"]
+    k1 = []
+    for way, plan, w in (("forward", ps.fwd, ps._w_fwd),
+                         ("backward", ps.bwd, ps._w_bwd)):
+        xh = torch.randn((n, cfg.hidden_channels), generator=g,
+                         device="cuda").to(torch.float16)
+        with torch.no_grad():
+            v = plan.reduce_subruns(xh, "add", w).contiguous()
+        del xh
+        k1.append({"phase": "f16", "part": "k1",
+                   "launches": launches["segscan_add_f16"],
+                   "name": f"segscan_add_f16 (PlanSpmm {way}, "
+                           f"W={cfg.hidden_channels})",
+                   **half_k1_record(f"f16 PlanSpmm {way}", v, plan.sub_ptr,
+                                    seed)})
+        del v
+    del trainer
+    return k1, {
+        "phase": "f16", "part": "elph", "dataset": cfg.dataset_name,
+        "dtype": cfg.dtype, "hidden_channels": cfg.hidden_channels,
+        "train_samples": F16_ELPH_SAMPLES, "steps": steps, "run_s": run_s,
+        "loss": row["rep0_loss"], "epoch_s": row["rep0_train_time"],
+        "eval_s": row["rep0_eval_time"], "results": results,
+        "k1_launches": launches, "state_dtypes": sorted(kinds),
+        "peak_memory_bytes": peak,
+        "step_ms": {"float16": f16_ms, "float32": f32_ms,
+                    "timed_steps": F16_TIMED_STEPS,
+                    "turns": "float32, float16, float16, float32"},
+        "profile": {"steps": F16_PROFILE_STEPS,
+                    "step_ms": window_s * 1e3 / F16_PROFILE_STEPS,
+                    "device_busy_ms": busy_ms,
+                    "device_idle_share": 1 - busy_ms / (window_s * 1e3),
+                    "k1_launches": window,
+                    "top_kernels": sorted(([k, v[0], v[1]]
+                                           for k, v in per.items()),
+                                          key=lambda r: -r[1])[:10]}}
+
+
+def _f16_seal(root: str, splits_memo: dict, seed: int) -> tuple:
+    """SEALDGCNN at --dtype float16 at Config defaults on the collab tree
+    (SEAL_COMMAND cut to F16_SEAL_BATCHES train batches) through the
+    runner, its label table's gather_rows backward inputs kept; K1's
+    float16 add on that backward (W = 1024) and on one batch's union at
+    W = 1024 and W = 1.  Returns (K1 records, the record)."""
+    import shlex
+
+    import numpy as np
+    import torch
+
+    from subgraph_sketching_tpu_torch.ops.segment_scan import segment_order
+
+    cut = ["--train_samples", str(F16_SEAL_BATCHES * 1024),
+           "--val_samples", "4096", "--test_samples", "4096",
+           "--dtype", "float16"]
+    counts, stash = {}, {}
+    with _gather_backward_watch(counts, stash):
+        trainer, row, run_s, peak, launches = _runner_run(
+            root, "seal_dgcnn_f16", shlex.split(SEAL_COMMAND) + cut,
+            splits_memo)
+    cfg = trainer.cfg
+    if launches["segscan_add_f16"] < F16_SEAL_ADDS * F16_SEAL_BATCHES:
+        raise AssertionError(f"f16 SEAL run: K1 launches {launches}")
+    k1 = []
+    (rows, width), (flat, grad) = next(
+        (k, v) for k, v in stash.items() if v[1].dtype == torch.float16)
+    perm, ptr = segment_order(flat, rows)
+    v = grad.reshape(-1, width).index_select(0, perm).contiguous()
+    k1.append({"phase": "f16", "part": "k1",
+               "launches": launches["segscan_add_f16"],
+               "name": f"segscan_add_f16 (SEAL label table gather_rows "
+                       f"backward, W={width})",
+               "rows": int(flat.numel()), "table_rows": rows,
+               **half_k1_record("f16 SEAL label table backward", v, ptr,
+                                seed)})
+    del v, stash
+    ds, bs = trainer.datasets["train"], cfg.batch_size
+    order = np.random.default_rng(seed).permutation(len(ds))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    batch, _ = trainer.to_device(ds.batch(order[:bs]))
+    ei, w, ((perm, ptr), _) = batch["graph"].gcn()
+    n = batch["graph"].num_nodes
+    for width in (cfg.hidden_channels, 1):
+        x = torch.randn((n, width), generator=g,
+                        device="cuda").to(torch.float16)
+        v = (x.index_select(0, ei[0][perm])
+             * w[perm, None].to(torch.float16)).contiguous()
+        k1.append({"phase": "f16", "part": "k1",
+                   "launches": launches["segscan_add_f16"],
+                   "name": f"segscan_add_f16 (SEAL union, W={width})",
+                   **half_k1_record(f"f16 SEAL union W={width}", v, ptr,
+                                    seed + width)})
+        del x, v
+    del batch, trainer
+    return k1, {"phase": "f16", "part": "seal", "model": "SEALDGCNN",
+                "dtype": "float16",
+                "command": SEAL_COMMAND + " " + " ".join(cut),
+                "train_batches": F16_SEAL_BATCHES, "run_s": run_s,
+                "epoch_s": row["rep0_train_time"], "loss": row["rep0_loss"],
+                "peak_memory_bytes": peak, "k1_launches": launches}
+
+
+def _f16_serve_and_mesh(work: str, seed: int) -> dict:
+    """A small float16 ELPH trained through the runner on the card and its
+    checkpoint served in float16 on the card and on the CPU (scores
+    within F16_SERVE_ATOL); then each F16_MESH_RUNS run with and without
+    ``--mesh_shape 1``, equal bit for bit (SEAL and KGE ignore the mesh in
+    one process, as the JAX runner does)."""
+    import shlex
+
+    import numpy as np
+    import torch
+
+    from subgraph_sketching_tpu_torch.ops import segscan
+    from subgraph_sketching_tpu_torch.runners import run as runner
+    from subgraph_sketching_tpu_torch.serving import scorer_from_checkpoint
+
+    ckpt = os.path.join(work, "elph_small")
+    runner.main(shlex.split("--dataset_name synth-ba --model ELPH "
+                            "--hidden_channels 32 --epochs 1 --dtype "
+                            "float16 --save_model") +
+                ["--checkpoint_dir", ckpt, "--device", "cuda"])
+    links = np.random.default_rng(seed).integers(0, 100, (4096, 2))
+    _reset_k1()
+    card = scorer_from_checkpoint(ckpt, device="cuda")
+    got = card.score(links)
+    serve_launches = segscan.launches["segscan_add_f16"]
+    if card.model.predictor.lin.dtype != torch.float16 \
+            or serve_launches < 2:
+        raise AssertionError(f"f16 ELPH served at "
+                             f"{card.model.predictor.lin.dtype}, float16 "
+                             f"K1 adds {serve_launches}")
+    want = scorer_from_checkpoint(ckpt, device="cpu").score(links)
+    serve_err = float(np.abs(got - want).max())
+    if not np.isfinite(got).all() or serve_err > F16_SERVE_ATOL:
+        raise AssertionError(f"f16 ELPH served on the card and the CPU: max "
+                             f"|err| {serve_err}")
+    mesh = {}
+    for model, args in F16_MESH_RUNS.items():
+        argv = shlex.split(args) + ["--device", "cuda"]
+        without = runner.main(argv)
+        with_mesh = runner.main(argv + ["--mesh_shape", "1"])
+        if with_mesh != without:
+            raise AssertionError(f"{model} with --mesh_shape 1: {with_mesh}, "
+                                 f"without: {without}")
+        mesh[model] = {"args": args, "results": without,
+                       "with_mesh_shape_1": "equal bit for bit"}
+    return {"phase": "f16", "part": "serve_and_mesh",
+            "served_links": len(links), "served_max_abs_err": serve_err,
+            "serve_tolerance": F16_SERVE_ATOL,
+            "serve_k1_f16_launches": serve_launches, "mesh_runs": mesh}
+
+
+def phase_f16(data: tuple, collab_root: str, splits_memo: dict,
+              seed: int = 21) -> tuple:
+    """The float16 compute dtype (``--dtype float16``): ELPH at full width
+    on ``data`` (get_data's synth-ws-200000) (``_f16_elph``) and SEALDGCNN
+    (``_f16_seal``) through the runner, the
+    card against the CPU on small runs (``_card_vs_cpu``), a small
+    float16 checkpoint served and SEAL and KGE with ``--mesh_shape 1``
+    (``_f16_serve_and_mesh``), and K1's float16 add at five shapes.
+    Returns (the K1 records, the phase's records)."""
+    work = tempfile.mkdtemp(prefix="smoke_f16_")
+    t_phase = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        k1_elph, elph = _f16_elph(data, work, seed)
+        elph["part_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        k1_seal, seal = _f16_seal(collab_root, splits_memo, seed)
+        seal["part_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        card = _card_vs_cpu(seed, "float16")
+        card["part_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rest = _f16_serve_and_mesh(work, seed)
+        rest["part_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return [*k1_elph, *k1_seal], [
+        elph, seal, card, rest,
+        {"phase": "f16", "part": "summary",
+         "phase_s": time.perf_counter() - t_phase}]
 
 
 def main() -> int:
@@ -5649,7 +5977,8 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
     emit(phase_build())
     cfg = Config(dataset_name="synth-ws-200000")   # full-width defaults
-    splits, _, _ = get_data(cfg)
+    data = get_data(cfg)
+    splits = data[0]
     plans = graph_plans(splits["train"].graph, cfg)
     hub = bench_hub_plans()
     main_records = phase_kernels("main_path", plans)
@@ -5721,6 +6050,9 @@ def main() -> int:
             emit(r)
         k1_bf16, bf16 = phase_bf16(splits, elph, collab_root, splits_memo)
         for r in bf16 + k1_bf16:
+            emit(r)
+        k1_f16, f16 = phase_f16(data, collab_root, splits_memo)
+        for r in f16 + k1_f16:
             emit(r)
         del splits_memo
         # mesh_graph's two-rank launch and the scale_equality tool run
@@ -5895,7 +6227,19 @@ def main() -> int:
                            in r["name"] else "SEALDGCNN run (the union "
                            "SpMMs each way, both widths, and the label "
                            "table's backward)")}
-        for r in k1_bf16]})
+        for r in k1_bf16] + [
+        {"name": r["name"], "route": "cuda", "source": f"{CSRC}/segscan.cu",
+         "replaces": REPLACES["segscan"], "launches": r["launches"],
+         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+         "graph_ms": r["graph_ms"],
+         "launches_of": "segscan_add_f16 in the f16 phase's "
+                        + ("ELPH run (PlanSpmm each way)" if "PlanSpmm"
+                           in r["name"] else "SEALDGCNN run (the union "
+                           "SpMMs each way, both widths, and the label "
+                           "table's backward)")}
+        for r in k1_f16]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -7,9 +7,10 @@ runner.  The reference duplicates defaults in three places (argparse,
 utils.DEFAULT_DIC, test OPT); here there is exactly one.
 
 A copy of the JAX package's ``config.py`` with every field kept, so a
-``config.json`` written by either package loads in the other.  Fields that
-only the JAX package reads (``platform``, ``profile_dir``, the mesh and
-checkpoint options) are kept for that round trip.
+``config.json`` written by either package loads in the other.  The port
+reads every field the JAX runner reads: ``platform`` as the device,
+``profile_dir`` as a ``torch.profiler`` trace, ``compilation_cache_dir`` as
+the native build directory, the mesh and the checkpoint options.
 """
 
 from __future__ import annotations

@@ -101,8 +101,8 @@ __device__ __forceinline__ uint4 combine(uint4 a, uint4 b) {
 }
 
 // Float32 accumulators of an add that stores a narrower type (K1's
-// bfloat16 add, segscan.cu, via Accum below): one float a lane, or an F8,
-// the eight sums of a 16-byte unit of eight bfloat16.
+// bfloat16 and float16 adds, segscan.cu, via Accum below): one float a lane,
+// or an F8, the eight sums of a 16-byte unit of eight 16-bit elements.
 struct __align__(16) F8 {
   float v[8];
 };
@@ -147,8 +147,8 @@ __device__ __forceinline__ F8 splat<F8>(uint32_t w) {
 // ---- accumulators -----------------------------------------------------------
 
 // How an op sums the units it loads: by default in the unit itself.  An op
-// that reads narrower data than it sums (segscan.cu's bfloat16 add, which
-// sums in float32) specialises it: A is the accumulator, widen converts a
+// that reads narrower data than it sums (segscan.cu's 16-bit adds, which
+// sum in float32) specialises it: A is the accumulator, widen converts a
 // loaded unit, narrow rounds a finished row once for its store, and kWide
 // says that a row split across shares is finished in A: the share that
 // ends it leaves its part as a "head" (scratch rows [shares, 2 shares) of
@@ -250,7 +250,7 @@ struct RowLoad {
   }
 };
 
-// An F8 unit of a float32 row (K1's bfloat16 carry scratch), as two
+// An F8 unit of a float32 row (K1's 16-bit adds' carry scratch), as two
 // 16-byte loads.
 template <>
 struct RowLoad<F8> {

@@ -57,12 +57,20 @@
 // Bound: HBM bytes, S*W*2 read + N*W*2 written + 8(N+1), plus the float32
 // carry-outs and heads (two rows per share that a row crosses).
 //
+// float16 add (JAX `--dtype float16`, which the JAX package also sums by
+// XLA): the same kernel with float16 conversions (__half2float in,
+// __float2half_rn out, Add16<F16Bits> below), the same units, scratch and
+// bound.  The sums never overflow in float32; a row whose sum passes
+// float16's 65,504 rounds to inf on its one store, as the plain version's
+// rounding gives it.
+//
 // Plain C interface (ctypes): each entry point launches both kernels on
 // the given stream, allocates nothing (the caller passes carry [shares,
 // words] and carry_row [shares]), and returns the first cudaError.
 
 #include <cstdint>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include "merge_path.cuh"
@@ -92,24 +100,39 @@ __device__ __forceinline__ uint4 combine<AddF64>(uint4 a, uint4 b) {
                     static_cast<uint32_t>(__double2hiint(s1)));
 }
 
-// bfloat16 add, summed in float32.  Its units: uint4 (eight bfloat16,
-// summed as an F8 of float32, merge_path.cuh) or uint16_t (one bfloat16,
-// summed as a float).
-struct AddBF16 {
+// bfloat16 and float16 add, summed in float32.  Their units: uint4
+// (eight 16-bit elements, summed as an F8 of float32, merge_path.cuh) or
+// uint16_t (one element, summed as a float).  Half16 is the element type's
+// two conversions (rounding to nearest even).
+struct BF16Bits {
+  static __device__ __forceinline__ float to_float(uint32_t bits16) {
+    return __bfloat162float(
+        __ushort_as_bfloat16(static_cast<unsigned short>(bits16)));
+  }
+  static __device__ __forceinline__ uint32_t from_float(float f) {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(f));
+  }
+};
+
+struct F16Bits {
+  static __device__ __forceinline__ float to_float(uint32_t bits16) {
+    return __half2float(__ushort_as_half(static_cast<unsigned short>(bits16)));
+  }
+  static __device__ __forceinline__ uint32_t from_float(float f) {
+    return __half_as_ushort(__float2half_rn(f));
+  }
+};
+
+template <class Half16>
+struct Add16 {
   static constexpr uint32_t kIdent = 0u;   // +0.0f
 };
 
-__device__ __forceinline__ float bf16_to_float(uint32_t bits16) {
-  return __bfloat162float(
-      __ushort_as_bfloat16(static_cast<unsigned short>(bits16)));
-}
+using AddBF16 = Add16<BF16Bits>;
+using AddF16 = Add16<F16Bits>;
 
-__device__ __forceinline__ uint32_t float_to_bf16(float f) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(f));
-}
-
-template <>
-struct Accum<AddBF16, uint4> {
+template <class Half16>
+struct Accum<Add16<Half16>, uint4> {
   using A = F8;
   static constexpr bool kWide = true;
   static __device__ __forceinline__ F8 widen(uint4 u) {
@@ -117,8 +140,8 @@ struct Accum<AddBF16, uint4> {
     F8 r;
 #pragma unroll
     for (int k = 0; k < 4; ++k) {   // element 2k in the low half
-      r.v[2 * k] = bf16_to_float(w[k] & 0xffffu);
-      r.v[2 * k + 1] = bf16_to_float(w[k] >> 16);
+      r.v[2 * k] = Half16::to_float(w[k] & 0xffffu);
+      r.v[2 * k + 1] = Half16::to_float(w[k] >> 16);
     }
     return r;
   }
@@ -126,21 +149,22 @@ struct Accum<AddBF16, uint4> {
     uint32_t w[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      w[k] = float_to_bf16(a.v[2 * k]) | (float_to_bf16(a.v[2 * k + 1]) << 16);
+      w[k] = Half16::from_float(a.v[2 * k]) |
+             (Half16::from_float(a.v[2 * k + 1]) << 16);
     }
     return make_uint4(w[0], w[1], w[2], w[3]);
   }
 };
 
-template <>
-struct Accum<AddBF16, uint16_t> {
+template <class Half16>
+struct Accum<Add16<Half16>, uint16_t> {
   using A = float;
   static constexpr bool kWide = true;
   static __device__ __forceinline__ float widen(uint16_t u) {
-    return bf16_to_float(u);
+    return Half16::to_float(u);
   }
   static __device__ __forceinline__ uint16_t narrow(float a) {
-    return static_cast<uint16_t>(float_to_bf16(a));
+    return static_cast<uint16_t>(Half16::from_float(a));
   }
 };
 
@@ -228,12 +252,14 @@ int launch(const void* v, const void* x, const void* ptr, void* out,
   return static_cast<int>(err);
 }
 
-// The bfloat16 add: `width` bfloat16 elements a row; 16-byte units when
-// the width is a multiple of 8 and v, out and carry are 16-byte aligned,
-// else one element a lane.  carry is float32 [2 shares, width].
-int launch_add_bf16(const void* v, const void* ptr, void* out, void* carry,
-                    void* carry_row, int64_t num_rows, int64_t num_items,
-                    int64_t width, int64_t shares, void* stream) {
+// The bfloat16 or float16 add (Op = AddBF16 or AddF16): `width` 16-bit
+// elements a row; 16-byte units when the width is a multiple of 8 and v,
+// out and carry are 16-byte aligned, else one element a lane.  carry is
+// float32 [2 shares, width].
+template <class Op>
+int launch_add16(const void* v, const void* ptr, void* out, void* carry,
+                 void* carry_row, int64_t num_rows, int64_t num_items,
+                 int64_t width, int64_t shares, void* stream) {
   if (num_rows <= 0 || width <= 0) {
     return static_cast<int>(cudaGetLastError());
   }
@@ -247,20 +273,18 @@ int launch_add_bf16(const void* v, const void* ptr, void* out, void* carry,
   cudaError_t err;
   if (vec) {
     err = units <= 16
-        ? run<AddBF16, false, uint4, 16>(v, nullptr, ptr, out, carry,
-                                         carry_row, num_rows, num_items,
-                                         units, shares, st)
-        : run<AddBF16, false, uint4, 32>(v, nullptr, ptr, out, carry,
-                                         carry_row, num_rows, num_items,
-                                         units, shares, st);
+        ? run<Op, false, uint4, 16>(v, nullptr, ptr, out, carry, carry_row,
+                                    num_rows, num_items, units, shares, st)
+        : run<Op, false, uint4, 32>(v, nullptr, ptr, out, carry, carry_row,
+                                    num_rows, num_items, units, shares, st);
   } else {
     err = units <= 16
-        ? run<AddBF16, false, uint16_t, 16>(v, nullptr, ptr, out, carry,
-                                            carry_row, num_rows, num_items,
-                                            units, shares, st)
-        : run<AddBF16, false, uint16_t, 32>(v, nullptr, ptr, out, carry,
-                                            carry_row, num_rows, num_items,
-                                            units, shares, st);
+        ? run<Op, false, uint16_t, 16>(v, nullptr, ptr, out, carry,
+                                       carry_row, num_rows, num_items, units,
+                                       shares, st)
+        : run<Op, false, uint16_t, 32>(v, nullptr, ptr, out, carry,
+                                       carry_row, num_rows, num_items, units,
+                                       shares, st);
   }
   return static_cast<int>(err);
 }
@@ -328,8 +352,19 @@ int segscan_add_bf16(const void* v, const void* x, const void* ptr, void* out,
                      int64_t num_items, int64_t words, int64_t shares,
                      void* stream) {
   (void)x;
-  return launch_add_bf16(v, ptr, out, carry, carry_row, num_rows, num_items,
-                         words, shares, stream);
+  return launch_add16<AddBF16>(v, ptr, out, carry, carry_row, num_rows,
+                               num_items, words, shares, stream);
+}
+
+// float16 add, summed in float32, the same kernel as the bfloat16 one:
+// `words` is W in float16 elements (any W), carry float32 [2 shares, W].
+int segscan_add_f16(const void* v, const void* x, const void* ptr, void* out,
+                    void* carry, void* carry_row, int64_t num_rows,
+                    int64_t num_items, int64_t words, int64_t shares,
+                    void* stream) {
+  (void)x;
+  return launch_add16<AddF16>(v, ptr, out, carry, carry_row, num_rows,
+                              num_items, words, shares, stream);
 }
 
 }  // extern "C"

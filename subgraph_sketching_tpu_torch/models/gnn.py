@@ -5,14 +5,14 @@ stacks, and the Hadamard MLP scorer.
 BatchNorm: flax momentum 0.9 (the JAX package's ``BN_MOMENTUM``) is torch
 momentum 0.1; eps 1e-5 in both.
 
-The compute dtype (``--dtype bfloat16``) follows flax's ``dtype`` field
-module by module, not autocast: a module with a ``dtype`` (None: its
+The compute dtype (``--dtype bfloat16`` or ``float16``) follows flax's
+``dtype`` field module by module, not autocast: a module with a ``dtype`` (None: its
 inputs' and parameters' promoted type, float32 here) computes in it while
 its parameters and BatchNorm statistics stay float32.  ``Dense`` casts
 its input, weight and bias to the dtype and returns it; ``BatchNorm``
 takes its statistics and normalises in at least float32 and returns the
 dtype; ``Dropout``, ReLU and tanh keep their input's dtype; a float32
-bias added to a bfloat16 product gives float32, as in JAX (``GCNConv``'s
+bias added to a 16-bit product gives float32, as in JAX (``GCNConv``'s
 output).
 
 Data parallelism (``parallel/mesh.py``): :func:`shard_batch_axis` gives
@@ -52,14 +52,20 @@ from subgraph_sketching_tpu_torch.parallel.collectives import (
 BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
 
-# --dtype values -> the compute dtype (None: float32, the default path)
-_COMPUTE_DTYPES = {"float32": None, "f32": None, "bfloat16": torch.bfloat16}
+# --dtype values -> the compute dtype (None: float32, the default path;
+# float64 too, as the JAX package computes it without x64)
+_COMPUTE_DTYPES = {"float32": None, "f32": None, "float64": None,
+                   "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
 def compute_dtype(name: Optional[str]) -> Optional[torch.dtype]:
     """``--dtype`` as the models' compute dtype (the JAX package's
     ``_dtype_from_cfg``): None for float32, ``torch.bfloat16`` for
-    bfloat16."""
+    bfloat16, ``torch.float16`` for float16.  float64 is None too: the
+    JAX package hands flax ``jnp.dtype("float64")``, which JAX without
+    x64 enabled (the package never enables it) canonicalises to float32,
+    so its float64 run computes in float32 and so does the port's.  Any
+    other name raises ValueError."""
     if name is None:
         return None
     if name not in _COMPUTE_DTYPES:
@@ -69,9 +75,9 @@ def compute_dtype(name: Optional[str]) -> Optional[torch.dtype]:
 
 
 def at_least_float32(x: torch.Tensor) -> torch.Tensor:
-    """``x`` in float32 if it is narrower (a bfloat16 model's logits, as
-    flax's ``.astype(jnp.float32)``, and BatchNorm's statistics); a float64
-    run keeps float64."""
+    """``x`` in float32 if it is narrower (a bfloat16 or float16 model's
+    logits, as flax's ``.astype(jnp.float32)``, and BatchNorm's
+    statistics); a float64 run keeps float64."""
     return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
@@ -207,8 +213,8 @@ class Dropout(nn.Module):
     draws it, and the rank keeps its block, so every rank's generator
     stays in step and the masks are the single-device ones (the graph and
     lane peers of a rank, which hold its block, draw its mask).  The mask
-    is drawn in at least float32, so a bfloat16 run draws the float32
-    run's masks; the output keeps the input's dtype."""
+    is drawn in at least float32, so a bfloat16 or float16 run draws the
+    float32 run's masks; the output keeps the input's dtype."""
 
     def __init__(self, p: float):
         super().__init__()
@@ -334,9 +340,9 @@ class GCNConv(nn.Module):
     tables), else ``gcn_norm`` (or the ``norm`` passed in) and the scatter
     ``spmm``; then the separate ``bias``.  In flax ``lin`` is
     ``Dense_0``, initialised glorot-uniform, and the bias zeros.  With
-    ``dtype`` bfloat16 the product and the SpMM run in bfloat16 (K1's
-    bfloat16 add), and the float32 bias makes the output float32, as in
-    JAX.
+    ``dtype`` bfloat16 or float16 the product and the SpMM run in it
+    (K1's bfloat16 or float16 add), and the float32 bias makes the output
+    float32, as in JAX.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -364,9 +370,9 @@ class EdgeShardSpmm:
     Σ_r A_rᵀ g into the replicated ``x``.  ``spmm`` is the block's own
     SpMM (a ``PlanSpmm``, each way one K1 add, or the scatter ``spmm``);
     the wrapper is what ``GCNConv`` takes as its ``plan``.  At bfloat16
-    the sums over the axis stay bfloat16, as JAX's psum of the bfloat16
-    product does (half the bytes on the wire; each rank's partial is
-    rounded before the sum)."""
+    or float16 the sums over the axis stay in that dtype, as JAX's psum
+    of the 16-bit product does (half the bytes on the wire; each rank's
+    partial is rounded before the sum)."""
 
     def __init__(self, spmm, group):
         self.spmm, self.group = spmm, group

@@ -188,7 +188,7 @@ def merge_path_scratch(name: str, num_rows: int, num_items: int, words: int,
     """The carry-out scratch of one launch of ``csrc/<name>.cu``'s
     merge-path kernels: (shares, carry int32 [shares, words], carry_row
     int64 [shares]), uninitialised (the kernels write before they read).
-    ``heads``: an op that sums wider than it stores (K1's bfloat16 add)
+    ``heads``: an op that sums wider than it stores (K1's 16-bit adds)
     also keeps the head of each row it finishes in the carry pass, in
     ``shares`` more rows of carry."""
     import torch
@@ -202,7 +202,7 @@ def merge_path_scratch(name: str, num_rows: int, num_items: int, words: int,
 def check_tensors(what: str, align: int = 4, **tensors) -> None:
     """Raise unless every tensor lies on the first one's CUDA device, is
     contiguous and starts on an ``align``-byte boundary (the kernels read
-    32-bit words; K1's bfloat16 add reads 16-bit elements, ``align`` 2)."""
+    32-bit words; K1's 16-bit adds read 16-bit elements, ``align`` 2)."""
     device = next(iter(tensors.values())).device
     for name, t in tensors.items():
         if t.device != device:

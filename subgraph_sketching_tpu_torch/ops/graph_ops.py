@@ -107,7 +107,7 @@ def spmm(edge_index: torch.Tensor, edge_weight: torch.Tensor,
     result nor the gradient depends on the order atomics land in;
     ``orders`` (from ``edge_orders``) are those sorts made once, else
     each way sorts in the call.  It runs at ``x``'s dtype, the weights
-    cast to it (bfloat16: K1's bfloat16 add each way)."""
+    cast to it (bfloat16 or float16: K1's add of that dtype each way)."""
     return _ScatterSpmm.apply(x, edge_index[0].long(), edge_index[1].long(),
                               edge_weight.to(x.dtype), num_nodes, orders)
 

@@ -11,7 +11,7 @@ The graph is static, so the whole reduction schedule is known up front:
      own row folded in for min/max: K1, ``ops/segscan.py``
 
 Used for minhash (min, biased int32), HLL (max, int8) and weighted SpMM
-(add, in the input's dtype: float32, bfloat16 under ``--dtype bfloat16``
+(add, in the input's dtype: float32, bfloat16 or float16 under ``--dtype``
 with the float32 staged weights cast to it, as the JAX package casts
 them, float64 in the reference runs).  The host tables come from the C++ builder
 ``csrc/plan_build.cpp`` (a stable counting sort, built by
@@ -27,7 +27,7 @@ K1 merges the chunk's sub-runs into its contiguous window of destinations.
 :class:`PlanSpmm` is the differentiable weighted SpMM of ELPH's GCN: a
 plan's add reduce forward, the same reduce on the plan of the transposed
 edges backward, both merged by K1, each at its input's dtype (a
-bfloat16 forward has a bfloat16 backward).  :func:`gather_rows` is a row gather
+16-bit forward has a 16-bit backward).  :func:`gather_rows` is a row gather
 whose backward sums the gradient rows of each source row by a stable sort
 and K1's add, so it is the same from run to run on the card.
 """

@@ -22,8 +22,12 @@ bfloat16 add (the ``--dtype bfloat16`` SpMMs and row-gather backwards)
 reads bfloat16 and sums in float32 into float32 scratch ([2 shares, W]:
 carry-outs, then the heads of rows that cross a share), rounding each
 row once; it takes any width, those that are not a multiple of 8 as one
-16-bit element a lane, so DGCNN's W = 1 is neither refused nor padded.  Its plain version upcasts,
-sums and rounds, which is what the kernel computes.  It is
+16-bit element a lane, so DGCNN's W = 1 is neither refused nor padded.
+The float16 add (``--dtype float16``) is the same kernel over float16:
+a sum past float16's largest finite value (65,504) rounds to ``inf``
+once, on the row's store, as the plain version's rounding does.  Their
+plain version upcasts, sums and rounds, which is what the kernel
+computes.  It is
 bound by HBM bytes: S*W*b read of v, N*W*b read of x (min/max only),
 N*W*b write, plus the (N+1)-entry pointer; the carry-outs add one row per
 share that ends inside a row.  A hub's sub-runs spread over many shares, so its time is
@@ -46,7 +50,8 @@ from subgraph_sketching_tpu_torch.ops import cuda_build
 
 # (op, dtype) -> (C entry point, the multiple a row's width must be: int8
 # rows are read as 32-bit words, float64 rows as 16-byte units, bfloat16
-# rows element by element where they are not whole 16-byte units)
+# and float16 rows element by element where they are not whole 16-byte
+# units)
 _ENTRY = {
     ("min", torch.int32): ("segscan_min_i32", 1),
     ("max", torch.int32): ("segscan_max_i32", 1),
@@ -54,10 +59,11 @@ _ENTRY = {
     ("add", torch.float32): ("segscan_add_f32", 1),
     ("add", torch.float64): ("segscan_add_f64", 2),
     ("add", torch.bfloat16): ("segscan_add_bf16", 1),
+    ("add", torch.float16): ("segscan_add_f16", 1),
 }
 # the instances whose sums are taken in a wider type than they store
 # (float32 scratch, one rounding a row)
-_WIDE = {torch.bfloat16}
+_WIDE = {torch.bfloat16, torch.float16}
 _ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int64,) * 4 + (ctypes.c_void_p,)
 
 # kernel launches per instance, counted where segment_combine launches
@@ -71,16 +77,17 @@ _IDENTITY = {
     ("add", torch.float32): 0.0,
     ("add", torch.float64): 0.0,
     ("add", torch.bfloat16): 0.0,
+    ("add", torch.float16): 0.0,
 }
 
 _REDUCE = {"min": "amin", "max": "amax", "add": "sum"}
 
 
 def supported(op: str, dtype: torch.dtype) -> bool:
-    """The six K1 instances: biased-int32 min (MinHash), int8 max (HLL),
+    """The seven K1 instances: biased-int32 min (MinHash), int8 max (HLL),
     int32 max, float32 add (SpMM), float64 add (the float64 reference
-    runs of training) and bfloat16 add, summed in float32 (the bfloat16
-    compute dtype)."""
+    runs of training), and bfloat16 and float16 add, each summed in
+    float32 (the bfloat16 and float16 compute dtypes)."""
     return (op, dtype) in _ENTRY
 
 
@@ -100,7 +107,8 @@ def segment_combine_plain(v: torch.Tensor, x: torch.Tensor, op: str,
     """The same function as the kernel in plain torch: a segment
     amin/amax/sum of ``v`` over the sub-runs' destinations (from ``ptr``)
     with ``scatter_reduce``, then the closed-neighbourhood fold-in of ``x``
-    for min/max.  A bfloat16 add is summed in float32 and rounded once."""
+    for min/max.  A bfloat16 or float16 add is summed in float32 and
+    rounded once."""
     if v.dtype in _WIDE:
         return segment_combine_plain(v.float(), x.float(), op,
                                      ptr).to(v.dtype)

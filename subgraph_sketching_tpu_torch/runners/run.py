@@ -51,13 +51,16 @@ ELPH's edge-sharded (node-sharded with ``--memory_sharded``), and runs
 ELPH's GCN over each rank's block of the edges; a lane axis shards the
 sketch width of the subgraph features.  Unknown axes and shapes that do
 not match the process group raise ValueError, as does
-``--memory_sharded`` without a graph axis; SEAL and KGE on a mesh or
-under a process group of several ranks raise NotImplementedError: their
-trainers have no mesh.
+``--memory_sharded`` without a graph axis.  SEAL and KGE have no mesh:
+in one process they ignore ``--mesh_shape`` and ``--mesh_axes``, unread
+and unchecked, as the JAX runner does, and under a process group of
+several ranks they raise NotImplementedError (W copies of one run, each
+writing the same checkpoints, are not one run).
 
-``--dtype bfloat16`` runs BUDDY, ELPH and the SEAL models in bfloat16
-compute (``train/loops.py``; KGE trains in float32 whatever it says, as
-in the JAX package).  ``--profile_dir D`` traces epoch 1 of repetition 0
+``--dtype bfloat16`` and ``--dtype float16`` run BUDDY, ELPH and the SEAL
+models in that compute dtype (``train/loops.py``; KGE trains in float32
+whatever it says, as in the JAX package); ``--dtype float64`` computes in
+float32, as the JAX package does without x64.  ``--profile_dir D`` traces epoch 1 of repetition 0
 with ``torch.profiler`` (CPU and, on the card, CUDA activity) into
 ``D/epoch1_rank<r>.pt.trace.json``, as the JAX runner traces that epoch;
 with ``--epochs 1`` nothing is traced.  ``--compilation_cache_dir D`` is
@@ -123,14 +126,17 @@ def _refuse_unported(cfg: Config) -> None:
         raise NotImplementedError(
             f"model {cfg.model} is not wired into the runner (available: "
             f"{', '.join((*TRAINERS, *SEAL_MODELS, *KGE_MODELS))})")
-    if cfg.model in (*SEAL_MODELS, *KGE_MODELS) and (
-            cfg.mesh_shape or multihost.world_size() > 1):
-        raise NotImplementedError(
-            f"{cfg.model} on a mesh or over {multihost.world_size()} "
-            f"ranks: the SEAL and KGE trainers have no data axis (the JAX "
-            f"package's train/seal_loop.py and train/kge_loop.py never read "
-            f"the mesh), and W independent copies are not one run")
-    if cfg.mesh_shape:   # (Config gives --memory_sharded a graph axis)
+    if cfg.model in (*SEAL_MODELS, *KGE_MODELS):
+        # the JAX runner builds neither trainer with a mesh: in one process
+        # --mesh_shape and --mesh_axes are ignored, unchecked
+        if multihost.world_size() > 1:
+            raise NotImplementedError(
+                f"{cfg.model} over {multihost.world_size()} ranks: the SEAL "
+                f"and KGE trainers have no data axis (the JAX package's "
+                f"train/seal_loop.py and train/kge_loop.py never read the "
+                f"mesh), and W independent copies, each writing the same "
+                f"checkpoints, are not one run")
+    elif cfg.mesh_shape:   # (Config gives --memory_sharded a graph axis)
         check_axes(cfg.mesh_shape, cfg.mesh_axes)
 
 

@@ -17,8 +17,9 @@ either ``step_<N>.pt`` files from a training run (``runners/run.py`` with
 ``--checkpoint_dir``) or ``buddy.pt`` (a ``BUDDY`` state_dict), written by
 :func:`save_buddy_checkpoint`.  Weights trained by the JAX package cross
 over through ``models/convert.py``.  A checkpoint of a ``--dtype
-bfloat16`` run serves in bfloat16: the model is rebuilt from its config,
-whose compute dtype it keeps (its weights are float32 either way).
+bfloat16`` or ``--dtype float16`` run serves in that dtype: the model is
+rebuilt from its config, whose compute dtype it keeps (its weights are
+float32 either way).
 
 A ``use_RA`` model is served as the JAX package serves it: the message
 graph's CSR stays on the host, and each query chunk's RA scores come from
@@ -659,7 +660,10 @@ def scorer_from_checkpoint(checkpoint_dir: str, cfg: Optional[Config] = None,
         with open(path) as f:
             cfg = Config.from_json(f.read())
     if cfg.model not in ("BUDDY", "ELPH"):
-        raise NotImplementedError(f"serving {cfg.model} is not ported yet")
+        # as the JAX package's scorer_from_checkpoint, whose build_trainer
+        # takes BUDDY and ELPH only
+        raise NotImplementedError(f"serving {cfg.model}: only BUDDY and "
+                                  f"ELPH checkpoints are served")
     cfg = serving_config(cfg)
     splits, directed, _ = get_data(cfg)
     # the scorer needs the sketch stacks, which a split whose subgraph

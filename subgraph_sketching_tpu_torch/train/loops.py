@@ -62,13 +62,15 @@ built under a graph mesh carries position-ordered sketches
 (``LinkDataset.sketch_perm``); the ELPH trainer translates through the
 permutation, and refuses them without a graph axis.
 
-``--dtype bfloat16`` (the JAX package's ``_dtype_from_cfg``) is the
-models' compute dtype, module by module as flax's ``dtype`` field
-(``models/gnn.py``): the dense layers, BatchNorm outputs, dropout, the
-GCN's and the diffusion's products and SpMMs run in bfloat16 (K1's
-bfloat16 add), while the parameters, the BatchNorm statistics, the Adam
-moments and the logits stay float32, so a bfloat16 run's checkpoint
-has the float32 run's keys and dtypes.  Preprocessing does not read it.
+``--dtype bfloat16`` or ``float16`` (the JAX package's
+``_dtype_from_cfg``) is the models' compute dtype, module by module as
+flax's ``dtype`` field (``models/gnn.py``): the dense layers, BatchNorm
+outputs, dropout, the GCN's and the diffusion's products and SpMMs run
+in it (K1's bfloat16 or float16 add), while the parameters, the
+BatchNorm statistics, the Adam moments and the logits stay float32, so
+such a run's checkpoint has the float32 run's keys and dtypes.
+``--dtype float64`` is the float32 run, as in the JAX package, which
+never enables x64.  Preprocessing does not read it.
 """
 
 from __future__ import annotations

@@ -13,9 +13,10 @@ blocks, a short last block and a star whose hub spans many pieces; K4
 sorts each block's indices, so it is run on indices in random, sorted and
 reverse order, all one index and many repeats.  ELPH's uses of K1 are
 held at its widths (float32 add at W = 1024 and 32, the float64 add of
-the reference runs, the bfloat16 add of ``--dtype bfloat16`` at 16-byte
-and 16-bit widths, W = 1 included): ``PlanSpmm`` forward and backward, one launch each
-way, ``gather_rows``' backward and the scatter ``spmm`` (K1's add each
+the reference runs, the bfloat16 and float16 adds of ``--dtype
+bfloat16`` and ``--dtype float16`` at 16-byte and 16-bit widths, W = 1
+included, the float16 one's overflow to inf): ``PlanSpmm`` forward and
+backward, one launch each way, ``gather_rows``' backward and the scatter ``spmm`` (K1's add each
 way), the same bit for bit on two runs, and two ELPH epochs by the
 scatter route trained twice bit for bit.  The node embeddings' ddi
 diffusion holds K1's add at W = 256 on a dense graph (hundreds of
@@ -286,7 +287,8 @@ PROFILES = {
 # widths of 32-bit words only
 K1_CASES = [("min", torch.int32, (128, 40, 1)), ("max", torch.int32, (128, 40, 1)),
             ("add", torch.float32, (128, 40, 1)), ("max", torch.int8, (256, 8, 4)),
-            ("add", torch.bfloat16, (128, 6, 1))]
+            ("add", torch.bfloat16, (128, 6, 1)),
+            ("add", torch.float16, (128, 6, 1))]
 K3_CASES = [("min", torch.int32, (128, 40, 1)), ("max", torch.int8, (256, 8, 4))]
 
 
@@ -296,11 +298,11 @@ def _profile_ptr(profile, steps):
 
 
 def _rows(n, dtype, width, g, dyadic=False):
-    """Random rows; float32 and bfloat16 as multiples of 1/4 in [-8, 8)
-    when ``dyadic`` (every partial sum of a few thousand is exact in
-    float32, so any order agrees, and the bfloat16 add rounds the same
+    """Random rows; float32, bfloat16 and float16 as multiples of 1/4 in
+    [-8, 8) when ``dyadic`` (every partial sum of a few thousand is exact
+    in float32, so any order agrees, and the 16-bit adds round the same
     exact sum once)."""
-    if dtype in (torch.float32, torch.bfloat16):
+    if dtype in (torch.float32, torch.bfloat16, torch.float16):
         if dyadic:
             return (torch.randint(-32, 32, (n, width), generator=g,
                                   device="cuda").float() / 4).to(dtype)
@@ -364,12 +366,24 @@ def test_segscan_bf16_add_within_its_bound_and_repeats(cuda, profile, width):
     (W = 1, DGCNN's last layer): bit-equal to itself across calls, and
     within half a bfloat16 ulp of the float64 sum plus the float32
     accumulation's 2·k·2^-24·Σ|v| over a row's k terms."""
+    _half_add_within_its_bound(cuda, profile, width, torch.bfloat16, 2.0 ** -8)
+
+
+@pytest.mark.parametrize("width", [1024, 128, 6, 1])
+@pytest.mark.parametrize("profile", ["spans_3_shares", "star", "random_hub"])
+def test_segscan_f16_add_within_its_bound_and_repeats(cuda, profile, width):
+    """K1's float16 add, the same kernel with float16 conversions: the
+    same checks within half a float16 ulp (2^-11 of the sum)."""
+    _half_add_within_its_bound(cuda, profile, width, torch.float16, 2.0 ** -11)
+
+
+def _half_add_within_its_bound(cuda, profile, width, dtype, half_ulp):
     from subgraph_sketching_tpu_torch.ops import cuda_build
     ptr_np, counts = _profile_ptr(profile, cuda_build.share_steps("segscan"))
     n, s = len(counts), int(ptr_np[-1])
     g = torch.Generator(device="cuda").manual_seed(13)
-    v = torch.randn((s, width), generator=g, device="cuda").to(torch.bfloat16)
-    x = torch.empty((n, width), dtype=torch.bfloat16, device=cuda)
+    v = torch.randn((s, width), generator=g, device="cuda").to(dtype)
+    x = torch.empty((n, width), dtype=dtype, device=cuda)
     ptr = torch.from_numpy(ptr_np).to(cuda)
     first = segscan.segment_combine(v, x, "add", ptr)
     second = segscan.segment_combine(v, x, "add", ptr)
@@ -378,14 +392,48 @@ def test_segscan_bf16_add_within_its_bound_and_repeats(cuda, profile, width):
     want = zeros.index_add(0, ids, v.double())
     scale = zeros.index_add(0, ids, v.abs().double())
     torch.cuda.synchronize()
-    assert first.dtype == torch.bfloat16
+    assert first.dtype == dtype
     assert torch.equal(first.view(torch.int16), second.view(torch.int16))
     k = torch.from_numpy(counts).to(cuda).double()[:, None]
-    bound = 2.0 ** -8 * want.abs() + 2 * k * 2.0 ** -24 * scale
+    bound = half_ulp * want.abs() + 2 * k * 2.0 ** -24 * scale
     assert bool(((first.double() - want).abs() <= bound).all())
 
 
-@pytest.mark.parametrize("dtype", [torch.float16, torch.int8, torch.int16])
+def test_segscan_f16_add_overflows_to_inf_on_its_rounding(cuda):
+    """A float16 row whose sum passes 65,504 is inf, as the plain version
+    rounds it, though no float32 partial sum overflows; inf − inf is
+    nan; sums in range stay finite (the rows of
+    tests/test_torch_float16.py's comparison with JAX)."""
+    rows = [[30000.0] * 3, [-30000.0] * 3, [60000.0, 5000.0, -1000.0],
+            [65504.0, 8.0, 0.0], [float("inf"), -float("inf"), 1.0]]
+    v = torch.tensor(rows, dtype=torch.float16).reshape(-1, 1)
+    ptr = torch.arange(0, 3 * len(rows) + 1, 3)
+    x = torch.empty((len(rows), 1), dtype=torch.float16)
+    want = segscan.segment_combine_plain(v, x, "add", ptr)
+    got = segscan.segment_combine(v.to(cuda), x.to(cuda), "add",
+                                  ptr.to(cuda)).cpu()
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got[~got.isnan()], want[~want.isnan()])
+    assert got[:, 0].isinf().tolist() == [True, True, False, False, False]
+
+
+def test_segscan_f16_refuses_a_layout_it_does_not_take(cuda):
+    """A float16 CUDA tensor the kernel cannot take (strided, or x of
+    another dtype) raises and launches nothing: no fallback to the plain
+    version."""
+    v = torch.zeros((4, 16), dtype=torch.float16, device=cuda)
+    x = torch.zeros((2, 8), dtype=torch.float16, device=cuda)
+    ptr = torch.tensor([0, 2, 4], device=cuda)
+    before = dict(segscan.launches)
+    with pytest.raises(ValueError, match="not contiguous"):
+        segscan.segment_combine(v[:, ::2], x, "add", ptr)
+    with pytest.raises(ValueError, match="differ in dtype"):
+        segscan.segment_combine(v[:, :8].contiguous(), x.float(), "add",
+                                ptr)
+    assert segscan.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int8, torch.int16])
 def test_segscan_refuses_what_it_does_not_take_on_cuda(cuda, dtype):
     """An add of a dtype that K1 has no instance for raises on a CUDA
     tensor, and launches nothing: no fallback to the plain version."""
@@ -738,20 +786,32 @@ def test_plan_spmm_bf16_runs_forward_and_backward_on_the_kernel(cuda):
     launch each way, each within a bfloat16 ulp (2^-7 of the value, plus
     the float32 sums' 2^-16 of the terms' sum) of the plain merge of the
     same sub-run results, and both the same on a second call."""
+    _plan_spmm_half(torch.bfloat16, 2.0 ** -7)
+
+
+def test_plan_spmm_f16_runs_forward_and_backward_on_the_kernel(cuda):
+    """The same at float16 (``--dtype float16``): one float16 K1 launch
+    each way, within a float16 ulp (2^-10 of the value, plus 2^-16 of the
+    terms' sum)."""
+    _plan_spmm_half(torch.float16, 2.0 ** -10)
+
+
+def _plan_spmm_half(dtype, ulp):
     ps, _, _, n = _gcn_plan_spmm()
+    name = segscan._ENTRY[("add", dtype)][0]
     g = torch.Generator(device="cuda").manual_seed(17)
     x = torch.randn((n, 1024), generator=g, device="cuda").to(
-        torch.bfloat16).requires_grad_()
-    t = torch.randn((n, 1024), generator=g, device="cuda").to(torch.bfloat16)
-    before = segscan.launches["segscan_add_bf16"]
+        dtype).requires_grad_()
+    t = torch.randn((n, 1024), generator=g, device="cuda").to(dtype)
+    before = segscan.launches[name]
     runs = []
     for _ in range(2):
         out = ps(x)
         (grad,) = torch.autograd.grad(out, x, t)
         runs.append((out.detach(), grad))
     torch.cuda.synchronize()
-    assert segscan.launches["segscan_add_bf16"] == before + 4
-    assert runs[0][0].dtype == runs[0][1].dtype == torch.bfloat16
+    assert segscan.launches[name] == before + 4
+    assert runs[0][0].dtype == runs[0][1].dtype == dtype
     for a, b in zip(*runs):
         assert torch.equal(a.view(torch.int16), b.view(torch.int16))
     with torch.no_grad():
@@ -763,8 +823,7 @@ def test_plan_spmm_bf16_runs_forward_and_backward_on_the_kernel(cuda):
             scale = segscan.segment_combine_plain(
                 v.float().abs(), inp.float(), "add", plan.sub_ptr)
             assert bool(((got.float() - want).abs()
-                         <= 2.0 ** -7 * want.abs() + 2.0 ** -16 * scale
-                         ).all())
+                         <= ulp * want.abs() + 2.0 ** -16 * scale).all())
 
 
 @pytest.mark.parametrize("model", ["ELPH", "ELPH_scatter", "SEALDGCNN"])
@@ -773,6 +832,17 @@ def test_bf16_training_is_the_same_twice_on_the_card(cuda, model):
     seed give the same losses and parameters bit for bit (every sum of
     the step is K1's fixed order, its bfloat16 add included), the
     bfloat16 instance is launched, and the state stays float32."""
+    _half_training_twice(cuda, model, "bfloat16")
+
+
+@pytest.mark.parametrize("model", ["ELPH", "ELPH_scatter", "SEALDGCNN"])
+def test_f16_training_is_the_same_twice_on_the_card(cuda, model):
+    """The same at float16 (``--dtype float16``), through K1's float16
+    add."""
+    _half_training_twice(cuda, model, "float16")
+
+
+def _half_training_twice(cuda, model, dtype):
     from subgraph_sketching_tpu_torch.config import Config
     from subgraph_sketching_tpu_torch.graph.datasets import get_data
     from subgraph_sketching_tpu_torch.graph.preprocess import build_all_splits
@@ -783,9 +853,10 @@ def test_bf16_training_is_the_same_twice_on_the_card(cuda, model):
         build_seal_trainer,
     )
     cfg = Config(dataset_name="synth-ws", model=model.split("_")[0],
-                 hidden_channels=32, dtype="bfloat16",
+                 hidden_channels=32, dtype=dtype,
                  use_plan=model != "ELPH_scatter", train_samples=2048,
                  dynamic_train=True)
+    name = segscan._ENTRY[("add", getattr(torch, dtype))][0]
     splits, directed, _ = get_data(cfg)
     if model == "SEALDGCNN":
         tr = build_seal_trainer(cfg, splits, cuda)
@@ -793,7 +864,7 @@ def test_bf16_training_is_the_same_twice_on_the_card(cuda, model):
         ds = build_all_splits(splits, cfg, directed=directed, device=cuda)
         tr = ElphTrainer(cfg, ds["train"], ds["train"].x.shape[-1],
                          device=cuda)
-    before = segscan.launches["segscan_add_bf16"]
+    before = segscan.launches[name]
     runs = []
     for _ in range(2):
         model_ = tr.init_model(0)
@@ -801,7 +872,7 @@ def test_bf16_training_is_the_same_twice_on_the_card(cuda, model):
         losses = [tr.train_epoch(model_, opt, seed) for seed in (3, 4)]
         runs.append((losses, model_.state_dict(), opt))
     torch.cuda.synchronize()
-    assert segscan.launches["segscan_add_bf16"] > before
+    assert segscan.launches[name] > before
     assert runs[0][0] == runs[1][0]
     for k, v in runs[0][1].items():
         assert v.dtype in (torch.float32, torch.int64), k

@@ -30,7 +30,8 @@ Tolerances:
   * a bfloat16 data x graph ELPH epoch (dropout on) against one
     process's bfloat16 epoch: step losses rtol 1e-2 (each edge shard
     rounds its partial SpMM to bfloat16 before the bfloat16 sum over the
-    graph axis; one process rounds each row once);
+    graph axis; one process rounds each row once); the same at float16,
+    rtol 1e-3;
   * streaming on position-ordered state against a node-sharded rebuild:
     MinHash and HLL bit-equal in node order, cardinalities rtol 1e-6,
     scores rtol 1e-5, atol 1e-5.
@@ -416,9 +417,10 @@ def _session(work: str) -> dict:
             cases[f"{model}/{m}"] = dict(mesh=m, epochs=2, orders=None,
                                          state=None, frozen=None,
                                          cfg={**TRAIN, "model": model})
-    cases["ELPH_bf16/data_graph"] = dict(
-        mesh="data_graph", epochs=1, orders=None, state=None, frozen=None,
-        cfg={**TRAIN, "model": "ELPH", "dtype": "bfloat16"})
+    for name, dtype in (("bf16", "bfloat16"), ("f16", "float16")):
+        cases[f"ELPH_{name}/data_graph"] = dict(
+            mesh="data_graph", epochs=1, orders=None, state=None,
+            frozen=None, cfg={**TRAIN, "model": "ELPH", "dtype": dtype})
     inputs = dict(edge_index=ei, links=links, num_nodes=N, meshes=MESHES,
                   step=dict(x=x, edge_index=torch.from_numpy(ei),
                             links=links,
@@ -439,8 +441,9 @@ def _session(work: str) -> dict:
     try:   # the references, while the ranks run
         jax_side = _jax_meshes_features(ei, links.numpy())
         single = {m: _single_process(split, m) for m in ("BUDDY", "ELPH")}
-        single_bf16 = _single_process(split, "ELPH", dtype="bfloat16",
-                                      epochs=1)[0]
+        single_bf16, single_f16 = (
+            _single_process(split, "ELPH", dtype=dt, epochs=1)[0]
+            for dt in ("bfloat16", "float16"))
     finally:
         outs = [p.communicate(timeout=600)[0] for p in procs]
     for r, (p, out) in enumerate(zip(procs, outs)):
@@ -449,7 +452,7 @@ def _session(work: str) -> dict:
              for r in range(WORLD)]
     return dict(ranks=ranks, jax=jax_side, jax_elph_losses=jlosses,
                 single={m: v[0] for m, v in single.items()},
-                single_bf16=single_bf16,
+                single_bf16=single_bf16, single_f16=single_f16,
                 unsharded_sf=single["BUDDY"][1].subgraph_features,
                 stream=dict(small=ei_small, full=ei_full, dropped=dropped),
                 split=split, edge_index=ei, links=links)
@@ -609,6 +612,21 @@ def test_bf16_elph_epoch_on_a_data_graph_mesh(session):
     for got in losses:
         assert np.all(np.isfinite(got))
         np.testing.assert_allclose(got, want, rtol=1e-2)
+    assert all(np.array_equal(losses[0], got) for got in losses)
+
+
+def test_f16_elph_epoch_on_a_data_graph_mesh(session):
+    """The same at float16: each rank's edge shard through K1's float16
+    add, summed over the graph axis in float16 by gloo, the BatchNorm's
+    statistics over the data axis in float32; one process's float16
+    epoch within rtol 1e-3 (a partial rounded to float16 before the sum
+    over the axis, 2^-11 each), the four ranks' losses bit-equal."""
+    want = session["single_f16"]
+    losses = [r["trainer/ELPH_f16/data_graph"]["losses"].numpy()
+              for r in session["ranks"]]
+    for got in losses:
+        assert np.all(np.isfinite(got))
+        np.testing.assert_allclose(got, want, rtol=1e-3)
     assert all(np.array_equal(losses[0], got) for got in losses)
 
 

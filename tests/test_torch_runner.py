@@ -89,16 +89,11 @@ def test_main_without_device_needs_cuda():
         run.main(SMALL)
 
 
-@pytest.mark.parametrize("extra", [
-    ["--model", "GCN"], ["--model", "SAGE"],
-    ["--model", "transE", "--mesh_shape", "1", "--mesh_axes", "graph"],
-    ["--model", "SEALDGCNN", "--mesh_shape", "1", "--mesh_axes", "graph"],
-    ["--model", "SEALGCN", "--mesh_shape", "1"],
-    ["--model", "rotatE", "--mesh_shape", "1"]])
+@pytest.mark.parametrize("extra", [["--model", "GCN"], ["--model", "SAGE"]])
 def test_unported_options_raise(extra):
-    """What the port does not run: models the runner has no trainer for,
-    and SEAL or KGE on a mesh (their trainers have no mesh, as the JAX
-    package's)."""
+    """What the port does not run: models the runner has no trainer for
+    (SEAL and KGE with a mesh in one process run, as in the JAX runner:
+    tests/test_torch_float16.py)."""
     with pytest.raises(NotImplementedError):
         run.main(SMALL + extra + ["--device", "cpu"])
 

@@ -384,11 +384,11 @@ def test_optimizer_state_carries_across():
 @pytest.mark.parametrize("overrides", [
     {"mesh_shape": [1], "mesh_axes": ["rows"]},
     {"memory_sharded": True, "mesh_shape": [2], "mesh_axes": ["graph"]},
-    {"dtype": "float16"}])
+    {"dtype": "float17"}])
 def test_trainer_refuses_what_is_not_ported(overrides, trainer):
-    """A compute dtype other than float32 and bfloat16, an unknown mesh
-    axis and a mesh that one process does not divide into raise
-    ValueError."""
+    """A compute dtype that the JAX package's ``jnp.dtype`` refuses too,
+    an unknown mesh axis and a mesh that one process does not divide
+    into raise ValueError."""
     ds, _ = _datasets(0)
     cfg = Config(**{**BASE, **overrides})
     with pytest.raises(ValueError):
