@@ -3901,11 +3901,13 @@ def _dp_profile(trainer, steps: int, seed: int) -> dict:
     each ``steps`` steps under torch.profiler
     (``parallel.breakdown.profile_steps``: idle share, the collectives'
     calls, bytes and NCCL device ms a step, the host's self ms by
-    operator and in ``all_reduce``), K1 adds a step on the mesh, the
-    operators that the mesh adds host time to (``host_excess_by_op``:
-    ms a step on the mesh less unsharded); then the step ms by the host
-    clock, unsharded and on the mesh in turns (unsharded, mesh, mesh,
-    unsharded), DP_TIMED_STEPS steps each, without the profiler."""
+    operator and in ``all_reduce``, the step's forward, backward and
+    optimizer device ms by the port's spans beside the kernel table), K1
+    adds a step on the mesh, the operators that the mesh adds host time
+    to (``host_excess_by_op``: ms a step on the mesh less unsharded);
+    then the step ms by the host clock, unsharded and on the mesh in
+    turns (unsharded, mesh, mesh, unsharded), DP_TIMED_STEPS steps each,
+    without the profiler."""
     import torch
 
     from subgraph_sketching_tpu_torch.ops import segscan
@@ -3962,6 +3964,7 @@ def _dp_profile(trainer, steps: int, seed: int) -> dict:
                                 "unsharded": base["host_op_self_ms"]},
             "host_excess_by_op": excess,
             "profiled": prof,
+            "phases_ms": mesh["phases_ms"],
             "top_kernels": mesh["top_kernels"][:8]}
 
 

@@ -36,6 +36,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from subgraph_sketching_tpu_torch import spans
 from subgraph_sketching_tpu_torch.config import Config
 from subgraph_sketching_tpu_torch.device import resolve_device
 from subgraph_sketching_tpu_torch.graph.splits import SplitData
@@ -94,16 +95,18 @@ def sign_features(x: np.ndarray, edge_index: np.ndarray,
     src/datasets/elph.py:87-110): gcn_norm then sign_k=0 -> one propagation
     replacing x; sign_k>0 -> concat [x, Ax, ..., A^k x].  The SpMM is the
     plan's add path (K1 merges it) when ``use_plan``, else a scatter
-    ``segment_sum`` over the edges."""
+    ``segment_sum`` over the edges.  The plan's tables and staged weights
+    are the stage ``setup.plans``."""
     dev = resolve_device(device)
     ei = torch.from_numpy(np.asarray(edge_index, dtype=np.int64)).to(dev)
     ew = (None if edge_weight is None
           else torch.from_numpy(np.asarray(edge_weight)).to(dev))
     nei, nw = gcn_norm(ei, ew, num_nodes)
     if use_plan:
-        plan = make_auto_plan(nei.cpu().numpy(), num_nodes,
-                              max_slots=max_gather_slots, device=dev)
-        wslots = plan.stage_edge_data(nw)
+        with spans.stage("setup.plans", dev):
+            plan = make_auto_plan(nei.cpu().numpy(), num_nodes,
+                                  max_slots=max_gather_slots, device=dev)
+            wslots = plan.stage_edge_data(nw)
 
         def prop(v: torch.Tensor) -> torch.Tensor:
             return plan.reduce(v, "add", edge_data_slots=wslots)
@@ -192,33 +195,39 @@ def build_link_dataset(split_data: SplitData, cfg: Config, split: str,
     writes them for a split that reuses the train split's sketches).
 
     ``model`` (default ``cfg.model``) ELPH returns the split before any
-    SIGN, sketch or subgraph-feature work, as the JAX package does."""
+    SIGN, sketch or subgraph-feature work, as the JAX package does.
+
+    Stages (``spans.py``): ``setup.graph`` (coalesce, undirected, degrees,
+    RA), ``setup.sign``, ``setup.plans``, ``setup.sketches`` and
+    ``setup.features`` (with the features' copy to the host)."""
     model = model or cfg.model
     if model not in ("BUDDY", "ELPH"):
         raise NotImplementedError(f"preprocessing for {model} is not ported "
                                   f"yet (BUDDY and ELPH only)")
     dev = resolve_device(device)
-    g = split_data.graph
-    if cfg.dataset_name == "ogbl-collab":
-        g = g.coalesce()  # compress multi-edges (src/datasets/elph.py:54-57)
-    if directed:
-        # directed graphs become undirected for propagation and subgraph
-        # features (src/datasets/elph.py:63-66)
-        g = g.to_undirected()
-    same_graph = (
-        reuse_from is not None
-        and reuse_from.num_nodes == g.num_nodes
-        and reuse_from.edge_index.shape == g.edge_index.shape
-        and np.array_equal(reuse_from.edge_index, g.edge_index)
-        and np.array_equal(np.asarray(reuse_from.edge_weight),
-                           np.asarray(g.weights)))
-    links = split_data.links.astype(np.int32)
-    labels = split_data.labels
-    degrees = reuse_from.degrees if same_graph else g.degrees()
+    with spans.stage("setup.graph", dev):
+        g = split_data.graph
+        if cfg.dataset_name == "ogbl-collab":
+            # compress multi-edges (src/datasets/elph.py:54-57)
+            g = g.coalesce()
+        if directed:
+            # directed graphs become undirected for propagation and
+            # subgraph features (src/datasets/elph.py:63-66)
+            g = g.to_undirected()
+        same_graph = (
+            reuse_from is not None
+            and reuse_from.num_nodes == g.num_nodes
+            and reuse_from.edge_index.shape == g.edge_index.shape
+            and np.array_equal(reuse_from.edge_index, g.edge_index)
+            and np.array_equal(np.asarray(reuse_from.edge_weight),
+                               np.asarray(g.weights)))
+        links = split_data.links.astype(np.int32)
+        labels = split_data.labels
+        degrees = reuse_from.degrees if same_graph else g.degrees()
 
-    RA = None
-    if cfg.use_RA:
-        RA = resource_allocation(g.csr(), links, batch_size=2000000)
+        RA = None
+        if cfg.use_RA:
+            RA = resource_allocation(g.csr(), links, batch_size=2000000)
 
     if model == "ELPH":
         # ELPH propagates the features in the model (JAX preprocess.py:179)
@@ -231,9 +240,11 @@ def build_link_dataset(split_data: SplitData, cfg: Config, split: str,
     elif feat_cache and cfg.load_features and os.path.exists(feat_cache):
         x = np.load(feat_cache)["x"]
     elif g.x is not None:
-        x = sign_features(g.x, g.edge_index, g.edge_weight, g.num_nodes,
-                          cfg.sign_k, use_plan=cfg.use_plan,
-                          max_gather_slots=cfg.max_gather_slots, device=dev)
+        with spans.stage("setup.sign", dev):
+            x = sign_features(g.x, g.edge_index, g.edge_weight, g.num_nodes,
+                              cfg.sign_k, use_plan=cfg.use_plan,
+                              max_gather_slots=cfg.max_gather_slots,
+                              device=dev)
         if feat_cache and cfg.load_features:
             np.savez(feat_cache, x=x)
     else:
@@ -247,12 +258,13 @@ def build_link_dataset(split_data: SplitData, cfg: Config, split: str,
     mesh = graph_mesh(cfg, dev)
 
     def features(sk, perm):
-        if mesh is not None and perm is not None:
-            return node_sharded_subgraph_features_batched(
-                links, sk, params, mesh, perm=perm,
-                batch_size=batch).cpu().numpy()
-        return subgraph_features_batched(links, sk, params,
-                                         batch_size=batch).cpu().numpy()
+        with spans.stage("setup.features", dev):
+            if mesh is not None and perm is not None:
+                return node_sharded_subgraph_features_batched(
+                    links, sk, params, mesh, perm=perm,
+                    batch_size=batch).cpu().numpy()
+            return subgraph_features_batched(links, sk, params,
+                                             batch_size=batch).cpu().numpy()
 
     if sketches is not None:
         sf = features(sketches, sketch_perm)
@@ -275,20 +287,23 @@ def build_link_dataset(split_data: SplitData, cfg: Config, split: str,
         elif mesh is not None:
             # memory-sharded (the citation2-scale path): the tables never
             # sit whole on one device
-            part = make_node_partition(g.edge_index, g.num_nodes,
-                                       mesh.axis_size("graph"))
-            sketches = node_sharded_build_hash_tables(
-                part, params, mesh, max_gather_rows=cfg.max_gather_slots)
+            with spans.stage("setup.sketches", dev):
+                part = make_node_partition(g.edge_index, g.num_nodes,
+                                           mesh.axis_size("graph"))
+                sketches = node_sharded_build_hash_tables(
+                    part, params, mesh, max_gather_rows=cfg.max_gather_slots)
             sketch_perm = part.perm
         else:
-            plan = (make_auto_plan(g.edge_index, g.num_nodes,
-                                   max_slots=cfg.max_gather_slots,
-                                   device=dev)
-                    if cfg.use_plan else None)
-            sketches = build_hash_tables(g.edge_index, g.num_nodes, params,
-                                         plan=plan,
-                                         hops_only=cfg.hops_only_sketches,
-                                         device=dev)
+            plan = None
+            if cfg.use_plan:
+                with spans.stage("setup.plans", dev):
+                    plan = make_auto_plan(g.edge_index, g.num_nodes,
+                                          max_slots=cfg.max_gather_slots,
+                                          device=dev)
+            with spans.stage("setup.sketches", dev):
+                sketches = build_hash_tables(
+                    g.edge_index, g.num_nodes, params, plan=plan,
+                    hops_only=cfg.hops_only_sketches, device=dev)
             if hash_cache and cfg.load_hashes:
                 save_sketches(hash_cache, sketches)
         sf = features(sketches, sketch_perm)

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from subgraph_sketching_tpu_torch import spans
 from subgraph_sketching_tpu_torch.device import resolve_device
 from subgraph_sketching_tpu_torch.ops import cuda_build
 from subgraph_sketching_tpu_torch.ops.segscan import identity, segment_combine
@@ -463,19 +464,22 @@ class PlanSpmm:
 
 
 class _PlanSpmmFn(torch.autograd.Function):
-    """``PlanSpmm``'s forward and backward: one add reduce each way."""
+    """``PlanSpmm``'s forward and backward: one add reduce each way, the
+    spans ``spmm.forward`` and ``spmm.backward`` (K1 included)."""
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, ps: PlanSpmm) -> torch.Tensor:
         ctx.ps = ps
-        return ps.fwd.reduce(x, "add", edge_data_slots=ps._w_fwd)
+        with spans.span("spmm.forward"):
+            return ps.fwd.reduce(x, "add", edge_data_slots=ps._w_fwd)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         ps = ctx.ps
-        # the gradient of a row gather downstream may arrive strided
-        return ps.bwd.reduce(g.contiguous(), "add",
-                             edge_data_slots=ps._w_bwd), None
+        with spans.span("spmm.backward"):
+            # the gradient of a row gather downstream may arrive strided
+            return ps.bwd.reduce(g.contiguous(), "add",
+                                 edge_data_slots=ps._w_bwd), None
 
 
 def segment_order(seg: torch.Tensor, n: int) -> tuple:

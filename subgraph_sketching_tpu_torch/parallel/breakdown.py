@@ -4,11 +4,12 @@
 splits them: the step's wall time by the host clock, the device's busy
 time and idle share, the device time by kernel, the host's own time by
 operator (each operator's self time: what it spent outside the operators
-it called; the rest of the wall time is Python between operators), and
-the collectives issued, with the host time spent inside
-``torch.distributed.all_reduce``.  ``chip_smoke.py``'s ``dp`` phase reads
-it at world size 1; as a program it reads it on every rank of a
-torchrun launch:
+it called; the rest of the wall time is Python between operators), the
+step's phases by the port's spans (``spans.py``: forward, backward and
+optimizer on the device's clock), and the collectives issued, with the
+host time spent inside ``torch.distributed.all_reduce``.
+``chip_smoke.py``'s ``dp`` phase reads it at world size 1; as a program
+it reads it on every rank of a torchrun launch:
 
     python -m torch.distributed.run --standalone --nproc_per_node 4 \\
         -m subgraph_sketching_tpu_torch.parallel.breakdown \\
@@ -31,6 +32,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from subgraph_sketching_tpu_torch import spans
 from subgraph_sketching_tpu_torch.parallel import collectives
 
 # operators that are ranges over other operators' work, not work of
@@ -73,8 +75,12 @@ def profile_steps(trainer, model, optimizer, order: torch.Tensor,
     window (to set counters to 0).  Per step: wall ms, device busy ms
     and idle share, the ``top`` kernels by device ms and operators by
     host self ms (name, ms, calls), every operator's in ``host_ops``
-    ({name: [ms, calls]}), NCCL's device ms, the host ms in
-    ``all_reduce``, the collectives' calls and bytes."""
+    ({name: [ms, calls]}), the device ms of the spans ``train.step``,
+    ``train.forward``, ``train.backward`` and ``train.optimizer``
+    (``phases_ms``: step, forward, backward, optimizer; None for a span
+    the trainer did not record), NCCL's device ms, the host ms in
+    ``all_reduce``, the collectives' calls and bytes.  The spans' records
+    (not the stages') are reset at the window's start."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -92,6 +98,7 @@ def profile_steps(trainer, model, optimizer, order: torch.Tensor,
         if on_window is not None:
             on_window()
         collectives.reset_collectives()
+        spans.reset_spans()
         with _timed_all_reduce(spent):
             t0 = time.perf_counter()
             trainer.run_epoch(model, optimizer, seed,
@@ -111,6 +118,10 @@ def profile_steps(trainer, model, optimizer, order: torch.Tensor,
         if a.device_type == DeviceType.CPU and not a.key.startswith(_MARKS):
             ops[a.key[:96]] = [a.self_cpu_time_total / 1e3, a.count]
     busy = sum(v[0] for v in kernels.values())
+    phases = spans.totals()
+    phases_ms = {p: (phases[f"train.{p}"]["device_s"] * 1e3 / steps
+                     if f"train.{p}" in phases else None)
+                 for p in ("step", "forward", "backward", "optimizer")}
 
     def per_step(table: dict) -> list:
         rows = sorted(table.items(), key=lambda kv: -kv[1][0])
@@ -120,6 +131,7 @@ def profile_steps(trainer, model, optimizer, order: torch.Tensor,
             "device_busy_ms": busy / steps,
             "device_idle_share": 1 - busy / (wall * 1e3),
             "host_op_self_ms": sum(v[0] for v in ops.values()) / steps,
+            "phases_ms": phases_ms,
             "all_reduce_host_ms": spent[0] * 1e3 / steps,
             "collective_calls": collectives.collectives["calls"] / steps,
             "collective_bytes": collectives.collectives["bytes"] / steps,

@@ -53,6 +53,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from subgraph_sketching_tpu_torch import spans
 from subgraph_sketching_tpu_torch.device import (
     device_from_flags, resolve_device,
 )
@@ -326,24 +327,20 @@ def _print(record: dict) -> None:
 
 
 class _Clock:
-    """Stage records: seconds on the host clock around work that ends in
-    a device synchronize, links/s where the record counts ``links``, and
-    the device's peak memory so far on a card."""
+    """Stage records: the port's stages (``spans.stage``, named
+    ``citation2.<stage>``: host clock around work that ends in a device
+    synchronize) with links/s where the record counts ``links``, and the
+    device's peak memory so far on a card."""
 
     def __init__(self, dev: torch.device, log: Callable[[dict], None]):
         self.dev, self.log, self.records = dev, log, []
 
-    def sync(self) -> None:
-        if self.dev.type == "cuda":
-            torch.cuda.synchronize(self.dev)
-
     @contextmanager
     def stage(self, name: str, **fields):
         rec = {"stage": name, **fields}
-        t0 = time.perf_counter()
-        yield rec
-        self.sync()
-        rec["s"] = time.perf_counter() - t0
+        with spans.stage(f"citation2.{name}", self.dev) as timed:
+            yield rec
+        rec["s"] = timed.seconds
         if "links" in rec:
             rec["links_per_s"] = rec["links"] / rec["s"]
         if self.dev.type == "cuda":

@@ -71,6 +71,15 @@ BatchNorm statistics, the Adam moments and the logits stay float32, so
 such a run's checkpoint has the float32 run's keys and dtypes.
 ``--dtype float64`` is the float32 run, as in the JAX package, which
 never enables x64.  Preprocessing does not read it.
+
+Spans and stages (``spans.py``): under a profiler each step is the span
+``train.step``, holding ``train.forward`` (the batch gather, node
+features or GCN, embedding rows, the head and the loss),
+``train.backward`` (``zero_grad`` and the backward, the mesh's
+all-reduce included) and ``train.optimizer`` (Adam's step).  Staging a
+split is the stage ``setup.staging``, with ``setup.plans``,
+``setup.sketches`` and ``setup.features`` inside it where it builds
+plans, sketches or subgraph features.
 """
 
 from __future__ import annotations
@@ -83,6 +92,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from subgraph_sketching_tpu_torch import spans
 from subgraph_sketching_tpu_torch.config import Config
 from subgraph_sketching_tpu_torch.device import resolve_device
 from subgraph_sketching_tpu_torch.graph.preprocess import (
@@ -392,16 +402,19 @@ class _Trainer:
     def _update(self, model: nn.Module, optimizer: torch.optim.Optimizer,
                 loss: torch.Tensor) -> None:
         """The backward, the gradients summed over the mesh's ranks (in
-        the model's flat gradient buffer), and the optimizer's step."""
-        if self.mesh is None:
-            optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-        else:
-            grads = flat_grads(model)
-            grads.zero_grad()
-            loss.backward()
-            grads.all_reduce(self.mesh.group("data"))
-        optimizer.step()
+        the model's flat gradient buffer), and the optimizer's step: the
+        spans ``train.backward`` and ``train.optimizer``."""
+        with spans.span("train.backward"):
+            if self.mesh is None:
+                optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+            else:
+                grads = flat_grads(model)
+                grads.zero_grad()
+                loss.backward()
+                grads.all_reduce(self.mesh.group("data"))
+        with spans.span("train.optimizer"):
+            optimizer.step()
 
     def _init_embedding(self, dataset: LinkDataset) -> None:
         self.use_embedding = uses_embedding(self.cfg)
@@ -422,10 +435,11 @@ class _Trainer:
         ein, wn = gcn_norm(ei.to(self.device), None, ds.num_nodes)
         d = {"emb_norm": (ein, wn)}
         if split == "train" and cfg.use_plan:
-            plan = PlanSpmm.try_build(ein.cpu().numpy(), wn.cpu().numpy(),
-                                      ds.num_nodes,
-                                      max_slots=cfg.max_gather_slots,
-                                      device=self.device)
+            with spans.stage("setup.plans", self.device):
+                plan = PlanSpmm.try_build(ein.cpu().numpy(),
+                                          wn.cpu().numpy(), ds.num_nodes,
+                                          max_slots=cfg.max_gather_slots,
+                                          device=self.device)
             if plan is not None:
                 d["emb_plan"] = plan
         return d
@@ -480,22 +494,23 @@ class BuddyTrainer(_Trainer):
         (sf ‖ label ‖ src degree ‖ dst degree ‖ RA with ``use_RA``, one
         [L, F] float32 array, so a batch is one row gather), the node
         features ``x`` and the embedding diffusion's SpMM
-        (``_stage_embedding``)."""
-        sf = np.asarray(ds.subgraph_features, dtype=np.float32)
-        labels = np.asarray(ds.labels, dtype=np.float32)[:, None]
-        deg = np.asarray(ds.degrees, dtype=np.float32)
-        links = np.asarray(ds.links, dtype=np.int64)
-        cols = [sf, labels, deg[links[:, 0]][:, None],
-                deg[links[:, 1]][:, None]]
-        if self.cfg.use_RA:
-            cols.append(np.asarray(ds.RA, dtype=np.float32)[:, None])
-        rows = np.concatenate(cols, axis=1)
-        d = {"links": torch.from_numpy(links).to(self.device),
-             "rows": torch.from_numpy(rows).to(self.device)}
-        if self.use_feature:
-            d["x"] = torch.from_numpy(
-                np.asarray(ds.x, dtype=np.float32)).to(self.device)
-        d.update(self._stage_embedding(split, ds))
+        (``_stage_embedding``); the stage ``setup.staging``."""
+        with spans.stage("setup.staging", self.device):
+            sf = np.asarray(ds.subgraph_features, dtype=np.float32)
+            labels = np.asarray(ds.labels, dtype=np.float32)[:, None]
+            deg = np.asarray(ds.degrees, dtype=np.float32)
+            links = np.asarray(ds.links, dtype=np.int64)
+            cols = [sf, labels, deg[links[:, 0]][:, None],
+                    deg[links[:, 1]][:, None]]
+            if self.cfg.use_RA:
+                cols.append(np.asarray(ds.RA, dtype=np.float32)[:, None])
+            rows = np.concatenate(cols, axis=1)
+            d = {"links": torch.from_numpy(links).to(self.device),
+                 "rows": torch.from_numpy(rows).to(self.device)}
+            if self.use_feature:
+                d["x"] = torch.from_numpy(
+                    np.asarray(ds.x, dtype=np.float32)).to(self.device)
+            d.update(self._stage_embedding(split, ds))
         self._sf_dim = sf.shape[1]
         self._data[split] = d
         # positive count, for pos/neg-aligned eval subsampling (citation2)
@@ -565,14 +580,17 @@ class BuddyTrainer(_Trainer):
         model.train()
         losses = torch.empty(steps, device=self.device)
         for step in range(steps):
-            batch = self._batch(data, perm[step])
-            emb = (gather_rows(self.embedding_table(model, data, g),
-                               batch["links"])
-                   if self.use_embedding else None)
-            logits = self._apply(model, batch, g, emb)
-            loss = self.loss_fn(logits, batch["labels"], batch["mask"])
-            self._update(model, optimizer, loss)
-            losses[step] = loss.detach()
+            with spans.span("train.step"):
+                with spans.span("train.forward"):
+                    batch = self._batch(data, perm[step])
+                    emb = (gather_rows(self.embedding_table(model, data, g),
+                                       batch["links"])
+                           if self.use_embedding else None)
+                    logits = self._apply(model, batch, g, emb)
+                    loss = self.loss_fn(logits, batch["labels"],
+                                        batch["mask"])
+                self._update(model, optimizer, loss)
+                losses[step] = loss.detach()
         return losses
 
     @torch.inference_mode()
@@ -654,21 +672,27 @@ class ElphTrainer(_Trainer):
                 and held[0].shape == edge_index.shape
                 and np.array_equal(held[0], edge_index)):
             return held[2]
+        dev = self.device
         if self._has_graph:
             # edge-sharded: each rank's block of the (padded) edges
-            ei, mask = pad_edges(edge_index, self.mesh.axis_size("graph"))
-            sk = edge_sharded_build_hash_tables(
-                ei, num_nodes, self.sketch_params, self.mesh, mask=mask,
-                max_gather_slots=self.cfg.max_gather_slots)
+            with spans.stage("setup.sketches", dev):
+                ei, mask = pad_edges(edge_index,
+                                     self.mesh.axis_size("graph"))
+                sk = edge_sharded_build_hash_tables(
+                    ei, num_nodes, self.sketch_params, self.mesh, mask=mask,
+                    max_gather_slots=self.cfg.max_gather_slots)
         else:
-            plan = (make_auto_plan(edge_index, num_nodes,
-                                   max_slots=self.cfg.max_gather_slots,
-                                   device=self.device)
-                    if self.cfg.use_plan else None)
-            sk = build_hash_tables(edge_index, num_nodes, self.sketch_params,
-                                   plan=plan,
-                                   hops_only=self.cfg.hops_only_sketches,
-                                   device=self.device)
+            plan = None
+            if self.cfg.use_plan:
+                with spans.stage("setup.plans", dev):
+                    plan = make_auto_plan(edge_index, num_nodes,
+                                          max_slots=self.cfg.max_gather_slots,
+                                          device=dev)
+            with spans.stage("setup.sketches", dev):
+                sk = build_hash_tables(edge_index, num_nodes,
+                                       self.sketch_params, plan=plan,
+                                       hops_only=self.cfg.hops_only_sketches,
+                                       device=dev)
         self._sk_graph = (edge_index, num_nodes, sk)
         return sk
 
@@ -683,54 +707,57 @@ class ElphTrainer(_Trainer):
         SpMM; and the embedding diffusion's SpMM (``_stage_embedding``,
         apart from the GCN's)."""
         dev = self.device
-        params = self.sketch_params
-        extra = {}
-        if self.cfg.use_struct_feature is False:
-            sf = torch.zeros((len(ds.links), params.sf_dim),
-                             dtype=torch.float32, device=dev)
-        elif self._memory_sharded:
-            sf = None   # assembled per batch from the node-sharded tables
-            extra = self._stage_memory_sharded(split, ds)
-        elif ds.sketches is not None and ds.sketch_perm is not None:
-            # POSITION-ordered node-sharded tables (a BUDDY split built
-            # under a graph mesh): node ids go through the permutation
-            if not self._has_graph:
-                raise ValueError(
-                    "the dataset carries node-sharded sketches but this "
-                    "trainer has no 'graph' mesh axis; build the dataset "
-                    "without a mesh or give --mesh_axes a graph axis")
-            sf = node_sharded_subgraph_features_batched(
-                ds.links, ds.sketches, params, self.mesh,
-                perm=ds.sketch_perm,
-                batch_size=min(self.cfg.subgraph_feature_batch_size,
-                               1 << 18))
-        else:
-            sk = (ds.sketches if ds.sketches is not None
-                  else self.graph_sketches(ds.edge_index, ds.num_nodes))
-            if self._has_lane:
-                sf = lane_sharded_subgraph_features_batched(
-                    ds.links, sk, params, self.mesh)
+        with spans.stage("setup.staging", dev):
+            params = self.sketch_params
+            extra = {}
+            if self.cfg.use_struct_feature is False:
+                sf = torch.zeros((len(ds.links), params.sf_dim),
+                                 dtype=torch.float32, device=dev)
+            elif self._memory_sharded:
+                sf = None   # assembled per batch from the node-sharded tables
+                extra = self._stage_memory_sharded(split, ds)
+            elif ds.sketches is not None and ds.sketch_perm is not None:
+                # POSITION-ordered node-sharded tables (a BUDDY split built
+                # under a graph mesh): node ids go through the permutation
+                if not self._has_graph:
+                    raise ValueError(
+                        "the dataset carries node-sharded sketches but this "
+                        "trainer has no 'graph' mesh axis; build the dataset "
+                        "without a mesh or give --mesh_axes a graph axis")
+                with spans.stage("setup.features", dev):
+                    sf = node_sharded_subgraph_features_batched(
+                        ds.links, ds.sketches, params, self.mesh,
+                        perm=ds.sketch_perm,
+                        batch_size=min(self.cfg.subgraph_feature_batch_size,
+                                       1 << 18))
             else:
-                sf = subgraph_features_batched(ds.links, sk, params)
-        d = {"links": torch.from_numpy(
-                 np.asarray(ds.links, dtype=np.int64)).to(dev),
-             "labels": torch.from_numpy(
-                 np.asarray(ds.labels, dtype=np.float32)).to(dev),
-             "num_nodes": ds.num_nodes, **extra,
-             "edge_index": torch.from_numpy(
-                 np.asarray(ds.edge_index, dtype=np.int64)).to(dev),
-             "edge_weight": torch.from_numpy(
-                 np.asarray(ds.edge_weight, dtype=np.float32)).to(dev)}
-        if sf is not None:
-            d["sf"] = sf
-        if self.use_feature:
-            d["x"] = torch.from_numpy(
-                np.asarray(ds.x, dtype=np.float32)).to(dev)
-            d.update(self._stage_spmm(split, ds, d))
-        d.update(self._stage_embedding(split, ds))
-        self._data[split] = d
-        # positive count, for pos/neg-aligned eval subsampling (citation2)
-        self._num_pos[split] = int(np.asarray(ds.labels).sum())
+                sk = (ds.sketches if ds.sketches is not None
+                      else self.graph_sketches(ds.edge_index, ds.num_nodes))
+                with spans.stage("setup.features", dev):
+                    if self._has_lane:
+                        sf = lane_sharded_subgraph_features_batched(
+                            ds.links, sk, params, self.mesh)
+                    else:
+                        sf = subgraph_features_batched(ds.links, sk, params)
+            d = {"links": torch.from_numpy(
+                     np.asarray(ds.links, dtype=np.int64)).to(dev),
+                 "labels": torch.from_numpy(
+                     np.asarray(ds.labels, dtype=np.float32)).to(dev),
+                 "num_nodes": ds.num_nodes, **extra,
+                 "edge_index": torch.from_numpy(
+                     np.asarray(ds.edge_index, dtype=np.int64)).to(dev),
+                 "edge_weight": torch.from_numpy(
+                     np.asarray(ds.edge_weight, dtype=np.float32)).to(dev)}
+            if sf is not None:
+                d["sf"] = sf
+            if self.use_feature:
+                d["x"] = torch.from_numpy(
+                    np.asarray(ds.x, dtype=np.float32)).to(dev)
+                d.update(self._stage_spmm(split, ds, d))
+            d.update(self._stage_embedding(split, ds))
+            self._data[split] = d
+            # positive count, for pos/neg-aligned eval subsampling (citation2)
+            self._num_pos[split] = int(np.asarray(ds.labels).sum())
 
     def _stage_spmm(self, split: str, ds: LinkDataset, d: dict) -> dict:
         """``{"plan": PlanSpmm}`` or ``{"norm": (edge_index, weight)}`` for
@@ -752,11 +779,12 @@ class ElphTrainer(_Trainer):
             # this rank's block of the gcn_norm'd edges (the whole graph's
             # degrees), its SpMM summed over the graph axis
             ein, wn = weighted_edge_block(ein, wn, self.mesh)
-        plan = (PlanSpmm.try_build(ein.cpu().numpy(), wn.cpu().numpy(),
-                                   ds.num_nodes,
-                                   max_slots=self.cfg.max_gather_slots,
-                                   device=self.device)
-                if self.cfg.use_plan else None)
+        plan = None
+        if self.cfg.use_plan:
+            with spans.stage("setup.plans", self.device):
+                plan = PlanSpmm.try_build(
+                    ein.cpu().numpy(), wn.cpu().numpy(), ds.num_nodes,
+                    max_slots=self.cfg.max_gather_slots, device=self.device)
         if self._has_graph:
             n = ds.num_nodes
             inner = plan if plan is not None else (
@@ -778,11 +806,12 @@ class ElphTrainer(_Trainer):
         self._ms_graphs[split] = (ds.edge_index, ds.num_nodes)
         if reuse is not None:
             return {k: self._data[reuse][k] for k in ("sk_shard", "sk_perm")}
-        part = make_node_partition(ds.edge_index, ds.num_nodes,
-                                   self.mesh.axis_size("graph"))
-        sk = node_sharded_build_hash_tables(
-            part, self.sketch_params, self.mesh,
-            max_gather_rows=self.cfg.max_gather_slots)
+        with spans.stage("setup.sketches", self.device):
+            part = make_node_partition(ds.edge_index, ds.num_nodes,
+                                       self.mesh.axis_size("graph"))
+            sk = node_sharded_build_hash_tables(
+                part, self.sketch_params, self.mesh,
+                max_gather_rows=self.cfg.max_gather_slots)
         return {"sk_shard": sk, "sk_perm": torch.from_numpy(
             part.perm.astype(np.int64)).to(self.device)}
 
@@ -872,17 +901,23 @@ class ElphTrainer(_Trainer):
         model.train()
         losses = torch.empty(perm.shape[0], device=self.device)
         for step, idx in enumerate(perm):
-            safe = idx.clamp(min=0)   # -1 padding reads link 0, masked
-            links = data["links"][safe]
-            feats = self.node_features(model, data, g)
-            nf = gather_rows(feats, links) if feats is not None else None
-            emb = (gather_rows(self.embedding_table(model, data, g), links)
-                   if self.use_embedding else None)
-            logits = model.predictor(self.batch_features(data, safe, links),
-                                     nf, emb, generator=g)
-            loss = self.loss_fn(logits, data["labels"][safe], idx >= 0)
-            self._update(model, optimizer, loss)
-            losses[step] = loss.detach()
+            with spans.span("train.step"):
+                with spans.span("train.forward"):
+                    safe = idx.clamp(min=0)  # -1 padding reads link 0, masked
+                    links = data["links"][safe]
+                    feats = self.node_features(model, data, g)
+                    nf = (gather_rows(feats, links) if feats is not None
+                          else None)
+                    emb = (gather_rows(self.embedding_table(model, data, g),
+                                       links)
+                           if self.use_embedding else None)
+                    logits = model.predictor(
+                        self.batch_features(data, safe, links), nf, emb,
+                        generator=g)
+                    loss = self.loss_fn(logits, data["labels"][safe],
+                                        idx >= 0)
+                self._update(model, optimizer, loss)
+                losses[step] = loss.detach()
         return losses
 
     @torch.inference_mode()

@@ -25,7 +25,8 @@ and ELPH trained twice bit for bit.  The streaming updates' merges
 (int8 amax and biased-int32 amin by ``scatter_reduce_``) equal the CPU's;
 weighted inserts and deletes with RA leave the stacks bit-equal to a
 rebuild on the card and to the CPU's updates; ``DeviceHeuristics`` on
-the card agrees with the host functions.
+the card agrees with the host functions.  A span's device seconds
+(``spans.py``) agree with CUDA events recorded around the same call.
 They skip without a CUDA device.
 
 This file imports no jax, so it also runs where jax is not installed:
@@ -697,6 +698,37 @@ def test_plan_spmm_runs_forward_and_backward_on_the_kernel(cuda, width):
     (ref_grad,) = torch.autograd.grad((ref * t).sum(), x)
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(grad, ref_grad, rtol=1e-4, atol=1e-5)
+
+
+def test_span_device_seconds_agree_with_events(cuda):
+    """A span's device seconds (``spans.py``: its own event pair on the
+    current stream, read after the call) agree within 5% with CUDA events
+    recorded around the same call, under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from subgraph_sketching_tpu_torch import spans
+    g = torch.Generator(device="cuda").manual_seed(17)
+    a = torch.randn((4096, 4096), generator=g, device="cuda")
+
+    def work():
+        for _ in range(20):
+            a @ a
+
+    work()
+    torch.cuda.synchronize()
+    spans.reset()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        start.record()
+        with spans.span("probe"):
+            work()
+        end.record()
+        torch.cuda.synchronize()
+    got = spans.totals()["probe"]
+    want = start.elapsed_time(end) / 1e3
+    assert got["count"] == 1
+    assert abs(got["device_s"] - want) <= 0.05 * want, (got, want)
 
 
 def test_gather_rows_backward_is_deterministic_on_the_card(cuda):

@@ -28,8 +28,9 @@ print(" ".join(names))
 
 # the training slice's modules, the dataset slice's (loading, LCC, RA
 # and the plan builder's build), ELPH's, the node embeddings', the
-# heuristics tier's, the SEAL and KGE tiers', the multi-process layer's
-# and the command-line tools', which must be among those imported
+# heuristics tier's, the SEAL and KGE tiers', the multi-process layer's,
+# the command-line tools' and the spans', which must be among those
+# imported
 REQUIRED = {"train", "train.losses", "train.evaluation", "train.inference",
             "train.loops", "train.checkpoint", "train.determinism",
             "runners.run", "metrics_logging", "utils",
@@ -46,7 +47,7 @@ REQUIRED = {"train", "train.losses", "train.evaluation", "train.inference",
             "parallel.dist_sketch", "parallel.scaling", "device",
             "tools", "tools.citation2_train", "tools.repro_baseline",
             "tools.run_protocol", "tools.scale_equality",
-            "tools.gen_hll_tables"}
+            "tools.gen_hll_tables", "spans"}
 
 
 def test_port_imports_no_jax():
