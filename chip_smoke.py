@@ -7,8 +7,8 @@ Phases, each printing one JSON line:
 
   device     the card's name and power limit (nvidia-smi)
   build      nvcc of every kernel source (csrc/segscan.cu, gather_reduce.cu,
-             block_prop.cu, dma_gather.cu) and g++ of the plan builder
-             (csrc/plan_build.cpp) and the SEAL extractor
+             block_prop.cu, dma_gather.cu, batch_norm.cu) and g++ of the
+             plan builder (csrc/plan_build.cpp) and the SEAL extractor
              (csrc/seal_extract.cpp), one compiler each, all at once; each
              one's seconds
   kernels    each K1 instance (ops/segscan.py), held against its plain
@@ -55,6 +55,17 @@ Phases, each printing one JSON line:
              own measure() with the launch count read around it; rows/s
              of the kernel and of rows[idx].min(0), and the bound (the
              distinct rows touched, read once, plus the indices)
+  batch_norm the link batch's training-mode BatchNorm kernel
+             (ops/batch_norm.py, csrc/batch_norm.cu) at BUDDY citation2's
+             shapes, a SIGN hop block [261,424, 2, 128] and bn_labels
+             [261,424, 8]: output, gradients and running statistics
+             against its plain version (F.batch_norm per endpoint and
+             var_mean, what the port ran before), two calls bit-equal,
+             one launch a pass; forward, backward and an autograd step
+             timed beside their bound (HBM bytes), the plain version and
+             two library routes (F.batch_norm on the strided endpoint
+             views, and one call on the contiguous [B, P*C] with the
+             parameters tiled)
   profile    the same rebuild and one 262144-link request again under
              torch.profiler: host stage times, device busy time and share,
              the top kernels
@@ -62,10 +73,13 @@ Phases, each printing one JSON line:
              (synth-ws-200000, Config defaults, 2 epochs of 262,144 links,
              BUDDY_TRAIN_SAMPLES, eval every epoch,
              --check_determinism, --save_model), the K1 launch counts read
-             around it (at least 2 min, 2 max and 1 add per message graph);
+             around it (at least 2 min, 2 max and 1 add per message graph)
+             and the BatchNorm kernel's (at least one float32 forward and
+             backward per BatchNorm and trained step, no float64);
              per epoch: loss (finite, falling), train and eval seconds,
              trained links/s, Hits@100; peak memory.  Then the device idle
-             share over 200 steps under torch.profiler, and the saved
+             share over 200 steps under torch.profiler (no library
+             BatchNorm kernel among them), and the saved
              checkpoint served by scorer_from_checkpoint: its scores for
              65536 random links equal to the trainer's predict within 1e-4
   train_reference  a small BUDDY (synth-ws, hidden 32, dropout 0) trained 2
@@ -361,7 +375,8 @@ import time
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 VECTOR_OPS_PER_S = 67e12       # float32 outside the tensor cores, same sheet
 CSRC = "subgraph_sketching_tpu_torch/csrc"
-KERNEL_LIBS = ("segscan", "gather_reduce", "block_prop", "dma_gather")
+KERNEL_LIBS = ("segscan", "gather_reduce", "block_prop", "dma_gather",
+               "batch_norm")
 PLAN_BUILDER = "plan_build"    # csrc/plan_build.cpp: host code, built by g++
 SEAL_EXTRACTOR = "seal_extract"   # csrc/seal_extract.cpp: host code, g++
 # library name -> the TPU kernel it replaces (file:line of the pallas_call's
@@ -369,7 +384,9 @@ SEAL_EXTRACTOR = "seal_extract"   # csrc/seal_extract.cpp: host code, g++
 REPLACES = {"segscan": "subgraph_sketching_tpu/ops/pallas_segscan.py:103",
             "gather_reduce": "studies/pallas_gather_reduce.py:95",
             "block_prop": "studies/pallas_sketch_prop.py:134",
-            "dma_gather": "studies/pallas_dma_gather_rate.py:72"}
+            "dma_gather": "studies/pallas_dma_gather_rate.py:72",
+            "batch_norm": "none: PyTorch's BatchNorm over the link batch "
+                          "(models/gnn.py BatchNorm)"}
 REQUEST_SIZES = (1024, 8192, 65536, 262144)
 # The BUDDY runs of the train, dp and bf16 phases train this many links an
 # epoch (256 steps of the default batch 1024; the full width, cut in
@@ -996,6 +1013,114 @@ def phase_k4(seed: int = 0) -> dict:
                      nb * dg.BLOCK * w)}
 
 
+# BUDDY citation2's training-mode BatchNorms over the link batch: a SIGN
+# hop block's two endpoints, and bn_labels over the sketch features
+BN_SHAPES = {"sign_block": (261424, 2, 128), "bn_labels": (261424, 1, 8)}
+
+
+def phase_batch_norm(seed: int = 20) -> list:
+    """The BatchNorm kernel at ``BN_SHAPES``: against its plain version on
+    the card (every part within 1e-4 relative and 1e-4 of its largest
+    magnitude, or of 1: two float32 summation orders over 261,424 rows),
+    two calls bit-equal, one launch a pass; then forward, backward and an
+    autograd step by events around 10 calls, beside the bound and the
+    plain and library routes."""
+    import torch
+    import torch.nn.functional as F
+
+    from subgraph_sketching_tpu_torch.ops import batch_norm as bn
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    eps, mom = 1e-5, 0.1
+    records = []
+    for name, (rows, planes, ch) in BN_SHAPES.items():
+        shape = (rows, planes, ch)
+        x = 1.5 * torch.randn(shape, generator=g, device="cuda") + 0.3
+        dy = torch.randn(shape, generator=g, device="cuda")
+        w = torch.rand(ch, generator=g, device="cuda") + 0.5
+        b = torch.randn(ch, generator=g, device="cuda")
+
+        def run(fn):
+            rm = torch.zeros(ch, device="cuda")
+            rv = torch.ones(ch, device="cuda")
+            xs, ws, bs = (t.clone().requires_grad_() for t in (x, w, b))
+            y = fn(xs, ws, bs, rm, rv, mom, eps)
+            return [y.detach(), *torch.autograd.grad(y, (xs, ws, bs), dy),
+                    rm, rv]
+
+        before = dict(bn.launches)
+        got, again = run(bn.batch_norm_train), run(bn.batch_norm_train)
+        launched = {k: bn.launches[k] - before[k] for k in before}
+        want = run(bn.batch_norm_train_plain)
+        torch.cuda.synchronize()
+        parts = ("y", "dx", "dweight", "dbias", "running_mean",
+                 "running_var")
+        err = {k: float((a.double() - c.double()).abs().max())
+               for k, a, c in zip(parts, got, want)}
+        for k, a, c in zip(parts, got, want):
+            torch.testing.assert_close(
+                a, c, rtol=1e-4, atol=1e-4 * max(1.0, float(c.abs().max())),
+                msg=lambda m, k=k: f"batch_norm {name} {k}: {m}")
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            raise AssertionError(f"batch_norm {name}: two calls differ")
+        if launched != {"batch_norm_forward_f32": 2,
+                        "batch_norm_backward_f32": 2,
+                        "batch_norm_forward_f64": 0,
+                        "batch_norm_backward_f64": 0}:
+            raise AssertionError(f"batch_norm {name}: launches {launched}")
+
+        rm, rv = torch.zeros(ch, device="cuda"), torch.ones(ch, device="cuda")
+        _, mean, invstd = bn._forward(x, w, b, rm, rv, mom, eps)
+        fwd_ms = cuda_ms(lambda: bn._forward(x, w, b, rm, rv, mom, eps),
+                         iters=10, warmup=2)
+        bwd_ms = cuda_ms(lambda: bn._backward(dy, x, w, mean, invstd, True),
+                         iters=10, warmup=2)
+        xr, wr, br = (t.clone().requires_grad_() for t in (x, w, b))
+
+        def step_ms(fn):
+            def go():
+                y = fn(xr, wr, br)
+                torch.autograd.grad(y, (xr, wr, br), dy)
+            return cuda_ms(go, iters=10, warmup=2)
+
+        def strided(xs, ws, bs):
+            return torch.stack([F.batch_norm(xs[:, p], None, None, ws, bs,
+                                             True, 0.0, eps)
+                                for p in range(planes)], dim=1)
+
+        def contiguous(xs, ws, bs):
+            return F.batch_norm(xs.view(rows, planes * ch), None, None,
+                                ws.repeat(planes), bs.repeat(planes), True,
+                                0.0, eps).view(shape)
+
+        kernel_ms = step_ms(lambda xs, ws, bs: bn.batch_norm_train(
+            xs, ws, bs, rm, rv, mom, eps))
+        plain_ms = step_ms(lambda xs, ws, bs: bn.batch_norm_train_plain(
+            xs, ws, bs, rm, rv, mom, eps))
+        strided_ms = step_ms(strided)
+        contiguous_ms = step_ms(contiguous)
+        n = x.numel() * x.element_size()
+        vec, tx, ty, per, chunks = bn._layout(x)
+        records.append({
+            "phase": "batch_norm", "name": f"batch_norm_f32 {name}",
+            "shape": list(shape), "layout": {"vec": vec, "tx": tx, "ty": ty,
+                                             "rows_per_chunk": per,
+                                             "chunks": chunks},
+            "launches": launched, "max_abs_err": err,
+            "tolerance": "1e-4 rel + 1e-4 of max(1, the part's largest "
+                         "magnitude); two calls bit-equal",
+            "forward_ms": fwd_ms, "forward_bound_ms":
+                _bound(3 * n, 0)["bound_ms"],
+            "backward_ms": bwd_ms, "backward_bound_ms":
+                _bound(5 * n, 0)["bound_ms"],
+            "kernel_ms": kernel_ms, **_bound(8 * n, 0), "plain_ms": plain_ms,
+            "library_ms": contiguous_ms,
+            "library_strided_ms": strided_ms,
+            "library_contiguous_ms": contiguous_ms})
+        del x, dy, got, again, want, xr
+    return records
+
+
 def _device_time(prof) -> tuple:
     """(busy ms, {kernel name: [ms, count]}) from the CUDA events of a
     torch.profiler run.  User annotations that the profiler puts on the
@@ -1103,9 +1228,11 @@ def phase_train(splits, seed: int = 4) -> dict:
     """BUDDY training at full width through the runner's entry point:
     ``runners.run.run`` on synth-ws-200000 at Config defaults, 2 epochs of
     BUDDY_TRAIN_SAMPLES links, eval every epoch, --check_determinism and
-    --save_model, with the K1
-    launch counts read around it.  Then, apart from that run: the device
-    idle share over 200 steps under torch.profiler, and the saved
+    --save_model, with the K1 and BatchNorm kernel launch counts read
+    around it (each BatchNorm of each trained step one forward and one
+    backward float32 pass).  Then, apart from that run: the device idle
+    share over 200 steps under torch.profiler (no library BatchNorm kernel
+    among them), and the saved
     checkpoint served by ``scorer_from_checkpoint``, whose scores for 65536
     random links must equal the trainer's ``predict`` within 1e-4."""
     import math
@@ -1119,7 +1246,8 @@ def phase_train(splits, seed: int = 4) -> dict:
         build_all_splits, build_link_dataset,
     )
     from subgraph_sketching_tpu_torch.graph.splits import SplitData
-    from subgraph_sketching_tpu_torch.ops import segscan
+    from subgraph_sketching_tpu_torch.models.gnn import BatchNorm
+    from subgraph_sketching_tpu_torch.ops import batch_norm, segscan
     from subgraph_sketching_tpu_torch.ops.cuda_build import BUILD_DIR
     from subgraph_sketching_tpu_torch.runners.run import build_trainer, run
     from subgraph_sketching_tpu_torch.serving import scorer_from_checkpoint
@@ -1131,8 +1259,9 @@ def phase_train(splits, seed: int = 4) -> dict:
     cfg = Config(dataset_name="synth-ws-200000", epochs=2, eval_steps=1,
                  train_samples=BUDDY_TRAIN_SAMPLES, check_determinism=True,
                  save_model=True, checkpoint_dir=ckpt)
-    for k in segscan.launches:
-        segscan.launches[k] = 0
+    for counts in (segscan.launches, batch_norm.launches):
+        for k in counts:
+            counts[k] = 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1140,6 +1269,7 @@ def phase_train(splits, seed: int = 4) -> dict:
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = dict(segscan.launches)
+    bn_launches = dict(batch_norm.launches)
     peak_memory = torch.cuda.max_memory_allocated()
 
     graphs = message_graphs(splits)
@@ -1176,6 +1306,17 @@ def phase_train(splits, seed: int = 4) -> dict:
     model = trainer.init_model(0)
     opt = make_optimizer(cfg, model.parameters())
     step = checkpoint.restore_into(ckpt, model, opt)
+    # every training-mode BatchNorm of every trained step through the
+    # kernel: one forward and one backward pass each, float32 only
+    bns = sum(isinstance(m, BatchNorm) for m in model.modules())
+    least = bns * cfg.epochs * steps
+    if bn_launches["batch_norm_forward_f32"] < least \
+            or bn_launches["batch_norm_backward_f32"] < least \
+            or bn_launches["batch_norm_forward_f64"] \
+            or bn_launches["batch_norm_backward_f64"]:
+        raise AssertionError(f"the training run's {bns} BatchNorms over "
+                             f"{cfg.epochs} x {steps} steps did not run "
+                             f"through the kernel: {bn_launches}")
 
     # device idle share over 200 steps of an epoch (after 10 warm steps)
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -1190,6 +1331,10 @@ def phase_train(splits, seed: int = 4) -> dict:
         torch.cuda.synchronize()
         window_s = time.perf_counter() - t1
     busy_ms, per = _device_time(prof)
+    library_bn = [k for k in per if "batch_norm" in k]
+    if library_bn:
+        raise AssertionError(f"a library BatchNorm ran in the training "
+                             f"step: {library_bn}")
     idle = {"steps": math.ceil(len(window) / bs), "window_ms": window_s * 1e3,
             "device_busy_ms": busy_ms,
             "device_idle_share": 1 - busy_ms / (window_s * 1e3),
@@ -1232,6 +1377,7 @@ def phase_train(splits, seed: int = 4) -> dict:
             "determinism": "epoch 0 bit-identical on two runs",
             "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
             "peak_memory_bytes": peak_memory, "k1_launches": launches,
+            "batch_norms": bns, "bn_launches": bn_launches,
             "message_graphs": graphs, "restored_step": step,
             "profile": idle, "served_links": len(links),
             "served_max_abs_err": serve_err}
@@ -6008,6 +6154,9 @@ def main() -> int:
         emit(r)
     k4 = phase_k4()
     emit(k4)
+    bn_records = phase_batch_norm()
+    for r in bn_records:
+        emit(r)
     emit(phase_profile(cfg))
     train = phase_train(splits)
     emit(train)
@@ -6124,6 +6273,15 @@ def main() -> int:
         for r in served if "name" in r] + [
         line({**k4, "library_ms": k4["torch_gather_min_ms"]},
              "dma_gather")] + [
+        {"name": r["name"], "route": "cuda",
+         "source": f"{CSRC}/batch_norm.cu", "replaces": REPLACES["batch_norm"],
+         "launches": r["launches"], "train_launches": train["bn_launches"],
+         "max_abs_err": r["max_abs_err"],
+         "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+         "library_ms": r["library_ms"],
+         "library_strided_ms": r["library_strided_ms"]}
+        for r in bn_records] + [
         {"name": f"{name} (chunk merge, citation2 scale)", "route": "cuda",
          "source": f"{CSRC}/segscan.cu", "replaces": REPLACES["segscan"],
          "launches": r["launches"], "max_abs_err": r["max_abs_err"],

@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from subgraph_sketching_tpu_torch.ops.batch_norm import batch_norm_train
 from subgraph_sketching_tpu_torch.ops.graph_ops import (
     edge_orders, gcn_norm, spmm,
 )
@@ -108,6 +109,13 @@ class BatchNorm(nn.BatchNorm1d):
     statistics follow the JAX package's.  Eval mode and the state_dict
     (parameter and buffer names) are ``BatchNorm1d``'s.
 
+    ``x`` is [B, C], or [B, P, C]: the P rows of each link (SIGN's two
+    endpoints) share the parameters and each take their own statistics,
+    as P calls on ``x[:, p]`` in order would (each updating the running
+    statistics and ``num_batches_tracked``).  Training mode over a whole
+    batch, unmasked, is ``ops/batch_norm.py``'s ``batch_norm_train``: one
+    pass over the block on the card, ``F.batch_norm`` per p on the CPU.
+
     With ``mask`` ([rows] bool, training mode only) the statistics are
     taken over the rows where it is set, as flax's masked BatchNorm takes
     them (SEALGIN's real nodes): the mean, and the variance as
@@ -142,6 +150,11 @@ class BatchNorm(nn.BatchNorm1d):
 
     def _normalise(self, x: torch.Tensor,
                    mask: Optional[torch.Tensor]) -> torch.Tensor:
+        if self.training and mask is None and self.mesh is None:
+            return self._whole_batch(x)
+        if x.dim() == 3:
+            return torch.stack([self._normalise(x[:, p], mask)
+                                for p in range(x.shape[1])], dim=1)
         if not self.training:
             return super().forward(x)
         if mask is not None:
@@ -149,17 +162,22 @@ class BatchNorm(nn.BatchNorm1d):
                 raise NotImplementedError("a masked BatchNorm over a "
                                           "batch split across ranks")
             return self._masked(x, mask.reshape(-1, 1))
-        if self.mesh is not None:
-            return self._across_ranks(x)
-        out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                           self.eps)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=0, correction=0)
-            m = self.momentum
-            self.running_mean.mul_(1 - m).add_(mean, alpha=m)
-            self.running_var.mul_(1 - m).add_(var, alpha=m)
-            self.num_batches_tracked.add_(1)
-        return out
+        return self._across_ranks(x)
+
+    def _whole_batch(self, x: torch.Tensor) -> torch.Tensor:
+        """Training mode over a batch held whole here: each of the P
+        planes of [B, P, C] (P = 1 for [B, C]) by its batch statistics."""
+        planes = x.reshape(x.shape[0], -1, self.num_features)
+        if planes.is_cuda:
+            # the kernel reads contiguous rows: a strided input (BUDDY's RA
+            # column of the staged rows) is copied; the CPU's F.batch_norm
+            # reads it as it lies, as before
+            planes = planes.contiguous()
+        out = batch_norm_train(planes, self.weight, self.bias,
+                               self.running_mean, self.running_var,
+                               self.momentum, self.eps)
+        self.num_batches_tracked.add_(planes.shape[1])
+        return out.reshape(x.shape)
 
     def _masked(self, x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
         count = m.sum().to(x.dtype)
@@ -253,7 +271,8 @@ class SIGN(nn.Module):
     Linear+BN+ReLU+Dropout, then blocks are concatenated and mixed
     (reference src/models/gnn.py:169-191).  BatchNorm is applied per link
     endpoint with shared parameters, like the reference's bn(h[:,0])/bn(h[:,1])
-    (in training mode each call updates the running statistics, as in flax).
+    (in training mode each endpoint updates the running statistics, as in
+    flax): ``BatchNorm`` takes the [B, 2, C] block in one pass.
     Submodules ``lin_{k}``, ``bn_{k}``, ``lin_out`` mirror the flax names;
     ``dtype`` is their compute dtype.
     """
@@ -277,7 +296,7 @@ class SIGN(nn.Module):
         for k, x in enumerate(torch.chunk(xs, self.K + 1, dim=-1)):
             h = getattr(self, f"lin_{k}")(x)
             bn = getattr(self, f"bn_{k}")
-            h = torch.stack([bn(h[:, 0, :]), bn(h[:, 1, :])], dim=1)
+            h = bn(h)   # both endpoints, each by its own statistics
             hs.append(self.dropout(torch.relu(h), generator))
         return self.lin_out(torch.cat(hs, dim=-1))
 

@@ -1290,3 +1290,113 @@ def test_citation2_stages_on_the_card_match_the_cpu(cuda):
     metrics = c2.main([f"--{k}={v}" for k, v in
                        dataclasses.asdict(sizes).items()])
     assert all(np.isfinite(metrics["epoch_loss"]))
+
+
+# ---------------------------------------------- the link batch's BatchNorm --
+
+# (rows, planes, channels): a citation2 SIGN hop block, a ragged batch,
+# bn_labels over the sketch features (C = 8) and bn_RA (C = 1); a float64
+# block for the reference runs
+BN_CASES = [((261424, 2, 128), torch.float32), ((100003, 2, 128),
+                                                torch.float32),
+            ((261424, 1, 8), torch.float32), ((261424, 1, 1), torch.float32),
+            ((4099, 2, 6), torch.float32), ((20011, 2, 128), torch.float64)]
+# two summation orders over up to 261,424 rows: float32 within 1e-4
+# relative and 1e-4 of the part's largest magnitude (or of 1); float64
+# within 1e-10 of it
+BN_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
+
+
+def _bn_run(fn, x, w, b, dy):
+    from subgraph_sketching_tpu_torch.models.gnn import BN_EPS, BN_MOMENTUM
+    c = x.shape[2]
+    rm = torch.zeros(c, dtype=x.dtype, device=x.device)
+    rv = torch.ones(c, dtype=x.dtype, device=x.device)
+    xs, ws, bs = (t.clone().requires_grad_() for t in (x, w, b))
+    y = fn(xs, ws, bs, rm, rv, BN_MOMENTUM, BN_EPS)
+    return [y.detach(), *torch.autograd.grad(y, (xs, ws, bs), dy), rm, rv]
+
+
+@pytest.mark.parametrize("shape,dtype", BN_CASES)
+def test_batch_norm_kernel_matches_plain_and_repeats(cuda, shape, dtype):
+    """The kernel against its plain version (F.batch_norm per endpoint and
+    var_mean): output, the gradients of x, weight and bias, the running
+    statistics; two calls bit-equal; one launch a pass."""
+    from subgraph_sketching_tpu_torch.ops import batch_norm as bn
+    g = torch.Generator(device="cuda").manual_seed(shape[0])
+    x = 1.5 * torch.randn(shape, generator=g, device=cuda, dtype=dtype) + 0.3
+    dy = torch.randn(shape, generator=g, device=cuda, dtype=dtype)
+    w = torch.rand(shape[2], generator=g, device=cuda, dtype=dtype) + 0.5
+    b = torch.randn(shape[2], generator=g, device=cuda, dtype=dtype)
+    suffix = "f32" if dtype == torch.float32 else "f64"
+    before = dict(bn.launches)
+    got = _bn_run(bn.batch_norm_train, x, w, b, dy)
+    assert bn.launches[f"batch_norm_forward_{suffix}"] \
+        == before[f"batch_norm_forward_{suffix}"] + 1
+    assert bn.launches[f"batch_norm_backward_{suffix}"] \
+        == before[f"batch_norm_backward_{suffix}"] + 1
+    again = _bn_run(bn.batch_norm_train, x, w, b, dy)
+    want = _bn_run(bn.batch_norm_train_plain, x, w, b, dy)
+    tol = BN_TOL[dtype]
+    for name, a, c, d in zip(("y", "dx", "dweight", "dbias", "running_mean",
+                              "running_var"), got, again, want):
+        assert torch.equal(a, c), name
+        torch.testing.assert_close(
+            a, d, rtol=tol, atol=tol * max(1.0, float(d.abs().max())),
+            msg=lambda m, name=name: f"{name}: {m}")
+
+
+def test_batch_norm_kernel_skips_dx_for_an_input_without_gradient(cuda):
+    from subgraph_sketching_tpu_torch.ops import batch_norm as bn
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((5000, 1, 1), generator=g, device=cuda)
+    w = torch.ones(1, device=cuda, requires_grad=True)
+    b = torch.zeros(1, device=cuda, requires_grad=True)
+    y = bn.batch_norm_train(x, w, b, torch.zeros(1, device=cuda),
+                            torch.ones(1, device=cuda), 0.1, 1e-5)
+    dw, db = torch.autograd.grad(y, (w, b), torch.ones_like(y))
+    torch.testing.assert_close(db, torch.full((1,), 5000.0, device=cuda))
+    torch.testing.assert_close(dw, torch.zeros(1, device=cuda), atol=1e-2,
+                               rtol=0)
+
+
+def test_batch_norm_kernel_refuses_what_it_does_not_take(cuda):
+    from subgraph_sketching_tpu_torch.ops import batch_norm as bn
+    x = torch.randn((64, 2, 8), device=cuda)
+    w = torch.ones(8, device=cuda)
+    stats = (torch.zeros(8, device=cuda), torch.ones(8, device=cuda))
+    with pytest.raises(ValueError, match="no kernel"):
+        bn.batch_norm_train(x.half(), w.half(), w.half(), *stats, 0.1, 1e-5)
+    with pytest.raises(ValueError, match="not contiguous"):
+        bn.batch_norm_train(torch.randn((64, 8, 2), device=cuda)
+                            .transpose(1, 2), w, w, *stats, 0.1, 1e-5)
+
+
+def test_sign_block_on_the_card_takes_one_kernel_pass_a_block(cuda):
+    """A SIGN(k=3) on the card: one forward and one backward launch for
+    each hop block's [B, 2, C] BatchNorm, and the same outputs,
+    gradients and running statistics as on the CPU."""
+    import copy
+
+    from subgraph_sketching_tpu_torch.models.gnn import SIGN
+    from subgraph_sketching_tpu_torch.ops import batch_norm as bn
+    torch.manual_seed(4)
+    cpu = SIGN(16, 128, 64, K=3, dropout=0.0).train()
+    card = copy.deepcopy(cpu).to(cuda)
+    x = torch.randn(3000, 2, 64)
+    before = dict(bn.launches)
+    y = card(x.to(cuda))
+    y.square().sum().backward()
+    want = cpu(x)
+    want.square().sum().backward()
+    assert bn.launches["batch_norm_forward_f32"] \
+        == before["batch_norm_forward_f32"] + 4
+    assert bn.launches["batch_norm_backward_f32"] \
+        == before["batch_norm_backward_f32"] + 4
+    torch.testing.assert_close(y.cpu(), want.detach(), rtol=1e-4, atol=1e-4)
+    for (name, p), q in zip(card.named_parameters(), cpu.parameters()):
+        torch.testing.assert_close(p.grad.cpu(), q.grad, rtol=1e-3,
+                                   atol=1e-3, msg=name)
+    for (name, p), q in zip(card.named_buffers(), cpu.buffers()):
+        torch.testing.assert_close(p.cpu(), q, rtol=1e-5, atol=1e-6,
+                                   msg=name)

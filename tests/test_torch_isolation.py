@@ -29,8 +29,8 @@ print(" ".join(names))
 # the training slice's modules, the dataset slice's (loading, LCC, RA
 # and the plan builder's build), ELPH's, the node embeddings', the
 # heuristics tier's, the SEAL and KGE tiers', the multi-process layer's,
-# the command-line tools' and the spans', which must be among those
-# imported
+# the command-line tools', the spans' and the link batch's BatchNorm's,
+# which must be among those imported
 REQUIRED = {"train", "train.losses", "train.evaluation", "train.inference",
             "train.loops", "train.checkpoint", "train.determinism",
             "runners.run", "metrics_logging", "utils",
@@ -47,7 +47,7 @@ REQUIRED = {"train", "train.losses", "train.evaluation", "train.inference",
             "parallel.dist_sketch", "parallel.scaling", "device",
             "tools", "tools.citation2_train", "tools.repro_baseline",
             "tools.run_protocol", "tools.scale_equality",
-            "tools.gen_hll_tables", "spans"}
+            "tools.gen_hll_tables", "spans", "ops.batch_norm"}
 
 
 def test_port_imports_no_jax():

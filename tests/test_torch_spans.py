@@ -19,7 +19,7 @@ from subgraph_sketching_tpu_torch import spans
 from subgraph_sketching_tpu_torch.config import Config
 from subgraph_sketching_tpu_torch.graph.datasets import get_data
 from subgraph_sketching_tpu_torch.graph.preprocess import build_link_dataset
-from subgraph_sketching_tpu_torch.models.gnn import GCNConv
+from subgraph_sketching_tpu_torch.models.gnn import BatchNorm, GCNConv
 from subgraph_sketching_tpu_torch.ops import cuda_build
 from subgraph_sketching_tpu_torch.train import loops
 
@@ -86,8 +86,10 @@ def test_span_records_nothing_without_a_profiler():
 @pytest.mark.parametrize("model", ["BUDDY", "ELPH"])
 def test_training_step_spans_under_the_profiler(model):
     """One of each phase a step, one PlanSpmm pass each way a GCN layer a
-    step (ELPH), each among the profiler's events; on the CPU a span's
-    device seconds are its host clock's, and the phases fit in the step."""
+    step (ELPH), one BatchNorm forward a BatchNorm a step (on the CPU the
+    plain version has no backward span), each among the profiler's
+    events; on the CPU a span's device seconds are its host clock's, and
+    the phases fit in the step."""
     trainer, _ = _built(model)
     net, opt = _model_and_opt(trainer)
     trainer.run_epoch(net, opt, 1, order=_order(trainer))   # warm
@@ -105,6 +107,10 @@ def test_training_step_spans_under_the_profiler(model):
         for name in ("spmm.forward", "spmm.backward"):
             assert got[name]["count"] == layers * STEPS, name
         want |= {"spmm.forward", "spmm.backward"}
+    bns = sum(isinstance(m, BatchNorm) for m in net.modules())
+    assert bns >= 2
+    assert got["bn.forward"]["count"] == bns * STEPS
+    want.add("bn.forward")
     assert set(got) == want
     for t in got.values():
         assert t["device_s"] > 0
